@@ -1,0 +1,56 @@
+"""Carry states and params across from numpy arrays (for example a JAX
+state taken with ``np.asarray``) into the port, and back.
+
+An R-TBS state is the item pytree (leaves [cap, ...]), ``nfull``, ``weight``
+(the sample weight C) and ``total_weight`` (W). Adapter params: linreg
+``[dim+1]``, naive_bayes ``(log_prior, log_like)``, knn ``{x, y, valid}``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch import _device
+from repro_torch.core import latent as lt
+from repro_torch.core.rtbs import RTBSState
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device=device, dtype=dtype)
+
+
+def rtbs_state_from_numpy(items: Any, nfull, weight, total_weight, *,
+                          device=None) -> RTBSState:
+    dev = _device.resolve(device)
+    return RTBSState(
+        lat=lt.Latent(items=pytree.tree_map(lambda a: _t(a, dev), items),
+                      nfull=_t(nfull, dev, torch.int64),
+                      weight=_t(weight, dev, torch.float32)),
+        total_weight=_t(total_weight, dev, torch.float32),
+    )
+
+
+def rtbs_state_to_numpy(state: RTBSState) -> dict:
+    return {
+        "items": pytree.tree_map(lambda a: a.cpu().numpy(), state.lat.items),
+        "nfull": state.lat.nfull.cpu().numpy(),
+        "weight": state.lat.weight.cpu().numpy(),
+        "total_weight": state.total_weight.cpu().numpy(),
+    }
+
+
+def params_from_numpy(model: str, params: Any, *, device=None) -> Any:
+    """Adapter params of ``model`` ("linreg", "naive_bayes" or "knn")."""
+    dev = _device.resolve(device)
+    if model == "linreg":
+        return _t(params, dev, torch.float32)
+    if model == "naive_bayes":
+        return tuple(_t(p, dev, torch.float32) for p in params)
+    if model == "knn":
+        return {"x": _t(params["x"], dev, torch.float32),
+                "y": _t(params["y"], dev, torch.int32),
+                "valid": _t(params["valid"], dev, torch.bool)}
+    raise ValueError(f"no params conversion for model {model!r}")

@@ -1,0 +1,174 @@
+"""The Sampler API: a scheme bound to its hyperparameters behind one
+``init / step / extract / size`` interface (the JAX package's
+``repro.core.api``).
+
+Only R-TBS (``"rtbs"``) is ported so far; the other scheme names raise
+``ValueError`` naming the ROADMAP queue that ports them.
+
+Conventions:
+  * ``init(item_proto)`` takes a pytree of tensors shaped like ONE item, on
+    the sampler's device, and returns the state;
+  * ``step(key, state, batch_items, bcount)`` consumes one batch (leaves
+    [bcap, ...], valid prefix ``bcount``, a 0-d device tensor);
+  * ``extract(key, state)`` realizes the sample as a :class:`SampleView`
+    and ``size(key, state)`` is its payload-free size for the same key;
+  * keys are :class:`repro_torch.core.prng.Key`; nothing syncs to the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch import _device
+from repro_torch.decay import DecayedState, DecaySchedule
+from repro_torch.decay import resolve as _resolve_schedule
+
+from . import latent as lt
+from . import prng, rtbs
+
+
+@dataclasses.dataclass
+class SampleView:
+    """A realized sample: ``items`` leaves [cap, ...], ``mask`` bool [cap],
+    ``size`` int64 (== mask.sum()). Rows with mask False are garbage."""
+
+    items: Any
+    mask: torch.Tensor
+    size: torch.Tensor
+
+
+pytree.register_dataclass(SampleView)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sampler:
+    """A sampling scheme bound to its hyperparameters and device."""
+
+    scheme: str
+    init: Callable[[Any], Any]
+    step: Callable[..., Any]
+    extract: Callable[[prng.Key, Any], SampleView]
+    size: Callable[[prng.Key, Any], torch.Tensor]
+    hyper: Mapping[str, Any]
+    device: torch.device
+
+    def __repr__(self) -> str:
+        hp = ", ".join(f"{k}={v}" for k, v in self.hyper.items())
+        return f"Sampler({self.scheme}, {hp})"
+
+
+def materialize_view(view: SampleView) -> SampleView:
+    """Pack a realized sample's selected rows to the buffer head through the
+    reservoir_compact kernel (B2), so consumers see a dense [0, size)
+    prefix; ``mask.sum() == size`` is preserved."""
+    items = lt.compact_items(view.items, view.mask)
+    cap = view.mask.shape[0]
+    mask = torch.arange(cap, device=view.mask.device) < view.size
+    return SampleView(items=items, mask=mask, size=view.size)
+
+
+_REGISTRY: dict[str, Callable[..., Sampler]] = {}
+
+# schemes of the JAX package that later slices port, by ROADMAP queue item
+_NOT_PORTED = {
+    "ttbs": "A.3", "btbs": "A.3", "brs": "A.3", "sw": "A.3",
+    "dttbs": "A.7", "drtbs": "A.7",
+}
+
+
+def register(name: str):
+    """Decorator: register a ``**hyper -> Sampler`` builder under ``name``."""
+
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def available_schemes() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def make_sampler(scheme: str, *, device=None, **hyper) -> Sampler:
+    """Construct a registered scheme, e.g. ``make_sampler("rtbs", n=300,
+    lam=0.1)``. ``device=None`` means the CUDA card (raises without one)."""
+    builder = _REGISTRY.get(scheme)
+    if builder is None:
+        if scheme in _NOT_PORTED:
+            raise ValueError(
+                f"sampling scheme {scheme!r} is not ported to repro_torch yet "
+                f"(ROADMAP queue {_NOT_PORTED[scheme]}); available: "
+                f"{available_schemes()}")
+        raise ValueError(
+            f"unknown sampling scheme {scheme!r}; available: {available_schemes()}")
+    return builder(device=_device.resolve(device), **hyper)
+
+
+def _thread_schedule(sched: DecaySchedule, device: torch.device, *, init,
+                     step_d, extract, size) -> dict:
+    """Wire a schedule into a scheme's decay-parametric closures. Constant
+    schedules bake the factor in (one f32 device tensor made here, not per
+    tick) and keep the bare state; time-varying ones wrap the state in
+    :class:`DecayedState` and pull ``d`` from the schedule each tick."""
+    if sched.static_rate is not None:
+        d0 = torch.full((), sched.static_rate, dtype=torch.float32,
+                        device=device)
+
+        def step(key, state, batch_items, bcount):
+            return step_d(key, state, batch_items, bcount, d0)
+
+        return dict(init=init, step=step, extract=extract, size=size)
+
+    def init_w(proto):
+        return DecayedState(dstate=sched.init(device), inner=init(proto))
+
+    def step_w(key, state, batch_items, bcount):
+        d, dstate = sched.tick(state.dstate)
+        return DecayedState(dstate=dstate,
+                            inner=step_d(key, state.inner, batch_items, bcount, d))
+
+    def unwrap(fn):
+        return lambda key, state: fn(key, state.inner)
+
+    return dict(init=init_w, step=step_w, extract=unwrap(extract),
+                size=unwrap(size))
+
+
+def _decay_hyper(sched: DecaySchedule, lam) -> dict:
+    h = {"decay": sched}
+    if lam is not None:
+        h["lam"] = lam
+    return h
+
+
+@register("rtbs")
+def _make_rtbs(*, n: int, lam: float | None = None,
+               decay: DecaySchedule | None = None,
+               device: torch.device) -> Sampler:
+    """R-TBS (paper Alg. 2): bounded size + exact time bias at any rate."""
+    sched = _resolve_schedule(lam, decay)
+
+    def step_d(key, state, batch_items, bcount, d):
+        return rtbs.step(key, state, batch_items, bcount, n=n, decay=d)
+
+    def extract(key, state):
+        mask, size = rtbs.realize(key, state)
+        return SampleView(items=state.lat.items, mask=mask, size=size)
+
+    def size(key, state):
+        u = prng.uniform(key, state.lat.weight.shape, state.lat.weight.device)
+        k, take, _ = lt.partial_draw(u, state.lat.weight)
+        return k + take.to(torch.int64)
+
+    return Sampler(
+        scheme="rtbs",
+        hyper={"n": n, **_decay_hyper(sched, lam)},
+        device=device,
+        **_thread_schedule(sched, device,
+                           init=lambda proto: rtbs.init(proto, n),
+                           step_d=step_d, extract=extract, size=size),
+    )

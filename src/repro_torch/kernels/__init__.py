@@ -1,0 +1,34 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/``), each beside a plain
+PyTorch version of the same function.
+
+  * tbs_step          -- B1, the R-TBS tick's two-source payload pass
+                         (replaces the Pallas ``tbs_step`` kernel).
+  * reservoir_compact -- B2, stable compaction of a realized sample
+                         (replaces the Pallas ``reservoir_compact`` kernel).
+  * swap_delete       -- H1, the delete-complement loop of the downsample
+                         map, whose trip count lives on the device.
+
+Each ``ops`` wrapper launches its kernel for CUDA tensors (or raises) and
+runs the plain version for CPU tensors only. The kernels are compiled from
+``csrc/*.cu`` at first use (:mod:`._build`).
+"""
+from __future__ import annotations
+
+from .reservoir_compact import ops as _rc
+from .swap_delete import ops as _sd
+from .tbs_step import ops as _ts
+
+WRAPPERS = {
+    "tbs_step_apply": _ts.tbs_step_apply,
+    "reservoir_compact": _rc.reservoir_compact,
+    "swap_delete": _sd.swap_delete,
+}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

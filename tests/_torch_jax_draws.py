@@ -1,0 +1,60 @@
+"""Replays of the JAX package's key tree, for the port's tests.
+
+The port's functions take their random bits and uniforms as operands. These
+helpers draw exactly the bits and uniforms the JAX functions draw from a
+given ``jax.random`` key, so a test can feed them to the port and compare
+the results bit for bit.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro_torch.core import latent as tl
+from repro_torch.core import rtbs as trt
+
+
+def t(x, dtype=None):
+    """numpy/JAX array -> CPU torch tensor (uint32 widened to int64)."""
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.array(a, copy=True)).to(dtype) if dtype else \
+        torch.from_numpy(np.array(a, copy=True))
+
+
+def son_bits(key, rounds=16):
+    return t(jax.random.bits(key, (rounds, 2), jnp.uint32))
+
+
+def uniform(key, shape=()):
+    return t(jax.random.uniform(key, shape, jnp.float32))
+
+
+def ds_draws(key, cap, max_deleted=None):
+    """``latent.downsample_map``'s draws: kperm, ku = split(key)."""
+    kperm, ku = jax.random.split(key)
+    small = None
+    if max_deleted is not None and max_deleted > 0:
+        D = min(int(max_deleted), cap)
+        small = t(jax.random.bits(kperm, (D + 2,), jnp.uint32))
+    return tl.DownsampleDraws(u=uniform(ku), rb_full=son_bits(kperm),
+                              rb_small=small)
+
+
+def tick_draws(key, cap, bcap):
+    """``rtbs.tick_map``'s draws: k_ds, k_over, k_m, k_vic, k_pick."""
+    k_ds, k_over, k_m, k_vic, k_pick = jax.random.split(key, 5)
+    return trt.TickDraws(ds=ds_draws(k_ds, cap, bcap),
+                         over=ds_draws(k_over, cap + bcap, bcap),
+                         u_m=uniform(k_m), rb_vic=son_bits(k_vic),
+                         rb_pick=son_bits(k_pick))
+
+
+def id_stream(batch_sizes, bcap):
+    """Integer items 1000 * (t + 1) + j, as tests/test_tbs_step.py makes them."""
+    T = len(batch_sizes)
+    batches = np.zeros((T, bcap), np.int32)
+    for i, b in enumerate(batch_sizes):
+        batches[i, :b] = 1000 * (i + 1) + np.arange(b)
+    return batches, np.asarray(batch_sizes, np.int32)

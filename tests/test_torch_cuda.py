@@ -1,0 +1,121 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA card with ``nvcc`` (a CUDA kernel has no
+interpret mode) and skips without one. On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import prng
+from repro_torch.kernels.reservoir_compact import ops as rc_ops
+from repro_torch.kernels.reservoir_compact import ref as rc_ref
+from repro_torch.kernels.swap_delete import ops as sd_ops
+from repro_torch.kernels.swap_delete import ref as sd_ref
+from repro_torch.kernels.tbs_step import ops as ts_ops
+from repro_torch.kernels.tbs_step import ref as ts_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _payload(shape, dtype, g, dev):
+    if dtype == torch.bool:
+        return torch.rand(shape, generator=g, device=dev) < 0.5
+    if dtype in (torch.int8, torch.int32, torch.int64):
+        return torch.randint(-100, 100, shape, generator=g, device=dev).to(dtype)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("T,cap,bcap,tail,dtype", [
+    (1, 1025, 64, (2,), torch.float32),     # 8-byte rows
+    (1, 33, 8, (3,), torch.int8),           # 3-byte rows: 1-byte words
+    (2, 300, 40, (3,), torch.bfloat16),     # 6-byte rows, banked T = 2
+    (3, 128, 16, (), torch.bool),
+    (1, 2000, 100, (100,), torch.float32),  # 400-byte rows: 16-byte words
+    (1, 77, 9, (5,), torch.int64),
+])
+def test_tbs_step_kernel_equals_plain(dev, T, cap, bcap, tail, dtype):
+    g = torch.Generator(device=dev).manual_seed(cap)
+    items = _payload((T, cap) + tail, dtype, g, dev)
+    batch = _payload((T, bcap) + tail, dtype, g, dev)
+    # includes out-of-range entries, which both clamp
+    src = torch.randint(-3, cap + bcap + 3, (T, cap), generator=g, device=dev)
+    n0 = ts_ops.tbs_step_apply.launches
+    got = ts_ops.tbs_step_apply(items, batch, src)
+    want = ts_ref.apply_ref(items.reshape(T, cap, -1), batch.reshape(T, bcap, -1),
+                            src).reshape(items.shape)
+    torch.cuda.synchronize()
+    assert ts_ops.tbs_step_apply.launches == n0 + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cap,tail,dtype,p", [
+    (1, (2,), torch.float32, 1.0), (1023, (), torch.float32, 0.5),
+    (1025, (3,), torch.int8, 0.3), (5000, (2,), torch.bfloat16, 0.9),
+    (70_000, (), torch.int32, 0.01), (4096, (100,), torch.float32, 0.0),
+])
+def test_reservoir_compact_kernel_equals_plain(dev, cap, tail, dtype, p):
+    g = torch.Generator(device=dev).manual_seed(cap)
+    items = _payload((cap,) + tail, dtype, g, dev)
+    mask = torch.rand((cap,), generator=g, device=dev) < p
+    got, cnt = rc_ops.reservoir_compact(items, mask)
+    want, wcnt = rc_ref.compact_ref(items.reshape(cap, -1), mask)
+    torch.cuda.synchronize()
+    assert cnt.dtype == torch.int32 and int(cnt) == int(wcnt) == int(mask.sum())
+    assert torch.equal(got, want.reshape(items.shape))
+
+
+@pytest.mark.parametrize("L,D,trips,k", [(64, 8, [8, 0, 3], [40, 40, 5]),
+                                         (5000, 300, [300, 17], [4999, 320])])
+def test_swap_delete_kernel_equals_plain(dev, L, D, trips, k):
+    trips = torch.tensor(trips, device=dev)
+    k = torch.tensor(k, device=dev)
+    bits = prng.bits(prng.key(L), (trips.numel(), D + 2), dev)
+    got = sd_ops.swap_delete(L, trips, k, bits, D)
+    want = sd_ref.swap_delete_ref(L, trips, k, bits, D)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_tick_on_card_equals_cpu_and_does_not_sync(dev):
+    from repro_torch.core.api import make_sampler
+    from repro_torch.data.streams import LinRegStream
+    from repro_torch.manage import make_model, make_run_loop, materialize_stream
+
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        batches, bcounts = materialize_stream(
+            LinRegStream(seed=2), 12, batch_size=lambda t: 64 if t < 6 else 8,
+            bcap=64, device=d)
+        sampler = make_sampler("rtbs", n=255, lam=0.05, device=d)
+        run = make_run_loop(sampler, make_model("linreg", device=d), retrain_every=3)
+        outs[d.type] = run(prng.key(1), batches, bcounts)
+    (sg, _, tg), (sc, _, tc) = outs["cuda"], outs["cpu"]
+    for a, b in zip(torch.utils._pytree.tree_leaves(sg),
+                    torch.utils._pytree.tree_leaves(sc)):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(tg["size"].cpu(), tc["size"])
+
+    from repro_torch.manage import make_manage_step
+
+    sampler = make_sampler("rtbs", n=255, lam=0.05)
+    model = make_model("linreg")
+    tick = make_manage_step(sampler, model, retrain_every=3)
+    batch = {"x": torch.rand(64, 2, device=dev), "y": torch.rand(64, device=dev)}
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tick(prng.key(0), 0, sg, model.init(), batch, torch.full((), 64, device=dev))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.launches()["tbs_step_apply"] == 2

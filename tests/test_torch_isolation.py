@@ -1,0 +1,82 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points default to the CUDA card and never fall back to the CPU, and
+its kernel wrappers run their plain versions only for CPU tensors."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+MODULES = [
+    "repro_torch", "repro_torch._device", "repro_torch.convert",
+    "repro_torch.core", "repro_torch.core.prng", "repro_torch.core.rng",
+    "repro_torch.core.latent", "repro_torch.core.rtbs", "repro_torch.core.api",
+    "repro_torch.kernels", "repro_torch.kernels._build",
+    "repro_torch.kernels.tbs_step.ops", "repro_torch.kernels.tbs_step.kernel",
+    "repro_torch.kernels.reservoir_compact.ops",
+    "repro_torch.kernels.reservoir_compact.kernel",
+    "repro_torch.kernels.swap_delete.ops", "repro_torch.kernels.swap_delete.kernel",
+    "repro_torch.decay", "repro_torch.decay.schedules", "repro_torch.data.streams",
+    "repro_torch.models.simple_ml", "repro_torch.manage",
+    "repro_torch.manage.models", "repro_torch.manage.loop",
+    "repro_torch.obs.profile",
+]
+
+
+def test_imports_without_jax_or_the_jax_package():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        f"import importlib\nfor m in {MODULES!r}:\n    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')"
+        " or m.startswith('jax')]\n"
+        "assert not [m for m in bad if sys.modules[m] is not None], bad\n"
+        "print('isolated', len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "isolated" in out.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in src and "from repro " not in src
+    assert "from repro." not in src and "import repro\n" not in src
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch import convert
+    from repro_torch.core.api import make_sampler
+    from repro_torch.data.streams import LinRegStream
+    from repro_torch.decay import decay_profile, exponential
+    from repro_torch.manage import make_model, materialize_stream
+
+    for call in (lambda: make_sampler("rtbs", n=4, lam=0.1),
+                 lambda: make_model("linreg"),
+                 lambda: materialize_stream(LinRegStream(), 2, batch_size=3),
+                 lambda: decay_profile(exponential(0.1), 3),
+                 lambda: convert.params_from_numpy("linreg", [0.0, 0.0, 0.0])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
+    from repro_torch import kernels
+    from repro_torch.kernels.reservoir_compact.ops import reservoir_compact
+    from repro_torch.kernels.swap_delete.ops import swap_delete
+    from repro_torch.kernels.tbs_step.ops import tbs_step_apply
+
+    kernels.reset_launches()
+    tbs_step_apply(torch.arange(5.0), torch.ones(2), torch.tensor([5, 0, 1, 6, 2]))
+    reservoir_compact(torch.arange(5.0), torch.tensor([1, 0, 1, 0, 1]).bool())
+    swap_delete(6, torch.tensor(2), torch.tensor(5), torch.tensor([7, 3, 1]), 2)
+    assert kernels.launches() == {"tbs_step_apply": 0, "reservoir_compact": 0,
+                                  "swap_delete": 0}
