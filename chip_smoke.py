@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            # all phases, one card, exits 0 on success
 
-Drives the port's main path (``repro_torch``: R-TBS sampler + linreg retrain
+Drives the port's main paths (``repro_torch``: R-TBS sampler + linreg retrain
 + prequential eval through ``make_sampler`` / ``make_model`` /
-``materialize_stream`` / ``make_run_loop``) at full state size, after
+``materialize_stream`` / ``make_run_loop``, and the keyed sampler bank
+through ``make_bank`` / ``make_bank_run_loop``) at full state size, after
 building every CUDA kernel from ``src/repro_torch/kernels/csrc`` and holding
 each against its plain PyTorch version on the card. Imports neither JAX nor
 the JAX package. Every check raises on failure; no phase catches its own.
@@ -20,7 +21,14 @@ the JAX package. Every check raises on failure; no phase catches its own.
      ``materialize_view``, ticks per second and a profiled tick;
   4. the same path at cap = 4096 on the card and on the CPU: bit for bit;
   5. naive_bayes on a 100-word bag-of-words stream;
-  6. the ``kernels`` JSON line, the card line, and the result line.
+  6. the keyed bank (``make_bank`` / ``make_bank_run_loop``) at K = 2^20
+     tenants, n = 64, b = 65,536 arrivals a tick: ticks and keyed items per
+     second, B3 (tbs_step_apply_banked) launched on every tick and equal to
+     its plain version, the [K] columns' W recurrence and pending product
+     on every tick, a tick under ``set_sync_debug_mode("error")``, a
+     profiled retrain tick, B3's time against its bound and against the
+     unfused composition, and card == CPU at K = 4096;
+  7. the ``kernels`` JSON line, the card line, and the result line.
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -338,38 +346,41 @@ def phase_main(torch, np, kernels):
 
 _SCOPES = ("manage.eval", "manage.sampler_step", "rtbs.tick_map", "rtbs.payload",
            "manage.retrain", "manage.size")
+_BANK_SCOPES = ("manage.eval", "manage.sampler_step", "bank.decay", "bank.route",
+                "bank.tick_map", "bank.payload", "manage.retrain", "manage.size")
 
 
-def _breakdown(torch, prof, wall_ms: float) -> dict:
+def _breakdown(torch, prof, wall_ms: float, tag: str = "[3]", scopes=_SCOPES,
+               named=(("B1 kernel", "tbs_step_apply_kernel"),
+                      ("H1 kernel", "swap_delete_kernel"))) -> dict:
     """Device time of one profiled tick: kernel time summed over the device's
-    kernel events, each scope's share (the kernels launched under it), and
-    the device's idle share of the tick's wall time."""
+    kernel events, each scope's share (the kernels launched under it), the
+    ctypes-launched kernels by name (the profiler does not put them under a
+    scope), and the device's idle share of the tick's wall time."""
     from torch.autograd import DeviceType
 
     evs = prof.events()
     kern = [e for e in evs
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(e.device_time_total for e in kern) / 1e3
-    res = {"wall_ms": wall_ms, "device_ms": busy, "kernels": len(kern),
-           "B1 kernel": sum(e.device_time_total for e in kern
-                            if "tbs_step_apply_kernel" in e.name) / 1e3,
-           "H1 kernel": sum(e.device_time_total for e in kern
-                            if "swap_delete_kernel" in e.name) / 1e3}
+    res = {"wall_ms": wall_ms, "device_ms": busy, "kernels": len(kern)}
+    for label, sub in named:
+        res[label] = sum(e.device_time_total for e in kern if sub in e.name) / 1e3
     for e in evs:
-        if e.device_type == DeviceType.CPU and e.name in _SCOPES:
+        if e.device_type == DeviceType.CPU and e.name in scopes:
             res[e.name] = res.get(e.name, 0.0) + e.device_time_total / 1e3
-    print(f"[3] profiled retrain tick: wall {wall_ms:.3f} ms, device busy "
+    print(f"{tag} profiled retrain tick: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms in {len(kern)} kernels, idle "
           f"{100 * (1 - busy / wall_ms):.1f} % of the tick")
-    for k in ("B1 kernel", "H1 kernel") + _SCOPES:
+    for k in tuple(label for label, _ in named) + tuple(scopes):
         v = res.get(k, 0.0)
-        print(f"[3]   {k:22s} {v:9.3f} ms  {100 * v / max(busy, 1e-9):5.1f} % "
+        print(f"{tag}   {k:22s} {v:9.3f} ms  {100 * v / max(busy, 1e-9):5.1f} % "
               f"of device time")
     by_name = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"[3]   top kernel: {name[:70]:70s} {v:8.3f} ms")
+        print(f"{tag}   top kernel: {name[:70]:70s} {v:8.3f} ms")
     return res
 
 
@@ -438,6 +449,264 @@ def phase_nb(torch, np, kernels):
           f"reservoir {state.lat.items['x'].numel() * 4 / 1e6:.1f} MB, launches "
           f"{launches}, error first/last {m[0]:.3f}/{m[-1]:.3f}, W exact")
 
+# the keyed bank at the DESIGN.md Sec. 13 scale
+K_BANK, N_BANK, B_BANK, BCAP_BANK, LAM_BANK, T_BANK, Q_BANK = 2**20, 64, 65_536, 32, 0.05, 32, 64
+
+
+def _b3_bytes(torch, src, r, row_bytes, cap, bcap):
+    """The least bytes B3's in-place function moves on one tick's operands,
+    for leaves of the given row bytes updated together, counted on the
+    device: each live row's ``touched``, ``starts`` and ``src`` entries once;
+    per leaf, each distinct reservoir row that a moved slot reads, each
+    distinct batch row that a slot takes (its ``order`` entry once for all
+    leaves), and each slot whose row changes, written. A slot that keeps its
+    own row (``src[t, i] == i``) moves nothing. Returns (bytes, slots
+    written per leaf, batch rows taken)."""
+    b = src.shape[0]
+    dev = src.device
+    live = (torch.arange(b, device=dev) < r.ntouched).unsqueeze(-1)
+    s = src.long()
+    own = s < cap
+    j = s.clamp(0, cap - 1)
+    moved = live & own & (j != torch.arange(cap, device=dev))
+    take = live & ~own
+    rd = torch.zeros((b, cap + 1), dtype=torch.bool, device=dev)
+    rd.scatter_(1, torch.where(moved, j, cap), True)    # column cap: no read
+    rb = torch.zeros((b, bcap + 1), dtype=torch.bool, device=dev)
+    rb.scatter_(1, torch.where(take, (s - cap).clamp(0, bcap - 1), bcap), True)
+    n_rd, n_pay = int(rd[:, :cap].sum()), int(rb[:, :bcap].sum())
+    n_wr = int(moved.sum()) + int(take.sum())
+    nt = min(int(r.ntouched), b)
+    nbytes = (sum(B * (n_wr + n_rd + n_pay) for B in row_bytes) + 4 * n_pay
+              + (4 * cap + 8) * nt + 4)
+    return nbytes, n_wr, n_pay
+
+
+def _b3_equal(torch, leaf, pleaf, src, r, bcap, what):
+    """B3 on a copy of ``leaf`` against its plain version on another copy."""
+    from repro_torch.kernels.tbs_step import ops as ts_ops, ref as ts_ref
+
+    got, want = leaf.clone(), leaf.clone()
+    n0 = ts_ops.tbs_step_apply_banked.launches
+    ts_ops.tbs_step_apply_banked(got, pleaf, src, order=r.order, starts=r.starts,
+                                 touched=r.touched, ntouched=r.ntouched, bcap=bcap)
+    K, cap = leaf.shape[:2]
+    ts_ref.banked_ref(want.view(K, cap, -1), pleaf.reshape(pleaf.shape[0], -1), src,
+                      r.order, r.starts, r.touched, r.ntouched, bcap)
+    torch.cuda.synchronize()
+    check(ts_ops.tbs_step_apply_banked.launches == n0 + 1, f"B3 {what} not launched")
+    check(torch.equal(got, want), f"B3 {what} differs from its plain version")
+    print(f"[6] (a) B3 {what}: equal to its plain version bit for bit")
+    return max_abs_err(torch, got, want)
+
+
+def phase_bank(torch, np, kernels, timer, bw, reps):
+    """Phase 6: the keyed R-TBS bank and its manage loop at K = 2^20."""
+    from repro_torch.bank import make_bank, route
+    from repro_torch.bank.bank import _rtbs_tick_map
+    from repro_torch.core import prng
+    from repro_torch.data.streams import KeyedStream, LinRegStream
+    from repro_torch.kernels.tbs_step import ops as ts_ops, ref as ts_ref
+    from repro_torch.manage import (make_bank_manage_step, make_bank_run_loop,
+                                    make_model, materialize_stream)
+
+    K, n, b, bcap, T, Q = K_BANK, N_BANK, B_BANK, BCAP_BANK, T_BANK, Q_BANK
+    cap = n + 1
+    t0 = time.perf_counter()
+    stream = KeyedStream(LinRegStream(seed=0), num_keys=K, alpha=1.1, flip_every=50)
+    batches, bcounts = materialize_stream(stream, T, batch_size=b,
+                                          fields=("key", "x", "y"))
+    torch.cuda.synchronize()
+    print(f"[6] keyed stream: {T} ticks x {b} arrivals over K = {K} keys, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    bank = make_bank("rtbs", num_keys=K, n=n, lam=LAM_BANK, bcap=bcap)
+    model = make_model("linreg", dim=2)
+    key = prng.key(0)
+    run = make_bank_run_loop(bank, model, retrain_every=RETRAIN_EVERY,
+                             train_keys=range(Q))
+    run(key, {f: v[:2] for f, v in batches.items()}, bcounts[:2])   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, params, trace = run(key, batches, bcounts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    items_mb = sum(v.numel() * v.element_size() for v in state.items.values()) / 1e6
+    print(f"[6] bank loop: {T} ticks in {wall:.3f} s = {T / wall:.2f} ticks/s, "
+          f"{T * b / wall:.0f} keyed items/s; bank items {items_mb:.1f} MB on the "
+          f"card; launches {launches}")
+    check(launches["tbs_step_apply_banked"] == 2 * T, "B3 not launched once per leaf per tick")
+    check(launches["swap_delete"] >= T, "H1 not launched on every bank tick")
+    sizes = trace["size"].cpu().numpy()
+    metric = trace["metric"].cpu().numpy()
+    check(sizes.shape == (T, Q) and (sizes <= n).all(), "bank size > n")
+    check(np.isfinite(metric).all(), "non-finite bank metric")
+    check(torch.isfinite(params).all().item(), "non-finite bank params")
+    print(f"[6] sizes of the {Q} train keys at the end: min {sizes[-1].min()} max "
+          f"{sizes[-1].max()}; metric first/last {metric[0]:.4f}/{metric[-1]:.4f}; "
+          f"overflow per tick {trace['overflow'].cpu().numpy().tolist()[:4]}...")
+    del state
+
+    # (b) the tick body by hand: W_{t+1} = d_eff W_t + B_t and pending on the host
+    tick = make_bank_manage_step(bank, model, retrain_every=RETRAIN_EVERY,
+                                 train_keys=range(Q))
+    st = bank.init({"x": torch.zeros(2, device="cuda"), "y": torch.zeros((), device="cuda")})
+    p = model.init()
+    d = np.float32(math.exp(-LAM_BANK))
+    W = np.zeros(K, np.float32)
+    pend = np.ones(K, np.float32)
+    keys_h = batches["key"].cpu().numpy()
+    nts = []
+    for t in range(T):
+        bt = {f: v[t] for f, v in batches.items()}
+        st, p, _ = tick(key, t, st, p, bt, bcounts[t])
+        pend = (pend * d).astype(np.float32)
+        u, c = np.unique(keys_h[t, : int(bcounts[t])], return_counts=True)
+        W[u] = (pend[u] * W[u]).astype(np.float32) + np.minimum(c, bcap).astype(np.float32)
+        pend[u] = 1.0
+        nts.append(len(u))
+        check(np.array_equal(st.total_weight.cpu().numpy(), W), f"tick {t}: W column")
+        check(np.array_equal(st.pending.cpu().numpy(), pend), f"tick {t}: pending column")
+    check((st.nfull.cpu().numpy() <= n).all(), "nfull > n")
+    print(f"[6] ntouched per tick: {nts}")
+    print(f"[6] (b) W = d_eff W + B exact in f32 and pending = product of the d's "
+          f"since the last touch, for all {K} keys on all {T} ticks")
+
+    # (c) one non-retrain tick under set_sync_debug_mode("error")
+    t_free = T
+    check((t_free + 1) % RETRAIN_EVERY != 0, "sync-check tick must not retrain")
+    bt = {f: v[T - 1] for f, v in batches.items()}
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st2, p2, _ = tick(key, t_free, st, p, bt, bcounts[T - 1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(kernels.launches()["tbs_step_apply_banked"] == 2, "sync-check tick: B3")
+    print("[6] (c) one non-retrain bank tick ran under set_sync_debug_mode('error'): "
+          "no host sync")
+
+    # profile one retrain tick
+    prof_t = 4 * RETRAIN_EVERY - 1
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st2, p2, _ = tick(key, prof_t, st2, p2, bt, bcounts[T - 1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile = _breakdown(torch, prof, wall_ms, "[6]", _BANK_SCOPES,
+                         (("B3 kernel", "tbs_step_banked_kernel"),
+                          ("H1 kernel", "swap_delete_kernel")))
+
+    # (a) and B3's time at this shape, on one tick's real operands, made by
+    # the bank's own tick up to its payload pass
+    r, src, *_ = _rtbs_tick_map(prng.key(5), st2, bt["key"], bcounts[T - 1],
+                                st2.pending * bank.base_rate(st2), n=n, bcap=bcap)
+    payload = {"x": bt["x"], "y": bt["y"]}
+    err = max(_b3_equal(torch, st2.items["x"], payload["x"], src, r, bcap,
+                        "x f32[., 2] at K = 2^20"),
+              _b3_equal(torch, st2.items["y"], payload["y"], src, r, bcap,
+                        "y f32[.] at K = 2^20"))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    leaf12 = torch.randn((K, cap, 3), generator=g, device="cuda")
+    pay12 = torch.randn((b, 3), generator=g, device="cuda")
+    err = max(err, _b3_equal(torch, leaf12, pay12, src, r, bcap,
+                             "12-byte rows f32[., 3] at K = 2^20"))
+    del leaf12
+    K400 = 1 << 16
+    keys400 = torch.randint(0, K400, (b,), generator=g, device="cuda")
+    r400 = route(keys400, b, num_keys=K400, bcap=bcap)
+    src400 = torch.randint(-3, cap + bcap + 3, (b, cap), generator=g, device="cuda",
+                           dtype=torch.int32)
+    leaf400 = torch.randn((K400, cap, 100), generator=g, device="cuda")
+    pay400 = torch.randn((b, 100), generator=g, device="cuda")
+    err = max(err, _b3_equal(torch, leaf400, pay400, src400, r400, bcap,
+                             "400-byte rows f32[., 100] at K = 2^16"))
+    del leaf400, pay400
+
+    nt = int(r.ntouched)
+    row_bytes = [leaf[0, 0].numel() * leaf.element_size() for leaf in st2.items.values()]
+    nbytes, n_wr, npay = _b3_bytes(torch, src, r, row_bytes, cap, bcap)
+    bound = nbytes / bw * 1e3
+    # what this design moves: every slot of a touched key staged and written,
+    # src read once per leaf, each batch row taken with its order entry
+    design = sum(nt * (2 * cap * B + 4 * cap + 8) + npay * (B + 4) + 4
+                 for B in row_bytes)
+    items = st2.items
+
+    def fused():
+        ts_ops.tbs_step_apply_banked(items, payload, src, order=r.order, starts=r.starts,
+                                     touched=r.touched, ntouched=r.ntouched, bcap=bcap)
+
+    def plain():
+        for f in ("x", "y"):
+            leaf = items[f]
+            ts_ref.banked_ref(leaf.view(K, cap, -1), payload[f].reshape(b, -1), src,
+                              r.order, r.starts, r.touched, r.ntouched, bcap)
+
+    tt = r.touched[:nt]
+    sidx = (r.starts[:nt, None] + torch.arange(bcap, device="cuda")).clamp(0, b - 1)
+    rows = r.order[sidx]
+
+    def unfused():
+        for f in ("x", "y"):
+            leaf = items[f]
+            items_t = torch.index_select(leaf, 0, tt)
+            sub = payload[f][rows]
+            out = ts_ops.tbs_step_apply(items_t, sub, src[:nt])
+            leaf.index_copy_(0, tt, out)
+
+    check(nt <= 65_535, "unfused yardstick needs ntouched <= 65,535 (B1's grid)")
+    ms = timer(fused, reps)
+    plain_ms = timer(plain, max(3, reps // 4))
+    unf_ms = timer(unfused, reps)
+    print(f"[6] B3 at this shape (ntouched {nt}, {n_wr} of {nt * cap} slots "
+          f"rewritten per leaf, {npay} landing batch rows, x + y leaves): kernel "
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  unfused index_select -> B1 -> "
+          f"index_copy_ {unf_ms:.4f} ms  bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB "
+          f"that the function must move); this design moves {design / 1e6:.3f} MB "
+          f"= {design / bw * 1e3:.4f} ms at the bound's rate")
+    return dict(ticks_per_s=T / wall, items_per_s=T * b / wall, launches=launches,
+                profile=profile,
+                b3=dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                        err=err, unfused_ms=unf_ms))
+
+
+def phase_bank_parity(torch, np):
+    """Phase 6 (d): the bank loop at K = 4096, cap 65, card against CPU."""
+    from repro_torch.bank import make_bank
+    from repro_torch.core import prng
+    from repro_torch.data.streams import KeyedStream, LinRegStream
+    from repro_torch.manage import make_bank_run_loop, make_model, materialize_stream
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        batches, bcounts = materialize_stream(
+            KeyedStream(LinRegStream(seed=1), num_keys=4096, alpha=1.1, flip_every=50),
+            8, batch_size=2048, fields=("key", "x", "y"), device=dev)
+        run = make_bank_run_loop(
+            make_bank("rtbs", num_keys=4096, n=N_BANK, lam=LAM_BANK, bcap=BCAP_BANK,
+                      device=dev),
+            make_model("linreg", dim=2, device=dev), retrain_every=RETRAIN_EVERY,
+            train_keys=range(Q_BANK))
+        out[dev] = run(prng.key(3), batches, bcounts)
+    (sg, pg, tg), (sc, pc, tc) = out["cuda"], out["cpu"]
+    for f in ("x", "y"):
+        check(torch.equal(sg.items[f].cpu(), sc.items[f]), f"bank items[{f}] card != CPU")
+    for f in ("nfull", "weight", "total_weight", "pending", "overflow"):
+        check(torch.equal(getattr(sg, f).cpu(), getattr(sc, f)), f"bank {f} card != CPU")
+    for f in ("size", "overflow"):
+        check(torch.equal(tg[f].cpu(), tc[f]), f"bank trace {f} card != CPU")
+    check(torch.allclose(tg["metric"].cpu(), tc["metric"], rtol=1e-4, atol=1e-5),
+          "bank metrics card vs CPU beyond rtol 1e-4")
+    dm = float((tg["metric"].cpu() - tc["metric"]).abs().max())
+    print(f"[6] (d) K = 4096, cap 65, 8 ticks: card == CPU bit for bit (items, nfull, "
+          f"weight, W, pending, overflow, sizes); metrics max |diff| {dm:.3g}")
+
 
 def main() -> int:
     import torch
@@ -476,17 +745,25 @@ def main() -> int:
     main_res = phase_main(torch, np, kernels)
     phase_cpu_parity(torch, np)
     phase_nb(torch, np, kernels)
+    bank_res = phase_bank(torch, np, kernels, timer, bw, reps=20)
+    phase_bank_parity(torch, np)
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
              "reservoir_compact": ("src/repro_torch/kernels/csrc/reservoir_compact.cu",
                                    "src/repro/kernels/reservoir_compact/kernel.py:49"),
              "swap_delete": ("src/repro_torch/kernels/csrc/swap_delete.cu",
-                             "src/repro/core/latent.py:188")}
+                             "src/repro/core/latent.py:188"),
+             "tbs_step_apply_banked": ("src/repro_torch/kernels/csrc/tbs_step_banked.cu",
+                                       "src/repro/kernels/tbs_step/kernel.py:64")}
+    kres["tbs_step_apply_banked"] = bank_res["b3"]
+    # each kernel's launches from the run of the path it carries
+    runs = dict(main_res["launches"], tbs_step_apply_banked=bank_res["launches"][
+        "tbs_step_apply_banked"])
     rows = []
     for k, r in kres.items():
         rows.append({"name": k, "route": "cuda", "source": where[k][0],
-                     "replaces": where[k][1], "launches": main_res["launches"][k],
+                     "replaces": where[k][1], "launches": runs[k],
                      "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",
                      "library_ms": r["library_ms"]})

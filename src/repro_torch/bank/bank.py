@@ -1,0 +1,370 @@
+"""Keyed multi-tenant sampler banks (the JAX package's ``repro.bank.bank``).
+
+K independent R-TBS reservoirs stored as one stacked structure of arrays
+(payload leaves [K, cap, ...] plus per-key [K] columns) behind an
+``init / step / extract`` protocol, advanced in work proportional to the
+tick's BATCH, not to K:
+
+  * **routing** (:mod:`.routing`): one stable argsort buckets the tick's
+    ``(keys, payload)`` arrivals into at most b per-key segments with a
+    static per-key sub-batch capacity ``bcap``;
+  * **touched keys** are advanced by R-TBS's own fused tick, composed per
+    key: :func:`repro_torch.core.rtbs.tick_map` broadcast over the b routed
+    rows, each row drawing from its own key (the tick key with the key id
+    folded in, on the device), then ONE banked payload pass per item leaf,
+    the B3 kernel (:func:`repro_torch.kernels.tbs_step.ops.
+    tbs_step_apply_banked`), which reads the sub-batches straight from the
+    tick's payload and rewrites the touched reservoirs in place;
+  * **inactive keys** take the pure-decay fast path: every key's
+    ``pending`` factor is multiplied by the tick's decay, one [K] op and no
+    payload movement. The deferred downsample is composed into the key's
+    next touch (the tick map runs with ``d_eff = pending``) or into its
+    extract view; Theorem 4.1 makes the composition exact in distribution.
+
+**A step consumes its state.** The JAX scan carry aliases the bank in
+place; a functional copy here would move the whole bank (about 0.8 GB at
+K = 2^20, cap 65) every tick. So ``step`` writes the touched reservoirs
+into the input state's item tensors and returns a state that shares them:
+the state passed in must not be used afterwards. The [K] columns are new
+tensors. The CPU path has the same semantics.
+
+Nothing in a step is read on the host: the touched count, the scalar
+columns and the decay stay device tensors, and the scalar columns scatter
+through a ``[K + 1]`` buffer whose last row takes the sentinel rows (JAX's
+``mode="drop"``).
+
+Only the ``rtbs`` bank is ported; ``make_bank("ttbs", ...)`` raises,
+naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch import _device
+from repro_torch.core import latent as lt
+from repro_torch.core import prng, rtbs
+from repro_torch.core.api import SampleView
+from repro_torch.decay import DecaySchedule
+from repro_torch.decay import resolve as _resolve_schedule
+from repro_torch.kernels.tbs_step import ops as tbs_ops
+from repro_torch.obs.profile import scope as _scope
+
+from . import routing
+
+_I32, _I64, _F32 = torch.int32, torch.int64, torch.float32
+
+
+@dataclasses.dataclass
+class BankState:
+    """K stacked per-key reservoirs in structure-of-arrays form.
+
+    ``items`` leaves are [K, cap, ...]. For ``rtbs``: ``nfull`` = floor(C)
+    of the STORED latent, ``weight`` = stored sample weight C,
+    ``total_weight`` = W as of the key's last touch. ``pending`` is the
+    per-key composed decay factor since the key's last touch (1.0 right
+    after a touch); the key's effective totals are
+    ``W_eff = pending * total_weight`` and ``C_eff = min(weight, W_eff)``.
+    ``overflow`` counts per-key items dropped by the routing ``bcap``.
+    ``dstate`` is the shared decay-schedule bookkeeping (None for
+    constant-rate schedules)."""
+
+    items: Any
+    nfull: torch.Tensor         # [K] int32
+    weight: torch.Tensor        # [K] float32
+    total_weight: torch.Tensor  # [K] float32
+    pending: torch.Tensor       # [K] float32
+    overflow: torch.Tensor      # [K] int32
+    dstate: Any
+
+
+pytree.register_dataclass(BankState)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SamplerBank:
+    """K per-key sampling schemes bound to their hyperparameters and device.
+
+      * ``init(item_proto) -> BankState``
+      * ``step(key, state, keys, payload, bcount, dt=None) -> BankState``:
+        consume one keyed batch (``keys`` [b], payload leaves [b, ...],
+        valid prefix ``bcount``); ``dt`` is the wall-clock gap the tick
+        spans. Consumes ``state`` (see the module docstring).
+      * ``step_decayed(key, state, keys, payload, bcount, d)``: the step
+        with the tick's decay factor given from outside (scalar or [K]).
+      * ``step_stats`` / ``step_decayed_stats``: the same, returning
+        ``(state, stats)`` with the tick's ``overflow``, ``ntouched``,
+        ``invalid`` and ``decay``, all device tensors, and its
+        ``routing`` (:class:`.routing.Routing`).
+      * ``extract(key, state, key_ids) -> SampleView``: the listed keys'
+        realized samples, stacked (leaves [Q, cap, ...], mask [Q, cap],
+        size [Q]), pending decay settled in the view.
+      * ``size(key, state, key_ids) -> [Q]``: payload-free, equal to
+        ``extract``'s sizes for the same key.
+      * ``base_rate(state, dt=None)``: the schedule's factor this tick.
+
+    ``key_ids`` is a host sequence, checked on the host (an id outside
+    [0, K) raises), or a device tensor, clamped into range; neither form
+    syncs."""
+
+    scheme: str
+    num_keys: int
+    cap: int
+    bcap: int
+    init: Callable[[Any], BankState]
+    step: Callable[..., BankState]
+    step_decayed: Callable[..., BankState]
+    step_stats: Callable[..., tuple]
+    step_decayed_stats: Callable[..., tuple]
+    extract: Callable[..., SampleView]
+    size: Callable[..., torch.Tensor]
+    base_rate: Callable[..., torch.Tensor]
+    hyper: Mapping[str, Any]
+    device: torch.device
+
+    def __repr__(self) -> str:
+        hp = ", ".join(f"{k}={v}" for k, v in self.hyper.items())
+        return f"SamplerBank({self.scheme}, K={self.num_keys}, {hp})"
+
+
+_REGISTRY: dict[str, Callable[..., SamplerBank]] = {}
+
+# bank schemes of the JAX package that later slices port, by ROADMAP item
+_NOT_PORTED = {"ttbs": "A.6 (the ttbs bank, which needs rng.binomial, A.1)"}
+
+
+def register_bank(name: str):
+    """Decorator: register a ``(num_keys=..., device=..., **hyper) ->
+    SamplerBank`` builder under ``name``."""
+
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def available_bank_schemes() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def make_bank(scheme: str, *, num_keys: int, device=None, **hyper) -> SamplerBank:
+    """Construct a registered bank scheme, e.g.
+    ``make_bank("rtbs", num_keys=2**20, n=64, lam=0.05, bcap=32)``.
+    ``device=None`` means the CUDA card (raises without one)."""
+    builder = _REGISTRY.get(scheme)
+    if builder is None:
+        if scheme in _NOT_PORTED:
+            raise ValueError(f"bank scheme {scheme!r} is not ported to repro_torch "
+                             f"yet (ROADMAP queue {_NOT_PORTED[scheme]}); "
+                             f"available: {available_bank_schemes()}")
+        raise ValueError(f"unknown bank scheme {scheme!r}; available: "
+                         f"{available_bank_schemes()}")
+    if num_keys < 1:
+        raise ValueError(f"num_keys must be >= 1; got {num_keys}")
+    return builder(num_keys=num_keys, device=_device.resolve(device), **hyper)
+
+
+# ---------------------------------------------------------------------------
+# shared plumbing
+# ---------------------------------------------------------------------------
+def _init_bank_state(item_proto: Any, num_keys: int, cap: int, init_dstate,
+                     device) -> BankState:
+    """The zeroed K-key state."""
+    items = pytree.tree_map(
+        lambda p: torch.zeros((num_keys, cap) + tuple(p.shape), dtype=p.dtype,
+                              device=device), item_proto)
+    return BankState(
+        items=items,
+        nfull=torch.zeros((num_keys,), dtype=_I32, device=device),
+        weight=torch.zeros((num_keys,), dtype=_F32, device=device),
+        total_weight=torch.zeros((num_keys,), dtype=_F32, device=device),
+        pending=torch.ones((num_keys,), dtype=_F32, device=device),
+        overflow=torch.zeros((num_keys,), dtype=_I32, device=device),
+        dstate=init_dstate(),
+    )
+
+
+def _as_f32(d, device) -> torch.Tensor:
+    """A decay factor (float, 0-d or [K] tensor) as an f32 device tensor,
+    without a host-to-device copy for a float."""
+    if isinstance(d, torch.Tensor):
+        return d.to(device=device, dtype=_F32)
+    return torch.full((), float(d), dtype=_F32, device=device)
+
+
+def _make_steps(sched_tick, advance, device):
+    """(step, step_decayed, step_stats, step_decayed_stats) from a scheme's
+    ``advance(key, state, keys, payload, bcount, d, new_dstate) -> (state,
+    stats)``: ``step`` pulls the tick's factor from the shared schedule
+    (over a wall-clock gap ``dt`` if given); ``step_decayed`` applies an
+    external factor while the schedule's bookkeeping still advances."""
+
+    def step_stats(key, state, keys, payload, bcount, dt=None):
+        d, new_dstate = sched_tick(state.dstate, dt)
+        return advance(key, state, keys, payload, bcount, d, new_dstate)
+
+    def step_decayed_stats(key, state, keys, payload, bcount, d):
+        _, new_dstate = sched_tick(state.dstate, None)
+        return advance(key, state, keys, payload, bcount, _as_f32(d, device),
+                       new_dstate)
+
+    def step(key, state, keys, payload, bcount, dt=None):
+        return step_stats(key, state, keys, payload, bcount, dt)[0]
+
+    def step_decayed(key, state, keys, payload, bcount, d):
+        return step_decayed_stats(key, state, keys, payload, bcount, d)[0]
+
+    return step, step_decayed, step_stats, step_decayed_stats
+
+
+def _key_ids(key_ids, num_keys: int, device) -> torch.Tensor:
+    """extract/size key lists: a device tensor is clamped into [0, K) (the
+    JAX package's traced branch); a host sequence is checked on the host,
+    since a clamp would alias a bad id onto another tenant's reservoir, and
+    copied to the device without a sync."""
+    if isinstance(key_ids, torch.Tensor) and key_ids.device.type != "cpu":
+        return key_ids.to(_I64).clamp(0, num_keys - 1)
+    ids = np.asarray(key_ids, np.int64).reshape(-1)
+    if ids.size and (ids.min() < 0 or ids.max() >= num_keys):
+        raise ValueError(f"key_ids must lie in [0, {num_keys}); got range "
+                         f"[{ids.min()}, {ids.max()}]")
+    return torch.from_numpy(ids).to(device, non_blocking=True)
+
+
+def _schedule_fns(sched: DecaySchedule, device):
+    """(init_dstate, tick): the bank's shared-schedule decay source.
+    Constant-rate schedules carry no state (``dstate`` stays None) and bake
+    the factor in as one f32 device tensor made here, not per tick."""
+    if sched.static_rate is not None:
+        d0 = torch.full((), sched.static_rate, dtype=_F32, device=device)
+        t0 = torch.zeros((), dtype=_F32, device=device)
+
+        def tick(dstate, dt):
+            return (d0 if dt is None else sched.factor_dt(t0, dt)), None
+
+        return (lambda: None), tick
+    return (lambda: sched.init(device)), sched.tick
+
+
+def _scatter(a: torch.Tensor, touched: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``a.at[touched].set(v, mode="drop")`` for a [K] column: the sentinel
+    rows (key K) land in a trash row past the end."""
+    K = a.shape[0]
+    buf = torch.cat([a, a.new_zeros(1)])
+    return buf.index_copy_(0, touched, v.to(a.dtype))[:K]
+
+
+def _scatter_add(a: torch.Tensor, touched: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``a.at[touched].add(v, mode="drop")`` for a [K] column."""
+    K = a.shape[0]
+    buf = torch.cat([a, a.new_zeros(1)])
+    return buf.index_add_(0, touched, v.to(a.dtype))[:K]
+
+
+def _tick_stats(r: routing.Routing, d) -> dict:
+    return {"overflow": r.overflow, "ntouched": r.ntouched,
+            "invalid": r.invalid, "decay": d, "routing": r}
+
+
+def _rtbs_tick_map(key, state: BankState, keys, bcount, pending, *, n: int,
+                   bcap: int):
+    """An R-TBS bank tick up to its payload pass: route the arrivals, then
+    compose each touched key's tick map from its own draws (the tick key
+    with the key id folded in). ``pending`` is the [K] deferred factor with
+    this tick's decay already composed in. Returns ``(routing, src [b, cap],
+    nfull, C, W)``, the last three per routed row."""
+    K, cap = state.nfull.shape[0], n + 1
+    with _scope("bank.route"):
+        r = routing.route(keys, bcount, num_keys=K, bcap=bcap)
+        idx = torch.clamp(r.touched, max=K - 1)   # clipped gather; rows drop
+    with _scope("bank.tick_map"):
+        draws = rtbs.draw_tick(prng.fold_in(key, r.touched), cap=cap, bcap=bcap,
+                               device=state.nfull.device)
+        src, C3, w_new = rtbs.tick_map(
+            draws, state.nfull[idx], state.weight[idx], state.total_weight[idx],
+            r.counts, pending[idx], cap=cap, bcap=bcap, n=n)
+        k3, _ = lt.floor_frac(C3)
+    return r, src, k3, C3, w_new
+
+
+# ---------------------------------------------------------------------------
+# R-TBS bank
+# ---------------------------------------------------------------------------
+@register_bank("rtbs")
+def _make_rtbs_bank(*, num_keys: int, n: int, lam: float | None = None,
+                    decay: DecaySchedule | None = None, bcap: int = 64,
+                    device: torch.device) -> SamplerBank:
+    """K independent R-TBS reservoirs (paper Alg. 2 per key): bounded size n
+    and exact time bias for every key, whatever its arrival pattern.
+    ``bcap`` is the static per-key sub-batch capacity (arrivals beyond it
+    are dropped and counted)."""
+    sched = _resolve_schedule(lam, decay)
+    cap = n + 1
+    K = num_keys
+    init_dstate, sched_tick = _schedule_fns(sched, device)
+
+    def init(item_proto: Any) -> BankState:
+        return _init_bank_state(item_proto, K, cap, init_dstate, device)
+
+    def _advance(key, state: BankState, keys, payload, bcount, d, new_dstate):
+        # inactive keys: every key's deferred factor composes the tick's
+        # decay, one [K] multiply and no payload movement
+        with _scope("bank.decay"):
+            pending = state.pending * d
+        r, src, k3, C3, w_new = _rtbs_tick_map(key, state, keys, bcount, pending,
+                                               n=n, bcap=bcap)
+        with _scope("bank.payload"):
+            tbs_ops.tbs_step_apply_banked(
+                state.items, payload, src, order=r.order, starts=r.starts,
+                touched=r.touched, ntouched=r.ntouched, bcap=bcap)
+        new_state = BankState(
+            items=state.items,
+            nfull=_scatter(state.nfull, r.touched, k3),
+            weight=_scatter(state.weight, r.touched, C3),
+            total_weight=_scatter(state.total_weight, r.touched, w_new),
+            pending=_scatter(pending, r.touched, torch.ones_like(C3)),
+            overflow=_scatter_add(state.overflow, r.touched, r.dropped),
+            dstate=new_dstate,
+        )
+        return new_state, _tick_stats(r, d)
+
+    step, step_decayed, step_stats, step_decayed_stats = _make_steps(
+        sched_tick, _advance, device)
+
+    def _effective(state: BankState, ids):
+        w_eff = state.pending[ids] * state.total_weight[ids]
+        return torch.minimum(state.weight[ids], w_eff)
+
+    def extract(key, state: BankState, key_ids) -> SampleView:
+        ids = _key_ids(key_ids, K, device)
+        k_ds, k_re = prng.split(prng.fold_in(key, ids))
+        lat = lt.Latent(items=pytree.tree_map(lambda a: a[ids], state.items),
+                        nfull=state.nfull[ids].to(_I64), weight=state.weight[ids])
+        # settle the deferred decay in the view: ONE composed Thm 4.1
+        # downsample C_stored -> C_eff (the identity when W_eff >= C)
+        draws = lt.draw_downsample(k_ds, cap, device, max_deleted=bcap)
+        lat = lt.downsample(draws, lat, _effective(state, ids), max_deleted=bcap)
+        mask, size = lt.realize(prng.uniform(k_re, ()), lat)
+        return SampleView(items=lat.items, mask=mask, size=size)
+
+    def size(key, state: BankState, key_ids) -> torch.Tensor:
+        ids = _key_ids(key_ids, K, device)
+        _, k_re = prng.split(prng.fold_in(key, ids))
+        k, take, _ = lt.partial_draw(prng.uniform(k_re, ()), _effective(state, ids))
+        return k + take.to(_I64)
+
+    hyper = {"n": n, "decay": sched, "bcap": bcap}
+    if lam is not None:
+        hyper["lam"] = lam
+    return SamplerBank(
+        scheme="rtbs", num_keys=K, cap=cap, bcap=bcap, init=init, step=step,
+        step_decayed=step_decayed, step_stats=step_stats,
+        step_decayed_stats=step_decayed_stats, extract=extract, size=size,
+        base_rate=lambda state, dt=None: sched_tick(state.dstate, dt)[0],
+        hyper=hyper, device=device,
+    )

@@ -2,8 +2,11 @@
 state taken with ``np.asarray``) into the port, and back.
 
 An R-TBS state is the item pytree (leaves [cap, ...]), ``nfull``, ``weight``
-(the sample weight C) and ``total_weight`` (W). Adapter params: linreg
-``[dim+1]``, naive_bayes ``(log_prior, log_like)``, knn ``{x, y, valid}``.
+(the sample weight C) and ``total_weight`` (W). A bank state is the item
+pytree (leaves [K, cap, ...]) and the [K] columns ``nfull``, ``weight``,
+``total_weight``, ``pending`` and ``overflow`` (constant-rate schedules
+only: their ``dstate`` is None). Adapter params: linreg ``[dim+1]``,
+naive_bayes ``(log_prior, log_like)``, knn ``{x, y, valid}``.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import _device
+from repro_torch.bank import BankState
 from repro_torch.core import latent as lt
 from repro_torch.core.rtbs import RTBSState
 
@@ -40,6 +44,26 @@ def rtbs_state_to_numpy(state: RTBSState) -> dict:
         "weight": state.lat.weight.cpu().numpy(),
         "total_weight": state.total_weight.cpu().numpy(),
     }
+
+
+def bank_state_from_numpy(items: Any, nfull, weight, total_weight, pending,
+                          overflow, *, device=None) -> BankState:
+    """A bank state (for example a JAX ``BankState`` of a constant-rate
+    bank, each field read with ``np.asarray``) on the port's device."""
+    dev = _device.resolve(device)
+    return BankState(items=pytree.tree_map(lambda a: _t(a, dev), items),
+                     nfull=_t(nfull, dev, torch.int32),
+                     weight=_t(weight, dev, torch.float32),
+                     total_weight=_t(total_weight, dev, torch.float32),
+                     pending=_t(pending, dev, torch.float32),
+                     overflow=_t(overflow, dev, torch.int32), dstate=None)
+
+
+def bank_state_to_numpy(state: BankState) -> dict:
+    out = {f: getattr(state, f).cpu().numpy()
+           for f in ("nfull", "weight", "total_weight", "pending", "overflow")}
+    out["items"] = pytree.tree_map(lambda a: a.cpu().numpy(), state.items)
+    return out
 
 
 def params_from_numpy(model: str, params: Any, *, device=None) -> Any:

@@ -141,8 +141,11 @@ class DownsampleDraws:
     rb_small: torch.Tensor | None = None   # int64 [..., D + 2]
 
 
-def draw_downsample(key: prng.Key, cap: int, device, *,
+def draw_downsample(key, cap: int, device, *,
                     max_deleted: int | None = None, batch=()) -> DownsampleDraws:
+    """The draws of one Alg. 3 map with leading dimensions ``batch`` from a
+    host key, or, from a key tensor ``[T, 2]`` (``batch`` empty), one row of
+    draws per key row: row t equals the host draw of key t."""
     kperm, ku = prng.split(key)
     batch = tuple(batch)
     small = None

@@ -35,9 +35,10 @@ def stochastic_round(u: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (lo + up.to(torch.float32)).to(torch.int64)
 
 
-def draw_son_bits(key: prng.Key, batch, device,
+def draw_son_bits(key, batch, device,
                   rounds: int = SON_ROUNDS) -> torch.Tensor:
-    """The swap-or-not round words ``[*batch, rounds, 2]``."""
+    """The swap-or-not round words ``[*batch, rounds, 2]``; for a key tensor
+    ``[T, 2]`` (``batch`` empty) ``[T, rounds, 2]``, row t from key t."""
     return prng.bits(key, tuple(batch) + (rounds, 2), device)
 
 

@@ -67,8 +67,12 @@ class TickDraws:
     rb_pick: torch.Tensor      # int64 [..., rounds, 2]
 
 
-def draw_tick(key: prng.Key, *, cap: int, bcap: int, device,
+def draw_tick(key, *, cap: int, bcap: int, device,
               batch=()) -> TickDraws:
+    """One tick's draws with leading dimensions ``batch`` from a host key,
+    or one row of draws per row of a key tensor ``[T, 2]`` (``batch``
+    empty): the keyed bank's per-key draws, row t equal to the host draw
+    of key t."""
     k_ds, k_over, k_m, k_vic, k_pick = prng.split(key, 5)
     batch = tuple(batch)
     return TickDraws(

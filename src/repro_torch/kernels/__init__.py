@@ -2,7 +2,10 @@
 PyTorch version of the same function.
 
   * tbs_step          -- B1, the R-TBS tick's two-source payload pass
-                         (replaces the Pallas ``tbs_step`` kernel).
+                         (replaces the Pallas ``tbs_step`` kernel), and
+                         B3, the keyed bank's payload pass, fused with the
+                         gather, sub-batching and scatter around it and in
+                         place (replaces ``apply_banked``).
   * reservoir_compact -- B2, stable compaction of a realized sample
                          (replaces the Pallas ``reservoir_compact`` kernel).
   * swap_delete       -- H1, the delete-complement loop of the downsample
@@ -20,6 +23,7 @@ from .tbs_step import ops as _ts
 
 WRAPPERS = {
     "tbs_step_apply": _ts.tbs_step_apply,
+    "tbs_step_apply_banked": _ts.tbs_step_apply_banked,
     "reservoir_compact": _rc.reservoir_compact,
     "swap_delete": _sd.swap_delete,
 }

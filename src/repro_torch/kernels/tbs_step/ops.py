@@ -1,9 +1,13 @@
-"""Wrapper of the fused TBS-step payload pass (B1): one two-source row gather
-per item leaf.
+"""Wrappers of the fused TBS-step payload passes: B1 (``tbs_step_apply``),
+one two-source row gather per item leaf of one reservoir, and B3
+(``tbs_step_apply_banked``), the keyed bank's whole payload pass per leaf,
+in place.
 
-On a CUDA tensor it launches the hand-written kernel (``csrc/tbs_step.cu``)
-or raises; there is no fallback. The plain version in :mod:`.ref` runs only
-for CPU tensors. ``tbs_step_apply.launches`` counts kernel launches.
+On a CUDA tensor each launches its hand-written kernel
+(``csrc/tbs_step.cu``, ``csrc/tbs_step_banked.cu``) or raises; there is no
+fallback. The plain versions in :mod:`.ref` run only for CPU tensors.
+``tbs_step_apply.launches`` and ``tbs_step_apply_banked.launches`` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -55,3 +59,71 @@ def tbs_step_apply(items, batch_items, src: torch.Tensor):
 
 
 tbs_step_apply.launches = 0
+
+
+def _banked_leaf(leaf: torch.Tensor, pleaf: torch.Tensor, src, order, starts,
+                 touched, ntouched, bcap: int) -> None:
+    K, cap = leaf.shape[:2]
+    b = pleaf.shape[0]
+    if (b, cap) != tuple(src.shape) or leaf.shape[2:] != pleaf.shape[1:]:
+        raise ValueError(f"tbs_step_apply_banked: bank leaf {tuple(leaf.shape)}, "
+                         f"payload leaf {tuple(pleaf.shape)} and src "
+                         f"{tuple(src.shape)} do not agree ([K, cap, ...], "
+                         f"[b, ...], [b, cap])")
+    if not leaf.is_contiguous():
+        raise ValueError("tbs_step_apply_banked: the bank leaf must be "
+                         "contiguous (it is updated in place)")
+    flat = leaf.view(K, cap, -1)
+    pflat = pleaf.reshape(b, -1)
+    if leaf.device.type == "cpu":
+        ref.banked_ref(flat, pflat, src, order, starts, touched, ntouched, bcap)
+        return
+    _common.check_cuda("tbs_step_apply_banked", leaf, pleaf, src, order, starts,
+                       touched, ntouched)
+    if pleaf.dtype != leaf.dtype:
+        raise TypeError(f"tbs_step_apply_banked: bank {leaf.dtype} vs payload "
+                        f"{pleaf.dtype}")
+    bank_b = flat.view(torch.uint8) if flat.dtype != torch.uint8 else flat
+    pay_b = _common.as_bytes(pflat)
+    B = bank_b.shape[2]
+    limit = kernel.banked_smem_limit(leaf.device)
+    if cap * B > limit:
+        raise ValueError(
+            f"tbs_step_apply_banked: a key's reservoir is cap * row bytes = "
+            f"{cap} * {B} = {cap * B} bytes, past the {limit} bytes of shared "
+            f"memory one CTA can stage on this card")
+    vec = _common.vector_width(B, bank_b, pay_b)
+    kernel.apply_banked(bank_b, pay_b, order, starts, touched, ntouched, src,
+                        bcap, vec)
+    tbs_step_apply_banked.launches += 1
+
+
+def tbs_step_apply_banked(bank_items, payload, src: torch.Tensor, *,
+                          order: torch.Tensor, starts: torch.Tensor,
+                          touched: torch.Tensor, ntouched: torch.Tensor,
+                          bcap: int) -> None:
+    """The keyed bank's payload pass, IN PLACE on ``bank_items`` (leaves
+    [K, cap, ...], contiguous): for each routed row t < ``ntouched``, key
+    ``touched[t]``'s reservoir takes the tick map ``src[t]`` ([b, cap],
+    values in [0, cap + bcap)) over its own rows and its sub-batch, slot j
+    of which is ``payload[order[clip(starts[t] + j, 0, b - 1)]]`` (payload
+    leaves [b, ...], the tick's unsorted arrivals). ``order``, ``starts``,
+    ``touched`` [b] and ``ntouched`` [] are the routing's; rows past
+    ``ntouched`` do nothing. The same function as the JAX bank's
+    subbatches -> gather -> ``apply_banked`` -> scatter(mode="drop"), with
+    one kernel launch per leaf and the touched count never read on the
+    host."""
+    i32 = torch.int32
+    if src.dim() != 2 or any(a.shape != src.shape[:1] for a in (order, starts, touched)):
+        raise ValueError(f"tbs_step_apply_banked: src {tuple(src.shape)} must be "
+                         f"[b, cap] and order, starts, touched [b]")
+    src = src.to(i32).contiguous()
+    order, starts, touched = (a.to(i32).contiguous()
+                              for a in (order, starts, touched))
+    ntouched = ntouched.to(i32).reshape(())
+    pytree.tree_map(lambda leaf, pleaf: _banked_leaf(
+        leaf, pleaf, src, order, starts, touched, ntouched, bcap),
+        bank_items, payload)
+
+
+tbs_step_apply_banked.launches = 0

@@ -1,7 +1,14 @@
 """repro_torch.manage -- the paper's online model-management loop: a stream
 -> a :class:`repro_torch.core.api.Sampler` -> periodic retraining ->
-prequential eval (:mod:`.loop`), with the closed-form model adapters
-(:mod:`.models`)."""
+prequential eval (:mod:`.loop`), its keyed twin over a
+:class:`repro_torch.bank.SamplerBank` (:mod:`.bank_loop`), and the
+closed-form model adapters (:mod:`.models`)."""
+from .bank_loop import (  # noqa: F401
+    keyed_item_proto,
+    make_bank_manage_step,
+    make_bank_run_loop,
+    pooled_view,
+)
 from .loop import (  # noqa: F401
     item_proto,
     make_manage_step,

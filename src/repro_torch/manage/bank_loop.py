@@ -1,0 +1,193 @@
+"""Bank-level model-management loop (the JAX package's
+``repro.manage.bank_loop``, local mode).
+
+The paper's stream -> sample -> retrain -> eval loop lifted to a
+:class:`repro_torch.bank.SamplerBank`: every tick consumes a KEYED batch
+(the ``"key"`` column plus payload fields) and advances K per-key
+time-biased samples at once. Two retraining regimes:
+
+  * **shared model** (default): one model, retrained every
+    ``retrain_every`` ticks on the POOLED extract of ``train_keys``;
+  * **per-key farm** (``per_key=True``): one model per train key (params
+    with a leading [Q] dimension), each fit on ITS key's sample and
+    prequentially evaluated on ITS key's arrivals, through
+    ``torch.func.vmap`` over the adapter's ``fit`` / ``evaluate``.
+
+As in :mod:`.loop`, the loop is a Python loop over the tick body that
+:func:`make_bank_manage_step` returns, so driving the tick by hand is bit
+identical to the loop, and tick t uses :func:`.loop.tick_keys`. ``t`` and
+the retrain decision are host ints; nothing else is read on the host.
+
+Not ported yet: ``controller=`` (ROADMAP A.5) and ``telemetry=`` (A.9)
+raise ``NotImplementedError``; the key-sharded loop and
+``shard_keyed_stream`` wait for A.7.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.bank import Routing, SamplerBank
+from repro_torch.core import prng
+from repro_torch.core.api import SampleView
+from repro_torch.manage.loop import item_proto, tick_keys
+from repro_torch.manage.models import ModelAdapter
+from repro_torch.obs.profile import scope as _scope
+
+KEY_FIELD = "key"
+
+
+def _split_keyed(batch: Any):
+    """A keyed tick batch is a dict with the ``"key"`` column plus payload
+    fields; a single payload field is unwrapped to its bare leaf."""
+    keys = batch[KEY_FIELD]
+    payload = {k: v for k, v in batch.items() if k != KEY_FIELD}
+    if len(payload) == 1:
+        payload = next(iter(payload.values()))
+    return keys, payload
+
+
+def keyed_item_proto(batches: Any) -> Any:
+    """ONE-item payload prototype from stacked keyed-stream tensors (the
+    ``"key"`` column excluded)."""
+    return item_proto(_split_keyed(batches)[1])
+
+
+def pooled_view(view: SampleView) -> SampleView:
+    """Flatten a stacked per-key view (leaves [Q, cap, ...]) into one pooled
+    view (leaves [Q * cap, ...]): the union of the keys' realized samples."""
+    items = pytree.tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
+                            view.items)
+    return SampleView(items=items, mask=view.mask.reshape(-1),
+                      size=view.size.sum())
+
+
+def _train_windows(r: Routing, payload, bcap: int, train_keys):
+    """Each train key's slice of the tick routed by ``r``: ``(windows,
+    counts)`` with window leaves [Q, bcap, ...] whose first counts[q] rows
+    are that key's arrivals (0 when the key did not arrive). Rows past the
+    count are ZEROED: the raw windows are slices of the key-sorted batch
+    whose tails belong to OTHER tenants, and an adapter that ignores
+    ``bcount`` must never see another key's data."""
+    b = r.order.shape[0]
+    pos = torch.searchsorted(r.touched, train_keys).clamp(0, b - 1)
+    found = r.touched[pos] == train_keys
+    counts = torch.where(found, r.counts[pos], 0)
+    starts = torch.where(found, r.starts[pos], 0)
+    j = torch.arange(bcap, dtype=torch.int64, device=train_keys.device)
+    idx = (starts.unsqueeze(-1) + j).clamp(0, b - 1)
+    valid = j < counts.unsqueeze(-1)
+
+    def one(a):
+        w = a[r.order][idx]
+        return torch.where(valid.reshape(valid.shape + (1,) * (w.dim() - 2)),
+                           w, torch.zeros_like(w))
+
+    return pytree.tree_map(one, payload), counts
+
+
+def _as_train_keys(train_keys, num_keys: int, device) -> torch.Tensor:
+    """The train keys checked on the host, then copied to the device once."""
+    tk = np.asarray(list(train_keys), np.int64).reshape(-1)
+    if tk.shape[0] < 1:
+        raise ValueError("train_keys must be a non-empty key list")
+    if tk.min() < 0 or tk.max() >= num_keys:
+        raise ValueError(f"train_keys must lie in [0, {num_keys}); got range "
+                         f"[{tk.min()}, {tk.max()}]")
+    return torch.from_numpy(tk).to(device)
+
+
+def make_bank_manage_step(bank: SamplerBank, model: ModelAdapter, *,
+                          retrain_every: int = 1, train_keys,
+                          per_key: bool = False) -> Callable:
+    """One tick of the bank loop: ``(key, t, state, params, batch, bcount)
+    -> (state, params, metrics)`` with ``t`` a host int, ``batch`` a keyed
+    tick batch (``"key"`` [b] plus payload fields) and ``metrics`` =
+    {"metric", "size" [Q], "overflow"}. Consumes ``state`` (the bank's step
+    updates its reservoirs in place). The same tick body
+    :func:`make_bank_run_loop` runs."""
+    tk = _as_train_keys(train_keys, bank.num_keys, bank.device)
+    Q = tk.shape[0]
+    v_eval = torch.func.vmap(model.evaluate)
+    v_fit = torch.func.vmap(model.fit)
+
+    def tick(key, t: int, state, params, batch, bcount):
+        k_step, k_extract, k_fit = tick_keys(key, t)
+        keys_t, payload = _split_keyed(batch)
+        # the step leaves params alone, so evaluating after it is still
+        # prequential, and the per-key windows reuse the step's routing
+        with _scope("manage.sampler_step"):
+            state, bstats = bank.step_stats(k_step, state, keys_t, payload, bcount)
+        with _scope("manage.eval"):
+            if per_key:
+                windows, counts = _train_windows(bstats["routing"], payload,
+                                                 bank.bcap, tk)
+                metric = v_eval(params, windows, counts)
+            else:
+                metric = model.evaluate(params, payload, bcount)
+        if (t + 1) % retrain_every == 0:
+            with _scope("manage.retrain"):
+                view = bank.extract(k_extract, state, tk)
+                if per_key:
+                    params = v_fit(prng.key_rows(k_fit, Q, bank.device), params, view)
+                else:
+                    params = model.fit(k_fit, params, pooled_view(view))
+        with _scope("manage.size"):
+            metrics = {"metric": metric, "size": bank.size(k_extract, state, tk),
+                       "overflow": bstats["overflow"]}
+        return state, params, metrics
+
+    return tick
+
+
+def make_bank_run_loop(bank: SamplerBank, model: ModelAdapter, *,
+                       retrain_every: int = 1, train_keys,
+                       per_key: bool = False, superbatch: int | None = None,
+                       controller=None, telemetry=None) -> Callable:
+    """Returns ``run(key, batches, bcounts) -> (state, params, trace)``:
+
+      * ``batches``: a dict with the ``"key"`` column [T, b] plus payload
+        fields (leaves [T, b, ...]), as :func:`repro_torch.manage.
+        materialize_stream` makes it for a ``KeyedStream`` with
+        ``fields=("key", ...)``; ``bcounts`` [T];
+      * ``train_keys``: the keys retrained on and traced (``range(Q)`` are
+        the popular keys of a Zipf stream);
+      * shared mode: ``trace = {"metric" [T], "size" [T, Q], "overflow"
+        [T]}``, fit on the pooled extract of ``train_keys``;
+      * ``per_key=True``: params gain a leading [Q] dimension and
+        ``trace["metric"]`` is [T, Q], each key's prequential loss on its
+        own arrivals (NaN on ticks it did not arrive).
+
+    ``superbatch`` is accepted for the JAX package's signature and changes
+    nothing (there is no compiled scan body to chunk here)."""
+    del superbatch
+    if controller is not None:
+        raise NotImplementedError("controller= (adaptive decay) is not ported "
+                                  "to repro_torch yet (ROADMAP queue A.5)")
+    if telemetry is not None:
+        raise NotImplementedError("telemetry= is not ported to repro_torch yet "
+                                  "(ROADMAP queue A.9)")
+    train_keys = list(train_keys)
+    tick = make_bank_manage_step(bank, model, retrain_every=retrain_every,
+                                 train_keys=train_keys, per_key=per_key)
+    Q = len(train_keys)
+
+    def run(key: prng.Key, batches: Any, bcounts: torch.Tensor):
+        state = bank.init(keyed_item_proto(batches))
+        params = model.init()
+        if per_key:
+            params = pytree.tree_map(
+                lambda a: a.unsqueeze(0).expand((Q,) + tuple(a.shape)).clone(),
+                params)
+        ms = []
+        for t in range(bcounts.shape[0]):
+            batch_t = {f: v[t] for f, v in batches.items()}
+            state, params, m = tick(key, t, state, params, batch_t, bcounts[t])
+            ms.append(m)
+        trace = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        return state, params, trace
+
+    return run

@@ -58,3 +58,26 @@ def id_stream(batch_sizes, bcap):
     for i, b in enumerate(batch_sizes):
         batches[i, :b] = 1000 * (i + 1) + np.arange(b)
     return batches, np.asarray(batch_sizes, np.int32)
+
+
+def bank_tick_draws(tkeys, cap, bcap):
+    """The bank's per-key ``tick_map`` draws, stacked over the routed rows:
+    row t is :func:`tick_draws` of ``tkeys[t]`` (the tick key with touched
+    key t folded in), drawn in one ``jax.vmap``."""
+    def ds(key, c):
+        kperm, ku = jax.random.split(key)
+        return (jax.random.uniform(ku, (), jnp.float32),
+                jax.random.bits(kperm, (16, 2), jnp.uint32),
+                jax.random.bits(kperm, (min(bcap, c) + 2,), jnp.uint32))
+
+    def one(key):
+        k_ds, k_over, k_m, k_vic, k_pick = jax.random.split(key, 5)
+        return (ds(k_ds, cap), ds(k_over, cap + bcap),
+                jax.random.uniform(k_m, (), jnp.float32),
+                jax.random.bits(k_vic, (16, 2), jnp.uint32),
+                jax.random.bits(k_pick, (16, 2), jnp.uint32))
+
+    a, o, u_m, vic, pick = jax.vmap(one)(tkeys)
+    return trt.TickDraws(ds=tl.DownsampleDraws(*map(t, a)),
+                         over=tl.DownsampleDraws(*map(t, o)), u_m=t(u_m),
+                         rb_vic=t(vic), rb_pick=t(pick))

@@ -119,3 +119,82 @@ def test_tick_on_card_equals_cpu_and_does_not_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert kernels.launches()["tbs_step_apply"] == 2
+
+
+def _banked_case(dev, K, b, cap, bcap, tail, dtype, seed):
+    from repro_torch.bank import route
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bank = _payload((K, cap) + tail, dtype, g, dev)
+    payload = _payload((b,) + tail, dtype, g, dev)
+    keys = torch.randint(-1, K + 1, (b,), generator=g, device=dev)
+    r = route(keys, b - 5, num_keys=K, bcap=bcap)
+    # includes out-of-range entries, which both clamp
+    src = torch.randint(-3, cap + bcap + 3, (b, cap), generator=g, device=dev,
+                        dtype=torch.int32)
+    return bank, payload, src, r
+
+
+@pytest.mark.parametrize("K,b,cap,bcap,tail,dtype", [
+    (4096, 2048, 65, 32, (3,), torch.float32),     # 12-byte rows
+    (512, 700, 65, 32, (100,), torch.float32),     # 400-byte rows
+    (300, 1000, 65, 8, (), torch.int8),            # 1-byte rows
+    (1 << 18, 70_000, 9, 4, (2,), torch.float32),  # b > 65,535 rows
+])
+def test_tbs_step_banked_kernel_equals_plain(dev, K, b, cap, bcap, tail, dtype):
+    bank, payload, src, r = _banked_case(dev, K, b, cap, bcap, tail, dtype, cap + b)
+    want = bank.clone()
+    ts_ref.banked_ref(want.reshape(K, cap, -1), payload.reshape(b, -1), src, r.order,
+                      r.starts, r.touched, r.ntouched, bcap)
+    n0 = ts_ops.tbs_step_apply_banked.launches
+    ts_ops.tbs_step_apply_banked(bank, payload, src, order=r.order, starts=r.starts,
+                                 touched=r.touched, ntouched=r.ntouched, bcap=bcap)
+    torch.cuda.synchronize()
+    assert ts_ops.tbs_step_apply_banked.launches == n0 + 1
+    assert torch.equal(bank, want)
+
+
+def test_tbs_step_banked_refuses_a_reservoir_past_shared_memory(dev):
+    from repro_torch.kernels.tbs_step import kernel as ts_kernel
+
+    limit = ts_kernel.banked_smem_limit(dev)
+    cap = limit // 400 + 1                         # f32[100] rows: 400 bytes
+    bank, payload, src, r = _banked_case(dev, 4, 8, cap, 4, (100,), torch.float32, 1)
+    with pytest.raises(ValueError, match="shared"):
+        ts_ops.tbs_step_apply_banked(bank, payload, src, order=r.order,
+                                     starts=r.starts, touched=r.touched,
+                                     ntouched=r.ntouched, bcap=4)
+
+
+def test_bank_on_card_equals_cpu_and_does_not_sync(dev):
+    from repro_torch.bank import make_bank
+    from repro_torch.data.streams import KeyedStream, LinRegStream
+    from repro_torch.manage import make_bank_manage_step, make_model, materialize_stream
+
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        batches, bcounts = materialize_stream(
+            KeyedStream(LinRegStream(seed=2), num_keys=512, alpha=1.1), 6,
+            batch_size=256, fields=("key", "x", "y"), device=d)
+        bank = make_bank("rtbs", num_keys=512, n=16, lam=0.05, bcap=8, device=d)
+        tick = make_bank_manage_step(bank, make_model("linreg", device=d),
+                                     retrain_every=3, train_keys=range(8))
+        st = bank.init({"x": torch.zeros(2, device=d), "y": torch.zeros((), device=d)})
+        p = torch.zeros(3, device=d)
+        for tt in range(6):
+            st, p, m = tick(prng.key(1), tt, st, p, {f: v[tt] for f, v in batches.items()},
+                            bcounts[tt])
+        outs[d.type] = (st, batches, bcounts, tick, p)
+    sg, sc = outs["cuda"][0], outs["cpu"][0]
+    for a, b in zip(torch.utils._pytree.tree_leaves(sg),
+                    torch.utils._pytree.tree_leaves(sc)):
+        assert torch.equal(a.cpu(), b)
+    st, batches, bcounts, tick, p = outs["cuda"]
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tick(prng.key(1), 6, st, p, {f: v[5] for f, v in batches.items()}, bcounts[5])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.launches()["tbs_step_apply_banked"] == 2

@@ -22,7 +22,9 @@ MODULES = [
     "repro_torch.decay", "repro_torch.decay.schedules", "repro_torch.data.streams",
     "repro_torch.models.simple_ml", "repro_torch.manage",
     "repro_torch.manage.models", "repro_torch.manage.loop",
-    "repro_torch.obs.profile",
+    "repro_torch.obs.profile", "repro_torch.bank", "repro_torch.bank.routing",
+    "repro_torch.bank.bank", "repro_torch.manage.bank_loop",
+    "repro_torch.kernels.tbs_step.ref",
 ]
 
 
@@ -57,9 +59,11 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.core.api import make_sampler
     from repro_torch.data.streams import LinRegStream
     from repro_torch.decay import decay_profile, exponential
+    from repro_torch.bank import make_bank
     from repro_torch.manage import make_model, materialize_stream
 
     for call in (lambda: make_sampler("rtbs", n=4, lam=0.1),
+                 lambda: make_bank("rtbs", num_keys=4, n=2, lam=0.1),
                  lambda: make_model("linreg"),
                  lambda: materialize_stream(LinRegStream(), 2, batch_size=3),
                  lambda: decay_profile(exponential(0.1), 3),
@@ -74,9 +78,20 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     from repro_torch.kernels.swap_delete.ops import swap_delete
     from repro_torch.kernels.tbs_step.ops import tbs_step_apply
 
+    from repro_torch.bank import route
+    from repro_torch.kernels.tbs_step.ops import tbs_step_apply_banked
+
     kernels.reset_launches()
     tbs_step_apply(torch.arange(5.0), torch.ones(2), torch.tensor([5, 0, 1, 6, 2]))
     reservoir_compact(torch.arange(5.0), torch.tensor([1, 0, 1, 0, 1]).bool())
     swap_delete(6, torch.tensor(2), torch.tensor(5), torch.tensor([7, 3, 1]), 2)
-    assert kernels.launches() == {"tbs_step_apply": 0, "reservoir_compact": 0,
-                                  "swap_delete": 0}
+    bank = torch.zeros(3, 4)
+    r = route(torch.tensor([2, 0, 2]), 3, num_keys=3, bcap=2)
+    tbs_step_apply_banked(bank, torch.tensor([1.0, 2.0, 3.0]),
+                          torch.tensor([[4, 5, 0, 1]] * 3), order=r.order,
+                          starts=r.starts, touched=r.touched, ntouched=r.ntouched,
+                          bcap=2)
+    # key 0's slot 1 reads past its one arrival, into key 2's segment
+    assert bank.tolist() == [[2.0, 1.0, 0.0, 0.0], [0.0] * 4, [1.0, 3.0, 0.0, 0.0]]
+    assert kernels.launches() == {"tbs_step_apply": 0, "tbs_step_apply_banked": 0,
+                                  "reservoir_compact": 0, "swap_delete": 0}
