@@ -5,8 +5,10 @@
 
 Drives the port's main paths (``repro_torch``: R-TBS sampler + linreg retrain
 + prequential eval through ``make_sampler`` / ``make_model`` /
-``materialize_stream`` / ``make_run_loop``, and the keyed sampler bank
-through ``make_bank`` / ``make_bank_run_loop``) at full state size, after
+``materialize_stream`` / ``make_run_loop``, the keyed sampler bank
+through ``make_bank`` / ``make_bank_run_loop``, and batched LM serving of
+the dense transformer through ``repro_torch.launch.serve.serve_batch``) at
+full state and model size, after
 building every CUDA kernel from ``src/repro_torch/kernels/csrc`` and holding
 each against its plain PyTorch version on the card. Imports neither JAX nor
 the JAX package. Every check raises on failure; no phase catches its own.
@@ -28,7 +30,16 @@ the JAX package. Every check raises on failure; no phase catches its own.
      on every tick, a tick under ``set_sync_debug_mode("error")``, a
      profiled retrain tick, B3's time against its bound and against the
      unfused composition, and card == CPU at K = 4096;
-  7. the ``kernels`` JSON line, the card line, and the result line.
+  7. serving: ``stablelm_12b`` at full width and depth (40 layers, bf16
+     params, B4 flash attention), 8 prompts x 2,048 tokens prefilled and
+     32 tokens decoded greedily, with exactly 40 B4 launches in the prefill
+     and none in decode; B4 against its plain version at the prefill's
+     shape and at f32 GQA / MQA / window / non-causal shapes; B4's time
+     beside its bound, its plain version and ``scaled_dot_product_attention``;
+     a profiled prefill and decode step by scope; and, at 2 layers of full
+     width in f32 (that depth cut is (c)'s and (d)'s only), card == CPU
+     and teacher-forced decode == forward;
+  8. the ``kernels`` JSON line, the card line, and the result line.
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -44,6 +55,10 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+
+# spec-sheet dense peaks (FLOP/s) of an H100 / H200 SXM: bf16 on the tensor
+# cores, f32 on the CUDA cores (the port's f32 runs no TF32)
+PEAK = {"bfloat16": 989e12, "float32": 67e12}
 
 # spec-sheet device-memory bandwidth (bytes/s) by the name nvidia-smi reports
 _HBM = [("H200", 4.8e12, "H200 SXM spec sheet, 4.8 TB/s"),
@@ -352,11 +367,13 @@ _BANK_SCOPES = ("manage.eval", "manage.sampler_step", "bank.decay", "bank.route"
 
 def _breakdown(torch, prof, wall_ms: float, tag: str = "[3]", scopes=_SCOPES,
                named=(("B1 kernel", "tbs_step_apply_kernel"),
-                      ("H1 kernel", "swap_delete_kernel"))) -> dict:
-    """Device time of one profiled tick: kernel time summed over the device's
-    kernel events, each scope's share (the kernels launched under it), the
-    ctypes-launched kernels by name (the profiler does not put them under a
-    scope), and the device's idle share of the tick's wall time."""
+                      ("H1 kernel", "swap_delete_kernel")),
+               what: str = "retrain tick") -> dict:
+    """Device time of one profiled tick (or serving step): kernel time summed
+    over the device's kernel events, each scope's share (the kernels
+    launched under it), the ctypes-launched kernels by name (the profiler
+    does not put them under a scope), and the device's idle share of the
+    step's wall time."""
     from torch.autograd import DeviceType
 
     evs = prof.events()
@@ -369,9 +386,9 @@ def _breakdown(torch, prof, wall_ms: float, tag: str = "[3]", scopes=_SCOPES,
     for e in evs:
         if e.device_type == DeviceType.CPU and e.name in scopes:
             res[e.name] = res.get(e.name, 0.0) + e.device_time_total / 1e3
-    print(f"{tag} profiled retrain tick: wall {wall_ms:.3f} ms, device busy "
+    print(f"{tag} profiled {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms in {len(kern)} kernels, idle "
-          f"{100 * (1 - busy / wall_ms):.1f} % of the tick")
+          f"{100 * (1 - busy / wall_ms):.1f} % of the {what}")
     for k in tuple(label for label, _ in named) + tuple(scopes):
         v = res.get(k, 0.0)
         print(f"{tag}   {k:22s} {v:9.3f} ms  {100 * v / max(busy, 1e-9):5.1f} % "
@@ -708,6 +725,234 @@ def phase_bank_parity(torch, np):
           f"weight, W, pending, overflow, sizes); metrics max |diff| {dm:.3g}")
 
 
+# the dense LM serving cell: stablelm_12b at full width and depth
+SERVE_PROMPTS, SERVE_LEN, SERVE_GEN = 8, 2048, 32
+_LM_SCOPES = ("lm.embed", "lm.norm", "lm.qkv", "lm.rope", "lm.attn", "lm.attn_out",
+              "lm.mlp", "lm.logits")
+# card vs CPU, teacher forcing: logits of f32 sums over d = 5,120 and
+# d_ff = 13,824 taken in other orders (cuBLAS vs the CPU's BLAS, B4 vs its
+# plain version, one token vs the whole sequence), through two layers
+LM_F32_ATOL = 1e-3
+
+
+def _pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep, positions counted from 0 in both."""
+    total = 0
+    for s in range(S):
+        hi = min(s, T - 1) if causal else T - 1
+        lo = max(0, s - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _b4_bound_ms(q, k, causal, window, bw):
+    """B4's least time: the larger of its FLOPs (QK^T and PV over the kept
+    pairs) at the card's peak for the inputs' type and its bytes (q, k, v
+    read once, o written once) at the memory's rate. Returns (ms, by, flops,
+    bytes)."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    flops = 4 * hd * B * H * _pairs(S, T, causal, window)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    f_ms = flops / PEAK[str(q.dtype).split(".")[1]] * 1e3
+    b_ms = nbytes / bw * 1e3
+    return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes"), flops, nbytes
+
+
+def _b4_equal(torch, B, S, H, KV, hd, dtype, causal, window, atol, g):
+    """B4 against its plain version on the card; returns max |diff|."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dtype)
+    n0 = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(fa_ops.flash_attention.launches == n0 + 1, "B4 not launched")
+    check(got.dtype == dtype and got.shape == q.shape, "B4 output dtype/shape")
+    err = max_abs_err(torch, got, want)
+    name = str(dtype).split(".")[1]
+    check(err <= atol, f"B4 [{B}, {S}, {H}, {KV}, {hd}] {name} causal={causal} "
+                       f"window={window}: |diff| {err} > {atol}")
+    print(f"[7] (b) B4 [B, S, H, KV, hd] = [{B}, {S}, {H}, {KV}, {hd}] {name} "
+          f"causal={causal} window={window}: max |diff| {err:.3g} <= {atol}")
+    return err
+
+
+def phase_serve(torch, np, kernels, timer, bw):
+    """Phase 7: batched serving of stablelm_12b at full size on the card."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import convert
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import zoo
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("stablelm_12b"), attention_impl="pallas",
+                              param_dtype="bfloat16")
+    api = zoo.build(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(0)
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params))
+    print(f"[7] stablelm_12b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}; weights {w_bytes / 1e9:.3f} GB "
+          f"bf16, made on the card in {time.perf_counter() - t0:.2f} s")
+
+    # (a) the serve path: a short warm-up (cuBLAS handles, allocator), then
+    # the measured run through serve_batch, the entry point's own body
+    dev_gen = torch.Generator(device="cuda").manual_seed(1)
+    serve_batch(api, params, zoo.make_demo_batch(cfg, dev_gen, SERVE_PROMPTS, 64), 2)
+    batch = zoo.make_demo_batch(cfg, dev_gen, SERVE_PROMPTS, SERVE_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = serve_batch(api, params, batch, SERVE_GEN)
+    launches = kernels.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pre_b4, dec_b4 = (res.prefill_launches["flash_attention"],
+                      res.decode_launches["flash_attention"])
+    ntok = SERVE_PROMPTS * SERVE_LEN
+    print(f"[7] (a) serve {SERVE_PROMPTS} x {SERVE_LEN} prompts, {SERVE_GEN} generated: "
+          f"prefill {res.prefill_s:.3f} s = {ntok / res.prefill_s:.0f} prompt tokens/s; "
+          f"decode {res.decode_s:.3f} s = {SERVE_GEN * SERVE_PROMPTS / res.decode_s:.1f} "
+          f"tokens/s ({1e3 * res.decode_s / SERVE_GEN:.2f} ms a step); peak memory "
+          f"{peak_gb:.2f} GB")
+    print(f"[7] (a) B4 launches: prefill {pre_b4}, decode {dec_b4}; all {launches}")
+    check(pre_b4 == cfg.num_layers, f"B4 launched {pre_b4} times in the prefill, "
+                                     f"not once per layer ({cfg.num_layers})")
+    check(dec_b4 == 0, f"B4 launched {dec_b4} times in decode")
+    check(launches["flash_attention"] == cfg.num_layers, "B4 launches of the run")
+    toks = res.tokens
+    check(toks.shape == (SERVE_PROMPTS, SERVE_GEN + 1), f"tokens shape {toks.shape}")
+    check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token outside the vocabulary")
+    print(f"[7] (a) first sequence: {toks[0].tolist()}")
+
+    # (e) profile one prefill and one decode step by scope
+    max_len = SERVE_LEN + SERVE_GEN + 1
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    named = (("B4 kernel", "flash_attention_kernel"),)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, caches = api.prefill(params, batch, max_len)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        pre = _breakdown(torch, prof, wall, "[7]", _LM_SCOPES, named, what="prefill")
+        tok = torch.argmax(logits[:, :, : cfg.vocab_size], dim=-1)
+        check(torch.isfinite(logits.float()).all().item(), "non-finite prefill logits")
+        api.decode_step(params, caches, tok)          # warm the decode shapes
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, caches = api.decode_step(params, caches, tok)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dec = _breakdown(torch, prof, wall, "[7]", _LM_SCOPES, named, what="decode step")
+        check(torch.isfinite(logits.float()).all().item(), "non-finite decode logits")
+    cache_bytes = sum(2 * c.k[:, : c.length].numel() * c.k.element_size() for c in caches)
+    del caches, logits
+    print(f"[7] (e) B4 is {100 * pre['B4 kernel'] / pre['device_ms']:.1f} % of prefill "
+          f"device time; the decode step's device is idle "
+          f"{100 * (1 - dec['device_ms'] / dec['wall_ms']):.1f} % of it")
+    print(f"[7] (e) decode step {1e3 * res.decode_s / SERVE_GEN:.2f} ms unprofiled; its "
+          f"byte bound {w_bytes / bw * 1e3:.2f} ms for the {w_bytes / 1e9:.2f} GB of "
+          f"weights ({(w_bytes + cache_bytes) / bw * 1e3:.2f} ms with the "
+          f"{cache_bytes / 1e9:.2f} GB of filled cache) = "
+          f"{SERVE_PROMPTS / (w_bytes / bw):.0f} tokens/s at {SERVE_PROMPTS} sequences")
+
+    # (b) B4 against its plain version, and (e) its time at the prefill's shape
+    g = torch.Generator(device="cuda").manual_seed(7)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    errs = [_b4_equal(torch, SERVE_PROMPTS, SERVE_LEN, H, KV, hd, torch.bfloat16, True, 0,
+                      2e-2, g),
+            _b4_equal(torch, 2, 256, 4, 2, 160, torch.float32, True, 0, 2e-5, g),
+            _b4_equal(torch, 1, 256, 4, 1, 128, torch.float32, True, 0, 2e-5, g),
+            _b4_equal(torch, 1, 256, 4, 2, 160, torch.float32, True, 64, 2e-5, g),
+            _b4_equal(torch, 2, 256, 4, 4, 160, torch.float32, False, 0, 2e-5, g)]
+    q = torch.randn((SERVE_PROMPTS, SERVE_LEN, H, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((SERVE_PROMPTS, SERVE_LEN, KV, hd), generator=g, device="cuda").bfloat16()
+    v = torch.randn((SERVE_PROMPTS, SERVE_LEN, KV, hd), generator=g, device="cuda").bfloat16()
+    qt, kt, vt = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).permute(0, 2, 1, 3)
+    lib_err = max_abs_err(torch, lib_out, fa_ref.attention_ref(q, k, v))
+    del lib_out
+    ms = timer(lambda: fa_ops.flash_attention(q, k, v), 10)
+    plain_ms = timer(lambda: fa_ref.attention_ref(q, k, v), 5)
+    lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    bound, by, flops, nbytes = _b4_bound_ms(q, k, True, 0, bw)
+    print(f"[7] (e) B4 at the prefill's shape (q bf16 [{SERVE_PROMPTS}, {SERVE_LEN}, {H}, "
+          f"{hd}], causal): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain "
+          f"{plain_ms:.3f} ms  scaled_dot_product_attention {lib_ms:.3f} ms (its "
+          f"|diff| to the plain version {lib_err:.3g})  bound {bound:.4f} ms by {by} "
+          f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); kernel = "
+          f"{ms / bound:.1f}x its bound; {cfg.num_layers} launches a prefill = "
+          f"{cfg.num_layers * ms / 1e3:.3f} s")
+    del q, k, v, qt, kt, vt, params
+    torch.cuda.empty_cache()
+    b4 = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+              err=max(errs))
+
+    # (c) card == CPU and (d) teacher-forced decode == forward, at 2 layers of
+    # full width in f32 (bf16 weights cast to f32 at each use)
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    api2 = zoo.build(cfg2)
+    tree = convert.lm_params_to_numpy(api2.init_params(2))
+    p_gpu = convert.lm_params_from_numpy(cfg2, tree)
+    p_cpu = convert.lm_params_from_numpy(cfg2, tree, device="cpu")
+    del tree
+    rng = np.random.default_rng(3)
+    toks_np = rng.integers(0, cfg2.vocab_size, (2, 256))
+    out = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        b = {"tokens": torch.from_numpy(toks_np).to(dev)}
+        kernels.reset_launches()
+        with torch.no_grad():
+            logits, _ = api2.prefill(p, b, 256 + 8 + 1)
+        served = serve_batch(api2, p, b, 8)
+        out[dev] = (logits.float().cpu(), served.tokens, kernels.launches()["flash_attention"])
+    (lg, tg, ng), (lc, tc, nc) = out["cuda"], out["cpu"]
+    check(ng == 4 and nc == 0, f"B4 launches card {ng} (2 prefills x 2 layers), CPU {nc}")
+    dl = float((lg - lc).abs().max())
+    check(dl <= LM_F32_ATOL, f"prefill logits card vs CPU |diff| {dl} > {LM_F32_ATOL}")
+    check(np.array_equal(tg, tc), f"greedy tokens card {tg.tolist()} != CPU {tc.tolist()}")
+    print(f"[7] (c) 2 layers of full width, f32, 2 x 256 prompts: prefill logits card vs "
+          f"CPU max |diff| {dl:.3g} <= {LM_F32_ATOL}; the 9 greedy tokens of both "
+          f"sequences equal: {tg[0].tolist()}")
+    del p_cpu
+
+    toks16 = torch.from_numpy(toks_np[:, :16]).cuda()
+    n0 = fa_ops.flash_attention.launches
+    with torch.no_grad():
+        full = api2.forward(p_gpu, {"tokens": toks16}).float()
+        n1 = fa_ops.flash_attention.launches
+        caches = api2.init_decode_state(2, 20)
+        steps = []
+        for t in range(16):
+            lt, caches = api2.decode_step(p_gpu, caches, toks16[:, t:t + 1])
+            steps.append(lt[:, 0].float())
+    dec = torch.stack(steps, dim=1)
+    torch.cuda.synchronize()
+    check(n1 - n0 == 2 and fa_ops.flash_attention.launches == n1,
+          "forward must launch B4 once a layer and decode never")
+    dd = float((full - dec).abs().max())
+    check(dd <= LM_F32_ATOL, f"teacher-forced decode vs forward |diff| {dd} > {LM_F32_ATOL}")
+    print(f"[7] (d) teacher-forced decode (16 steps of sdpa over the cache) vs the "
+          f"forward (B4): max |diff| {dd:.3g} <= {LM_F32_ATOL}")
+    del p_gpu, caches
+    torch.cuda.empty_cache()
+    return dict(launches=launches, b4=b4, prefill_s=res.prefill_s, decode_s=res.decode_s)
+
+
 def main() -> int:
     import torch
 
@@ -731,7 +976,9 @@ def main() -> int:
     bw, bw_label = hbm_for(smi)
     print(f"[1] card: {smi}")
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, python "
-          f"{sys.version.split()[0]}; bound bandwidth: {bw_label}")
+          f"{sys.version.split()[0]}; bound bandwidth: {bw_label}; bound FLOP/s: "
+          f"H100 SXM spec sheet, {PEAK['bfloat16'] / 1e12:.0f} T bf16, "
+          f"{PEAK['float32'] / 1e12:.0f} T f32")
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"[1] built {sorted(logs)} in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
@@ -747,6 +994,7 @@ def main() -> int:
     phase_nb(torch, np, kernels)
     bank_res = phase_bank(torch, np, kernels, timer, bw, reps=20)
     phase_bank_parity(torch, np)
+    serve_res = phase_serve(torch, np, kernels, timer, bw)
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -755,17 +1003,20 @@ def main() -> int:
              "swap_delete": ("src/repro_torch/kernels/csrc/swap_delete.cu",
                              "src/repro/core/latent.py:188"),
              "tbs_step_apply_banked": ("src/repro_torch/kernels/csrc/tbs_step_banked.cu",
-                                       "src/repro/kernels/tbs_step/kernel.py:64")}
+                                       "src/repro/kernels/tbs_step/kernel.py:64"),
+             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                 "src/repro/kernels/flash_attention/kernel.py:73")}
     kres["tbs_step_apply_banked"] = bank_res["b3"]
+    kres["flash_attention"] = serve_res["b4"]
     # each kernel's launches from the run of the path it carries
     runs = dict(main_res["launches"], tbs_step_apply_banked=bank_res["launches"][
-        "tbs_step_apply_banked"])
+        "tbs_step_apply_banked"], flash_attention=serve_res["launches"]["flash_attention"])
     rows = []
     for k, r in kres.items():
         rows.append({"name": k, "route": "cuda", "source": where[k][0],
                      "replaces": where[k][1], "launches": runs[k],
                      "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                     "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
                      "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi_line())

@@ -6,7 +6,9 @@ An R-TBS state is the item pytree (leaves [cap, ...]), ``nfull``, ``weight``
 pytree (leaves [K, cap, ...]) and the [K] columns ``nfull``, ``weight``,
 ``total_weight``, ``pending`` and ``overflow`` (constant-rate schedules
 only: their ``dstate`` is None). Adapter params: linreg ``[dim+1]``,
-naive_bayes ``(log_prior, log_like)``, knn ``{x, y, valid}``.
+naive_bayes ``(log_prior, log_like)``, knn ``{x, y, valid}``. LM params:
+the JAX pytree with ``blocks`` stacked on a leading layer axis, to and from
+the port's dictionaries with a list of per-layer ``blocks``.
 """
 from __future__ import annotations
 
@@ -78,3 +80,40 @@ def params_from_numpy(model: str, params: Any, *, device=None) -> Any:
                 "y": _t(params["y"], dev, torch.int32),
                 "valid": _t(params["valid"], dev, torch.bool)}
     raise ValueError(f"no params conversion for model {model!r}")
+
+
+def _np_to_torch(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16 (JAX's): same bits
+        return torch.from_numpy(np.array(a.view(np.uint16), copy=True)).view(
+            torch.bfloat16).to(device=device, dtype=dtype)
+    return _t(a, device, dtype)
+
+
+def lm_params_from_numpy(cfg, tree: dict, *, device=None) -> dict:
+    """The JAX LM parameter pytree as numpy (nested dicts; ``blocks`` leaves
+    stacked on a leading [num_layers] axis) -> the port's params (``blocks``
+    a list of per-layer dicts) with the same numbers, in
+    ``cfg.param_dtype``, on ``device``."""
+    dev = _device.resolve(device)
+    pd = getattr(torch, cfg.param_dtype)
+    top = {k: v for k, v in tree.items() if k != "blocks"}
+    out = pytree.tree_map(lambda a: _np_to_torch(a, dev, pd), top)
+    out["blocks"] = [pytree.tree_map(lambda a: _np_to_torch(np.asarray(a)[i], dev, pd),
+                                     tree["blocks"]) for i in range(cfg.num_layers)]
+    return out
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The port's LM params -> the JAX layout as numpy, ``blocks`` leaves
+    stacked on a leading layer axis. numpy has no bfloat16, so bfloat16
+    leaves come back as float32, which :func:`lm_params_from_numpy` casts
+    back exactly."""
+    def conv(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    out = pytree.tree_map(conv, {k: v for k, v in params.items() if k != "blocks"})
+    layers = [pytree.tree_map(conv, b) for b in params["blocks"]]
+    out["blocks"] = pytree.tree_map(lambda *xs: np.stack(xs), *layers)
+    return out

@@ -10,6 +10,9 @@ PyTorch version of the same function.
                          (replaces the Pallas ``reservoir_compact`` kernel).
   * swap_delete       -- H1, the delete-complement loop of the downsample
                          map, whose trip count lives on the device.
+  * flash_attention   -- B4, online-softmax GQA attention with causal and
+                         sliding-window masks (replaces the Pallas
+                         ``flash_attention_bhsd``): the LM prefill.
 
 Each ``ops`` wrapper launches its kernel for CUDA tensors (or raises) and
 runs the plain version for CPU tensors only. The kernels are compiled from
@@ -17,6 +20,7 @@ runs the plain version for CPU tensors only. The kernels are compiled from
 """
 from __future__ import annotations
 
+from .flash_attention import ops as _fa
 from .reservoir_compact import ops as _rc
 from .swap_delete import ops as _sd
 from .tbs_step import ops as _ts
@@ -26,6 +30,7 @@ WRAPPERS = {
     "tbs_step_apply_banked": _ts.tbs_step_apply_banked,
     "reservoir_compact": _rc.reservoir_compact,
     "swap_delete": _sd.swap_delete,
+    "flash_attention": _fa.flash_attention,
 }
 
 

@@ -198,3 +198,83 @@ def test_bank_on_card_equals_cpu_and_does_not_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert kernels.launches()["tbs_step_apply_banked"] == 2
+
+
+# ---------------------------------------------------------------------------
+# B4, flash attention, and the dense LM's serve path
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,H,KV,hd,dtype,causal,window,atol", [
+    (8, 2048, 32, 8, 160, torch.bfloat16, True, 0, 2e-2),   # the served prefill
+    (2, 256, 4, 2, 160, torch.float32, True, 0, 2e-5),
+    (1, 256, 4, 1, 128, torch.float32, True, 0, 2e-5),      # MQA, granite_20b's head
+    (1, 256, 4, 2, 160, torch.float32, True, 64, 2e-5),     # sliding window
+    (2, 256, 4, 4, 160, torch.float32, False, 0, 2e-5),     # MHA, bidirectional
+    (1, 77, 6, 3, 24, torch.bfloat16, True, 0, 2e-2),       # ragged tiles
+    (2, 100, 4, 2, 8, torch.float32, True, 40, 2e-5),       # hd 8 (command-r smoke)
+])
+def test_flash_attention_kernel_equals_plain(dev, B, S, H, KV, hd, dtype, causal, window,
+                                             atol):
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+    g = torch.Generator(device=dev).manual_seed(S + hd)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    n0 = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_flash_attention_reads_strided_inputs(dev):
+    """q, k and v as views of one fused projection (no copies made)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn((2, 64, 8, 32), generator=g, device=dev)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [12, 264])
+def test_flash_attention_refuses_unsupported_head_dims(dev, hd):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q = torch.zeros((1, 16, 2, hd), device=dev)
+    n0 = fa_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    assert fa_ops.flash_attention.launches == n0
+
+
+def test_serve_two_layers_full_width_on_card_equals_cpu(dev):
+    """stablelm_12b at full width, 2 layers, f32 compute: greedy tokens from
+    the card (B4) equal the CPU's (B4's plain version)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.config import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import zoo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("stablelm_12b"), num_layers=2, dtype="float32",
+                              param_dtype="bfloat16", attention_impl="pallas")
+    api = zoo.build(cfg)
+    tree = convert.lm_params_to_numpy(api.init_params(5, device=dev))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 64))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        params = convert.lm_params_from_numpy(cfg, tree, device=d)
+        res = serve_batch(api, params, {"tokens": torch.from_numpy(toks).to(d)}, 4)
+        out[d.type] = res
+    assert out["cuda"].prefill_launches["flash_attention"] == 2
+    assert out["cuda"].decode_launches["flash_attention"] == 0
+    np.testing.assert_array_equal(out["cuda"].tokens, out["cpu"].tokens)

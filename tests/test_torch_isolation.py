@@ -25,6 +25,14 @@ MODULES = [
     "repro_torch.obs.profile", "repro_torch.bank", "repro_torch.bank.routing",
     "repro_torch.bank.bank", "repro_torch.manage.bank_loop",
     "repro_torch.kernels.tbs_step.ref",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.kernel", "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.config", "repro_torch.configs", "repro_torch.configs.stablelm_12b",
+    "repro_torch.configs.granite_20b", "repro_torch.configs.command_r_35b",
+    "repro_torch.configs.mistral_large_123b", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.transformer",
+    "repro_torch.models.zoo", "repro_torch.train", "repro_torch.train.steps",
+    "repro_torch.launch", "repro_torch.launch.serve",
 ]
 
 
@@ -60,14 +68,21 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.data.streams import LinRegStream
     from repro_torch.decay import decay_profile, exponential
     from repro_torch.bank import make_bank
+    from repro_torch.config import get_smoke_config
+    from repro_torch.launch import serve
     from repro_torch.manage import make_model, materialize_stream
+    from repro_torch.models import zoo
 
+    api = zoo.build(get_smoke_config("stablelm_12b"))
     for call in (lambda: make_sampler("rtbs", n=4, lam=0.1),
                  lambda: make_bank("rtbs", num_keys=4, n=2, lam=0.1),
                  lambda: make_model("linreg"),
                  lambda: materialize_stream(LinRegStream(), 2, batch_size=3),
                  lambda: decay_profile(exponential(0.1), 3),
-                 lambda: convert.params_from_numpy("linreg", [0.0, 0.0, 0.0])):
+                 lambda: convert.params_from_numpy("linreg", [0.0, 0.0, 0.0]),
+                 lambda: api.init_params(0),
+                 lambda: api.init_decode_state(2, 8),
+                 lambda: serve.main(["--arch", "stablelm_12b", "--gen", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -79,6 +94,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     from repro_torch.kernels.tbs_step.ops import tbs_step_apply
 
     from repro_torch.bank import route
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.tbs_step.ops import tbs_step_apply_banked
 
     kernels.reset_launches()
@@ -93,5 +109,8 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
                           bcap=2)
     # key 0's slot 1 reads past its one arrival, into key 2's segment
     assert bank.tolist() == [[2.0, 1.0, 0.0, 0.0], [0.0] * 4, [1.0, 3.0, 0.0, 0.0]]
+    q = torch.randn(1, 4, 2, 8)
+    assert flash_attention(q, q[:, :, :1], q[:, :, :1]).shape == q.shape
     assert kernels.launches() == {"tbs_step_apply": 0, "tbs_step_apply_banked": 0,
-                                  "reservoir_compact": 0, "swap_delete": 0}
+                                  "reservoir_compact": 0, "swap_delete": 0,
+                                  "flash_attention": 0}
