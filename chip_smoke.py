@@ -7,8 +7,8 @@ Drives the port's main paths (``repro_torch``: R-TBS sampler + linreg retrain
 + prequential eval through ``make_sampler`` / ``make_model`` /
 ``materialize_stream`` / ``make_run_loop``, the keyed sampler bank
 through ``make_bank`` / ``make_bank_run_loop``, and batched LM serving of
-the dense transformer through ``repro_torch.launch.serve.serve_batch``) at
-full state and model size, after
+the dense transformer and of Mamba2 through
+``repro_torch.launch.serve.serve_batch``) at full state and model size, after
 building every CUDA kernel from ``src/repro_torch/kernels/csrc`` and holding
 each against its plain PyTorch version on the card. Imports neither JAX nor
 the JAX package. Every check raises on failure; no phase catches its own.
@@ -39,7 +39,17 @@ the JAX package. Every check raises on failure; no phase catches its own.
      a profiled prefill and decode step by scope; and, at 2 layers of full
      width in f32 (that depth cut is (c)'s and (d)'s only), card == CPU
      and teacher-forced decode == forward;
-  8. the ``kernels`` JSON line, the card line, and the result line.
+  8. Mamba2 serving: ``mamba2_370m`` at full width and depth (48 layers,
+     bf16 params, B5 SSD chunked scan), 4 prompts x 32,768 tokens
+     prefilled and 32 tokens decoded greedily, with exactly 48 B5 launches
+     in the prefill and none in decode; B5 against its plain version at
+     the prefill's shape (bf16) and against the per-token recurrence in f32
+     (G = 2, distinct A per head, Q 64 / 96 / 256, init_state, strided
+     views); B5's time beside its bound and its plain version; a profiled
+     prefill and decode step by scope; and, at 2 layers of full width in
+     f32 (that depth cut is (e)'s only), card == CPU and teacher-forced
+     decode == forward;
+  9. the ``kernels`` JSON line, the card line, and the result line.
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -953,6 +963,290 @@ def phase_serve(torch, np, kernels, timer, bw):
     return dict(launches=launches, b4=b4, prefill_s=res.prefill_s, decode_s=res.decode_s)
 
 
+# the Mamba2 serving cell: mamba2_370m at full width and depth; the
+# prefill_32k sequence length, its batch of 32 cut to 4
+SSM_PROMPTS, SSM_LEN, SSM_GEN = 4, 32768, 32
+_SSM_SCOPES = ("lm.embed", "lm.norm", "lm.ssm_in", "lm.conv", "lm.ssd", "lm.ssm_out",
+               "lm.logits")
+# B5 against its plain version / the recurrence: tests/test_kernels.py's
+# tolerances, absolute and relative alike (|got - want| <= tol + tol |want|)
+B5_BF16_TOL, B5_F32_TOL = 5e-2, 1e-3
+
+
+def _b5_bound_ms(x, Bm, Q, bw):
+    """B5's least time: the larger of its bytes (x read and y written, B and
+    C read once, dt read, the state written) at the memory's rate and its
+    FLOPs (C B^T once a group, the causal products over the Q(Q+1)/2 pairs,
+    the inter-chunk term and the state update) at the card's peak for the
+    inputs' type. Returns (ms, by, flops, bytes)."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    e, nc, pairs = x.element_size(), S // Q, Q * (Q + 1) // 2
+    nbytes = 2 * B * S * H * P * e + 2 * B * S * G * N * e + 4 * B * S * H + 4 * B * H * N * P
+    flops = 2 * B * nc * (G * N * pairs + H * (P * pairs + 2 * Q * N * P))
+    f_ms = flops / PEAK[str(x.dtype).split(".")[1]] * 1e3
+    b_ms = nbytes / bw * 1e3
+    return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes"), flops, nbytes
+
+
+def _b5_operands(torch, B, S, H, G, N, P, dtype, g, *, strided, model=False):
+    """x, B and C as views into one [B, S, width] buffer, as the model's conv
+    output holds them (contiguous copies unless ``strided``). ``model``: the
+    conv output's own width H*P + 2*G*N and the mamba2 layer's statistics
+    at init (silu'd conv outputs, dt = softplus of a unit normal, A = -1 on
+    every head); else 8 columns wider and tests/test_kernels.py's statistics
+    (normal x, B and C / 2, dt = softplus / 2, a distinct A < 0 per head)."""
+    F = torch.nn.functional
+    width = H * P + 2 * G * N + (8 if strided and not model else 0)
+    buf = torch.randn((B, S, width), generator=g, device="cuda")
+    if model:
+        buf = F.silu(buf)
+    else:
+        buf[..., H * P:] *= 0.5
+    buf = buf.to(dtype)
+    x = buf[..., :H * P].reshape(B, S, H, P)
+    Bm = buf[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = buf[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
+    if not strided:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device="cuda"))
+    if model:
+        a = -torch.ones((H,), device="cuda")
+    else:
+        dt = dt * 0.5
+        a = -torch.exp(torch.randn((H,), generator=g, device="cuda") * 0.3)
+    return x, dt, a, Bm, Cm
+
+
+def _b5_close(torch, got, want, tol, what) -> float:
+    """allclose with atol = rtol = tol; returns max |diff|."""
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    worst = float((diff - tol * want.abs()).max())
+    err = float(diff.max())
+    check(worst <= tol, f"B5 {what}: |diff| exceeds {tol} + {tol} |want| "
+                        f"(max |diff| {err})")
+    return err
+
+
+def _b5_equal(torch, B, S, H, G, N, P, Q, g, *, strided, init):
+    """B5 in f32 against the per-token recurrence (ssd_ref); with ``init``
+    the second half of the sequence runs from the first half's state."""
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+
+    x, dt, a, Bm, Cm = _b5_operands(torch, B, S, H, G, N, P, torch.float32, g,
+                                    strided=strided)
+    n0 = ss_ops.ssd_scan.launches
+    if init:
+        h = S // 2
+        _, mid = ss_ops.ssd_scan(x[:, :h], dt[:, :h], a, Bm[:, :h], Cm[:, :h], chunk=Q)
+        check(float(mid.abs().max()) > 0.1, "B5: the carried state is ~0")
+        y, st = ss_ops.ssd_scan(x[:, h:], dt[:, h:], a, Bm[:, h:], Cm[:, h:], chunk=Q,
+                                init_state=mid)
+    else:
+        y, st = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
+    want_y, want_st = ss_ref.ssd_ref_model_layout(x, dt, a, Bm, Cm)
+    torch.cuda.synchronize()
+    check(ss_ops.ssd_scan.launches == n0 + 1 + int(init), "B5 not launched")
+    what = (f"[B, S, H, G, N, P, Q] = [{B}, {S}, {H}, {G}, {N}, {P}, {Q}] f32"
+            f"{' strided' if strided else ''}{' init_state' if init else ''}")
+    err = max(_b5_close(torch, y, want_y[:, S - y.shape[1]:], B5_F32_TOL, what),
+              _b5_close(torch, st, want_st, B5_F32_TOL, what + " state"))
+    print(f"[8] (b) B5 {what} vs the recurrence: max |diff| {err:.3g} (atol = rtol = "
+          f"{B5_F32_TOL})")
+    return err
+
+
+def phase_serve_ssm(torch, np, kernels, timer, bw):
+    """Phase 8: batched serving of mamba2_370m at full size on the card."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import convert
+    from repro_torch.config import get_config
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import zoo
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("mamba2_370m"), param_dtype="bfloat16")
+    api = zoo.build(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(0)
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params))
+    H, P, G, N, Q = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state,
+                     cfg.ssm_chunk)
+    print(f"[8] mamba2_370m: {cfg.num_layers} layers, d_model {cfg.d_model}, d_inner "
+          f"{cfg.ssm_d_inner}, {H} SSD heads of {P}, state {N}, {G} group, conv "
+          f"{cfg.ssm_conv_width}, chunk {Q}, vocab {cfg.padded_vocab} (tied); "
+          f"{cfg.param_count() / 1e6:.1f} M params, weights {w_bytes / 1e9:.3f} GB bf16, "
+          f"made on the card in {time.perf_counter() - t0:.2f} s")
+
+    # (a) the serve path: a short warm-up, then the measured run
+    dev_gen = torch.Generator(device="cuda").manual_seed(1)
+    serve_batch(api, params, zoo.make_demo_batch(cfg, dev_gen, SSM_PROMPTS, 512), 2)
+    batch = zoo.make_demo_batch(cfg, dev_gen, SSM_PROMPTS, SSM_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = serve_batch(api, params, batch, SSM_GEN)
+    launches = kernels.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ntok = SSM_PROMPTS * SSM_LEN
+    state_bytes = cfg.num_layers * SSM_PROMPTS * H * N * P * 4
+    dec_bound = (w_bytes + 2 * state_bytes) / bw
+    # the prefill's bound: its matrix products (in_proj, out_proj, the last
+    # position's logits) and B5's FLOPs at the bf16 peak
+    gemm = 2 * ntok * cfg.num_layers * cfg.d_model * (
+        2 * cfg.ssm_d_inner + 2 * G * N + H + cfg.ssm_d_inner)
+    gemm += 2 * SSM_PROMPTS * cfg.d_model * cfg.padded_vocab
+    xs = torch.empty((SSM_PROMPTS, SSM_LEN, H, P), dtype=torch.bfloat16, device="meta")
+    bs = torch.empty((SSM_PROMPTS, SSM_LEN, G, N), dtype=torch.bfloat16, device="meta")
+    b5_bound, b5_by, b5_flops, b5_bytes = _b5_bound_ms(xs, bs, Q, bw)
+    pre_bound = (gemm + cfg.num_layers * b5_flops) / PEAK["bfloat16"]
+    print(f"[8] (a) serve {SSM_PROMPTS} x {SSM_LEN} prompts, {SSM_GEN} generated: prefill "
+          f"{res.prefill_s:.3f} s = {ntok / res.prefill_s:.0f} prompt tokens/s (bound "
+          f"{pre_bound:.4f} s by operations: {(gemm + cfg.num_layers * b5_flops) / 1e12:.1f} "
+          f"TFLOP of GEMMs and B5 at the bf16 peak = {ntok / pre_bound:.0f} tokens/s); "
+          f"decode {res.decode_s:.3f} s = {SSM_GEN * SSM_PROMPTS / res.decode_s:.1f} "
+          f"tokens/s, {1e3 * res.decode_s / SSM_GEN:.2f} ms a step (bound "
+          f"{1e3 * dec_bound:.3f} ms by bytes: {w_bytes / 1e9:.3f} GB of weights + "
+          f"{2 * state_bytes / 1e9:.3f} GB of state read and written = "
+          f"{SSM_PROMPTS / dec_bound:.0f} tokens/s); peak memory {peak_gb:.2f} GB")
+    print(f"[8] (a) launches: prefill {res.prefill_launches}, decode {res.decode_launches}")
+    pre_b5, dec_b5 = res.prefill_launches["ssd_scan"], res.decode_launches["ssd_scan"]
+    check(pre_b5 == cfg.num_layers, f"B5 launched {pre_b5} times in the prefill, not "
+                                    f"once per layer ({cfg.num_layers})")
+    check(dec_b5 == 0, f"B5 launched {dec_b5} times in decode")
+    check(launches == dict.fromkeys(launches, 0) | {"ssd_scan": cfg.num_layers},
+          f"launches of the run: {launches}")
+    toks = res.tokens
+    check(toks.shape == (SSM_PROMPTS, SSM_GEN + 1), f"tokens shape {toks.shape}")
+    check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token outside the vocabulary")
+    print(f"[8] (a) first sequence: {toks[0].tolist()}")
+
+    # (d) profile one prefill and one decode step by scope
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    named = (("B5 kernel", "ssd_scan_kernel"),)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, caches = api.prefill(params, batch, 0)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        pre = _breakdown(torch, prof, wall, "[8]", _SSM_SCOPES, named, what="prefill")
+        tok = torch.argmax(logits[:, :, : cfg.vocab_size], dim=-1)
+        check(torch.isfinite(logits.float()).all().item(), "non-finite prefill logits")
+        api.decode_step(params, caches, tok)          # warm the decode shapes
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, caches = api.decode_step(params, caches, tok)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dec = _breakdown(torch, prof, wall, "[8]", _SSM_SCOPES, named, what="decode step")
+        check(torch.isfinite(logits.float()).all().item(), "non-finite decode logits")
+    del caches, logits, batch
+    print(f"[8] (d) B5 is {100 * pre['B5 kernel'] / pre['device_ms']:.1f} % of prefill "
+          f"device time; the prefill's device is idle "
+          f"{100 * (1 - pre['device_ms'] / pre['wall_ms']):.1f} % of it, the decode "
+          f"step's {100 * (1 - dec['device_ms'] / dec['wall_ms']):.1f} %")
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) B5 against its plain version at the prefill's shape (bf16, the
+    # model's strides and statistics) and against the recurrence in f32
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x, dt, a, Bm, Cm = _b5_operands(torch, SSM_PROMPTS, SSM_LEN, H, G, N, P, torch.bfloat16,
+                                    g, strided=True, model=True)
+    check(x.stride(1) == H * P + 2 * G * N, "B5's operands are not the conv's views")
+    n0 = ss_ops.ssd_scan.launches
+    y, st = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
+    want_y, want_st = ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q)
+    torch.cuda.synchronize()
+    check(ss_ops.ssd_scan.launches == n0 + 1, "B5 not launched")
+    check(y.dtype == torch.bfloat16 and y.shape == x.shape, "B5 output dtype/shape")
+    what = f"at the prefill's shape (x bf16 [{SSM_PROMPTS}, {SSM_LEN}, {H}, {P}], Q {Q})"
+    errs = [_b5_close(torch, y, want_y, B5_BF16_TOL, what),
+            _b5_close(torch, st, want_st, B5_BF16_TOL, what + " state")]
+    print(f"[8] (b) B5 {what} vs its plain version: max |diff| y {errs[0]:.3g} (|y| up to "
+          f"{float(want_y.float().abs().max()):.1f}), state {errs[1]:.3g} (atol = rtol = "
+          f"{B5_BF16_TOL})")
+    del y, st, want_y, want_st
+    errs += [_b5_equal(torch, 1, 512, 8, 2, 128, 64, 64, g, strided=False, init=False),
+             _b5_equal(torch, 1, 512, 8, 2, 128, 64, 256, g, strided=True, init=False),
+             _b5_equal(torch, 2, 288, 8, 2, 32, 16, 96, g, strided=False, init=False),
+             _b5_equal(torch, 2, 512, 8, 2, 128, 64, 128, g, strided=True, init=True)]
+
+    # (c) B5's time at the prefill's shape beside its bound and its plain version
+    ms = timer(lambda: ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q), 10)
+    plain_ms = timer(lambda: ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q), 3)
+    print(f"[8] (c) B5 at the prefill's shape: kernel {ms:.3f} ms ({b5_flops / ms / 1e9:.1f} "
+          f"TFLOP/s, {b5_bytes / ms / 1e6:.1f} GB/s)  plain {plain_ms:.3f} ms  bound "
+          f"{b5_bound:.4f} ms by {b5_by} ({b5_bytes / 1e9:.3f} GB, {b5_flops / 1e9:.1f} "
+          f"GFLOP); kernel = {ms / b5_bound:.1f}x its bound; {cfg.num_layers} launches a "
+          f"prefill = {cfg.num_layers * ms / 1e3:.3f} s; no single PyTorch call computes "
+          f"this function")
+    del x, dt, a, Bm, Cm
+    torch.cuda.empty_cache()
+    b5 = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b5_bound, bound_by=b5_by,
+              err=max(errs))
+
+    # (e) card == CPU, and teacher-forced decode == forward, at 2 layers of
+    # full width in f32 (bf16 weights cast to f32 at each use)
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    api2 = zoo.build(cfg2)
+    tree = convert.lm_params_to_numpy(api2.init_params(2))
+    p_gpu = convert.lm_params_from_numpy(cfg2, tree)
+    p_cpu = convert.lm_params_from_numpy(cfg2, tree, device="cpu")
+    del tree
+    toks_np = np.random.default_rng(3).integers(0, cfg2.vocab_size, (2, 512))
+    out = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        b = {"tokens": torch.from_numpy(toks_np).to(dev)}
+        kernels.reset_launches()
+        with torch.no_grad():
+            logits, _ = api2.prefill(p, b, 0)
+        served = serve_batch(api2, p, b, 8)
+        out[dev] = (logits.float().cpu(), served.tokens, kernels.launches()["ssd_scan"])
+    (lg, tg, ng), (lc, tc, nc) = out["cuda"], out["cpu"]
+    check(ng == 4 and nc == 0, f"B5 launches card {ng} (2 prefills x 2 layers), CPU {nc}")
+    dl = float((lg - lc).abs().max())
+    check(dl <= LM_F32_ATOL, f"prefill logits card vs CPU |diff| {dl} > {LM_F32_ATOL}")
+    check(np.array_equal(tg, tc), f"greedy tokens card {tg.tolist()} != CPU {tc.tolist()}")
+    print(f"[8] (e) 2 layers of full width, f32, 2 x 512 prompts (two chunks): prefill "
+          f"logits card vs CPU max |diff| {dl:.3g} <= {LM_F32_ATOL}; the 9 greedy tokens "
+          f"of both sequences equal: {tg[0].tolist()}")
+    del p_cpu
+
+    # prefill 256 tokens, then decode tokens 256..511 one at a time, against
+    # the forward over all 512 (B5 over two chunks)
+    toks = torch.from_numpy(toks_np).cuda()
+    n0 = ss_ops.ssd_scan.launches
+    with torch.no_grad():
+        full = api2.forward(p_gpu, {"tokens": toks}).float()
+        lp, caches = api2.prefill(p_gpu, {"tokens": toks[:, :256]}, 0)
+        n1 = ss_ops.ssd_scan.launches
+        steps = [lp[:, 0].float()]
+        for t in range(256, 512):
+            lt, caches = api2.decode_step(p_gpu, caches, toks[:, t:t + 1])
+            steps.append(lt[:, 0].float())
+    dec = torch.stack(steps, dim=1)
+    torch.cuda.synchronize()
+    check(n1 - n0 == 4 and ss_ops.ssd_scan.launches == n1,
+          "forward and prefill must launch B5 once a layer, and decode never")
+    dd = float((full[:, 255:] - dec).abs().max())
+    check(dd <= LM_F32_ATOL, f"teacher-forced decode vs forward |diff| {dd} > {LM_F32_ATOL}")
+    print(f"[8] (e) prefill of 256 tokens + 256 teacher-forced decode steps (the "
+          f"recurrence) vs the forward over 512 (B5): max |diff| {dd:.3g} <= {LM_F32_ATOL}")
+    del p_gpu, caches
+    torch.cuda.empty_cache()
+    return dict(launches=launches, b5=b5)
+
+
 def main() -> int:
     import torch
 
@@ -995,6 +1289,7 @@ def main() -> int:
     bank_res = phase_bank(torch, np, kernels, timer, bw, reps=20)
     phase_bank_parity(torch, np)
     serve_res = phase_serve(torch, np, kernels, timer, bw)
+    ssm_res = phase_serve_ssm(torch, np, kernels, timer, bw)
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -1005,12 +1300,16 @@ def main() -> int:
              "tbs_step_apply_banked": ("src/repro_torch/kernels/csrc/tbs_step_banked.cu",
                                        "src/repro/kernels/tbs_step/kernel.py:64"),
              "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                 "src/repro/kernels/flash_attention/kernel.py:73")}
+                                 "src/repro/kernels/flash_attention/kernel.py:73"),
+             "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                          "src/repro/kernels/ssd_scan/kernel.py:66")}
     kres["tbs_step_apply_banked"] = bank_res["b3"]
     kres["flash_attention"] = serve_res["b4"]
+    kres["ssd_scan"] = ssm_res["b5"]
     # each kernel's launches from the run of the path it carries
     runs = dict(main_res["launches"], tbs_step_apply_banked=bank_res["launches"][
-        "tbs_step_apply_banked"], flash_attention=serve_res["launches"]["flash_attention"])
+        "tbs_step_apply_banked"], flash_attention=serve_res["launches"]["flash_attention"],
+        ssd_scan=ssm_res["launches"]["ssd_scan"])
     rows = []
     for k, r in kres.items():
         rows.append({"name": k, "route": "cuda", "source": where[k][0],

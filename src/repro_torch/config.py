@@ -4,8 +4,9 @@ derived properties, so a config compares 1:1 with its JAX twin.
 
 Every assigned architecture is a ``ModelConfig``; ``get_config(name)``
 resolves it from ``repro_torch/configs/<id>.py``. The port builds the dense
-family so far: the four dense configs are here, and the other families'
-names raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+and ssm families so far: the four dense configs and mamba2_370m are here,
+and the other families' names raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 Shapes (the assignment's per-arch input shapes) are ``ShapeConfig``s. The
 dry-run grid ``cells()`` waits for the dry-run slice (ROADMAP A.12).
 
@@ -208,14 +209,13 @@ ALIASES = {
 
 # the families the port does not build yet -> the ROADMAP item that ports them
 FAMILY_SLICE = {
-    "ssm": "ROADMAP A.11a (ssm serving, with kernel B5)",
     "moe": "ROADMAP A.11b (moe and vlm serving)",
     "vlm": "ROADMAP A.11b (moe and vlm serving)",
     "hybrid": "ROADMAP A.11c (hybrid and encdec)",
     "audio": "ROADMAP A.11c (hybrid and encdec)",
 }
 # the architectures of those families (their configs are not copied yet)
-NOT_PORTED = {"mamba2_370m": "ssm", "granite_moe_3b": "moe", "mixtral_8x22b": "moe",
+NOT_PORTED = {"granite_moe_3b": "moe", "mixtral_8x22b": "moe",
               "qwen2_vl_2b": "vlm", "zamba2_2p7b": "hybrid", "whisper_large_v3": "audio"}
 
 

@@ -8,7 +8,10 @@ pytree (leaves [K, cap, ...]) and the [K] columns ``nfull``, ``weight``,
 only: their ``dstate`` is None). Adapter params: linreg ``[dim+1]``,
 naive_bayes ``(log_prior, log_like)``, knn ``{x, y, valid}``. LM params:
 the JAX pytree with ``blocks`` stacked on a leading layer axis, to and from
-the port's dictionaries with a list of per-layer ``blocks``.
+the port's dictionaries with a list of per-layer ``blocks`` (dense and
+Mamba2 trees alike). Mamba2 decode state: JAX's stacked ``SSMCache``
+(``conv`` [L, B, W-1, conv_dim], ``state`` [L, B, H, N, P]) to and from the
+port's list of per-layer :class:`~repro_torch.models.ssm.SSMCache`.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from repro_torch import _device
 from repro_torch.bank import BankState
 from repro_torch.core import latent as lt
 from repro_torch.core.rtbs import RTBSState
+from repro_torch.models.ssm import SSMCache
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -90,6 +94,12 @@ def _np_to_torch(a, device, dtype) -> torch.Tensor:
     return _t(a, device, dtype)
 
 
+def _to_np(t: torch.Tensor) -> np.ndarray:
+    """numpy has no bfloat16: bfloat16 comes back as float32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def lm_params_from_numpy(cfg, tree: dict, *, device=None) -> dict:
     """The JAX LM parameter pytree as numpy (nested dicts; ``blocks`` leaves
     stacked on a leading [num_layers] axis) -> the port's params (``blocks``
@@ -109,11 +119,28 @@ def lm_params_to_numpy(params: dict) -> dict:
     stacked on a leading layer axis. numpy has no bfloat16, so bfloat16
     leaves come back as float32, which :func:`lm_params_from_numpy` casts
     back exactly."""
-    def conv(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    out = pytree.tree_map(conv, {k: v for k, v in params.items() if k != "blocks"})
-    layers = [pytree.tree_map(conv, b) for b in params["blocks"]]
+    out = pytree.tree_map(_to_np, {k: v for k, v in params.items() if k != "blocks"})
+    layers = [pytree.tree_map(_to_np, b) for b in params["blocks"]]
     out["blocks"] = pytree.tree_map(lambda *xs: np.stack(xs), *layers)
     return out
+
+
+def ssm_caches_from_numpy(cfg, conv, state, *, device=None) -> list[SSMCache]:
+    """JAX's stacked ``SSMCache`` fields as numpy (``conv`` [L, B, W-1,
+    conv_dim], ``state`` [L, B, H, N, P]) -> the port's per-layer list with
+    the same numbers, ``conv`` in ``cfg.dtype`` and ``state`` in f32, on
+    ``device``."""
+    dev = _device.resolve(device)
+    conv, state = np.asarray(conv), np.asarray(state)
+    dt = getattr(torch, cfg.dtype)
+    return [SSMCache(conv=_np_to_torch(conv[i], dev, dt),
+                     state=_np_to_torch(state[i], dev, torch.float32))
+            for i in range(conv.shape[0])]
+
+
+def ssm_caches_to_numpy(caches: list[SSMCache]) -> dict:
+    """The port's per-layer caches -> ``{"conv", "state"}`` stacked on a
+    leading layer axis, as JAX keeps them (bfloat16 comes back as float32,
+    as in :func:`lm_params_to_numpy`)."""
+    return {"conv": np.stack([_to_np(c.conv) for c in caches]),
+            "state": np.stack([_to_np(c.state) for c in caches])}

@@ -13,6 +13,9 @@ PyTorch version of the same function.
   * flash_attention   -- B4, online-softmax GQA attention with causal and
                          sliding-window masks (replaces the Pallas
                          ``flash_attention_bhsd``): the LM prefill.
+  * ssd_scan          -- B5, the Mamba2 SSD chunked scan with its state
+                         carried across chunks (replaces the Pallas
+                         ``ssd_scan_bhsp``): the Mamba2 prefill.
 
 Each ``ops`` wrapper launches its kernel for CUDA tensors (or raises) and
 runs the plain version for CPU tensors only. The kernels are compiled from
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 from .flash_attention import ops as _fa
 from .reservoir_compact import ops as _rc
+from .ssd_scan import ops as _ss
 from .swap_delete import ops as _sd
 from .tbs_step import ops as _ts
 
@@ -31,6 +35,7 @@ WRAPPERS = {
     "reservoir_compact": _rc.reservoir_compact,
     "swap_delete": _sd.swap_delete,
     "flash_attention": _fa.flash_attention,
+    "ssd_scan": _ss.ssd_scan,
 }
 
 

@@ -1,0 +1,79 @@
+"""Wrapper of B5, the Mamba2 SSD chunked scan over the model layout.
+
+On CUDA tensors it launches the hand-written kernel (``csrc/ssd_scan.cu``),
+which reads x, B and C through their strides (in the model they are views
+into the conv output), so no transposed copy is made; the plain version
+:func:`.ref.ssd_scan_ref` runs only for CPU tensors. ``ssd_scan.launches``
+counts kernel launches. Unlike the JAX wrapper it takes an ``init_state``
+(the carried state at chunk 0), so the model's ``ssd_chunked`` has one
+route on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _common
+from . import kernel, ref
+
+_MAX_GRID_Y = 65_535
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _check(x, dt, a, Bm, Cm, chunk, init_state) -> int:
+    """Raise on what the kernel does not take; returns the chunk length Q."""
+    if x.dim() != 4 or Bm.dim() != 4 or Cm.shape != Bm.shape:
+        raise ValueError(f"ssd_scan: x [B,S,H,P] and Bm, Cm [B,S,G,N] expected, got "
+                         f"{tuple(x.shape)}, {tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if Bm.shape[:2] != (B, S) or dt.shape != (B, S, H) or a.shape != (H,):
+        raise ValueError(f"ssd_scan: dt [B,S,H] and a [H] matching x {tuple(x.shape)} "
+                         f"and Bm {tuple(Bm.shape)} expected, got dt {tuple(dt.shape)}, "
+                         f"a {tuple(a.shape)}")
+    if G == 0 or H % G:
+        raise ValueError(f"ssd_scan: {H} heads are not a multiple of {G} groups")
+    if N % 8 or not 8 <= N <= 128:
+        raise ValueError(f"ssd_scan: state size {N} is not a multiple of 8 in [8, 128]")
+    if P % 8 or not 8 <= P <= 64:
+        raise ValueError(f"ssd_scan: head dim {P} is not a multiple of 8 in [8, 64]")
+    Q = min(int(chunk), S)
+    if not 1 <= Q <= 256 or S % Q:
+        raise ValueError(f"ssd_scan: chunk {Q} must be in [1, 256] and divide S = {S}")
+    if x.dtype not in _FLOATS or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"ssd_scan: float32 or bfloat16 x, Bm, Cm of one dtype expected, "
+                        f"got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: float32 dt and a expected, got {dt.dtype}, {a.dtype}")
+    if init_state is not None and (init_state.shape != (B, H, N, P)
+                                   or init_state.dtype != torch.float32):
+        raise ValueError(f"ssd_scan: init_state float32 [{B}, {H}, {N}, {P}] expected, "
+                         f"got {init_state.dtype} {tuple(init_state.shape)}")
+    return Q
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, *, chunk: int = 256,
+             init_state: torch.Tensor | None = None):
+    """x [B,S,H,P]; dt [B,S,H] f32 (post-softplus); a [H] f32 (< 0); Bm/Cm
+    [B,S,G,N] -> (y [B,S,H,P] in x's dtype, final state [B,H,N,P] f32), by
+    chunks of Q = min(chunk, S) tokens; head h reads group h // (H // G)."""
+    Q = _check(x, dt, a, Bm, Cm, chunk, init_state)
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q, init_state=init_state)
+    tensors = (x, dt, a, Bm, Cm) + (() if init_state is None else (init_state,))
+    _common.check_cuda("ssd_scan", *tensors)
+    if x.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"ssd_scan: batch {x.shape[0]} must be at most {_MAX_GRID_Y}")
+    x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm))
+    a = a.contiguous()
+    if init_state is not None:
+        init_state = init_state.contiguous()
+    B, S, H, P = x.shape
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    state = torch.empty((B, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
+    kernel.ssd_scan(x, dt, a, Bm, Cm, init_state, y, state, Q)
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

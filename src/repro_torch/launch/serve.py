@@ -3,11 +3,16 @@
 The port of the JAX package's ``launch/serve.py``: the same flags and the
 same printed lines. It runs on the CUDA card unless ``device="cpu"`` is
 passed to :func:`main`. :func:`serve_batch` is the prefill + decode body,
-which ``main`` and ``chip_smoke.py`` both call. Serving telemetry
-(``--telemetry-dir``, ``--telemetry-stdout`` or a ``telemetry=`` handle)
-waits for the port of ``obs/telemetry`` (ROADMAP A.9) and raises until then.
+which ``main`` and ``chip_smoke.py`` both call. It serves the dense archs
+(KV caches, kernel B4 under ``attention_impl="pallas"``) and the default
+``mamba2_370m`` (per-layer SSM state; kernel B5 in every prefill). Serving
+telemetry (``--telemetry-dir``, ``--telemetry-stdout`` or a ``telemetry=``
+handle) waits for the port of ``obs/telemetry`` (ROADMAP A.9) and raises
+until then.
 
-Example (on the card):
+Examples (on the card):
+  PYTHONPATH=src python -m repro_torch.launch.serve --preset full \\
+      --prompts 4 --prompt-len 4096 --gen 32          # mamba2_370m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_12b \\
       --preset smoke --prompts 4 --prompt-len 16 --gen 16
 """
@@ -49,9 +54,10 @@ def _delta(after: dict, before: dict) -> dict:
 @torch.no_grad()
 def serve_batch(api, params, batch: dict, gen: int) -> Served:
     """Prefill ``batch`` (``{"tokens": [prompts, prompt_len]}``) into caches of
-    ``prompt_len + gen + 1`` slots, take the greedy token, then decode ``gen``
-    more greedily. Waits for the device at the end of each phase, so the
-    times are wall times of finished work."""
+    ``prompt_len + gen + 1`` slots (a KV cache's length; SSM state ignores
+    it), take the greedy token, then decode ``gen`` more greedily. Waits for
+    the device at the end of each phase, so the times are wall times of
+    finished work."""
     tokens = batch["tokens"]
     dev = tokens.device
     max_len = tokens.shape[1] + gen + 1

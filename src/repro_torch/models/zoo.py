@@ -1,11 +1,11 @@
 """Unified model API over the zoo: the port of the JAX package's
 ``models/zoo.py`` (``ModelAPI``, ``build``, ``precast``, ``make_demo_batch``).
 
-Only the dense family is built so far; the other families raise naming
-their slice. ``loss_fn`` and ``input_specs`` come with the training and
-dry-run slices (ROADMAP A.11d, A.12). Where JAX takes a ``jax.random`` key,
-the port takes a seed (``init_params``) or a ``torch.Generator``
-(``make_demo_batch``)."""
+The dense family (``transformer``) and the ssm family (``mamba_lm``) are
+built so far; the other families raise naming their slice. ``loss_fn`` and
+``input_specs`` come with the training and dry-run slices (ROADMAP A.11d,
+A.12). Where JAX takes a ``jax.random`` key, the port takes a seed
+(``init_params``) or a ``torch.Generator`` (``make_demo_batch``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +17,7 @@ from torch.utils import _pytree as pytree
 from repro_torch import _device
 from repro_torch.config import FAMILY_SLICE, ModelConfig, not_ported
 
-from . import transformer
+from . import mamba_lm, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,9 +34,12 @@ def build(cfg: ModelConfig) -> ModelAPI:
     fam = cfg.family
     if fam in FAMILY_SLICE:
         raise not_ported(cfg.name, fam)
-    if fam != "dense":
+    if fam == "dense":
+        mod = transformer
+    elif fam == "ssm":
+        mod = mamba_lm
+    else:
         raise ValueError(fam)
-    mod = transformer
 
     def init_params(seed: int, *, device=None):
         """Random parameters from a seeded generator on ``device`` (the card

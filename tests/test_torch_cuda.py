@@ -278,3 +278,128 @@ def test_serve_two_layers_full_width_on_card_equals_cpu(dev):
     assert out["cuda"].prefill_launches["flash_attention"] == 2
     assert out["cuda"].decode_launches["flash_attention"] == 0
     np.testing.assert_array_equal(out["cuda"].tokens, out["cpu"].tokens)
+
+
+# ---------------------------------------------------------------------------
+# B5, the SSD chunked scan, and the Mamba2 serve path
+# ---------------------------------------------------------------------------
+def _ssd_operands(B, S, H, G, N, P, dtype, dev, seed, *, strided=False):
+    """x, B and C as views into one [B, S, H*P + 2*G*N (+ 8)] buffer, as the
+    model's conv output holds them; dt = softplus(normal) / 2 and a distinct
+    A < 0 per head, as ``tests/test_kernels.py`` draws them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    width = H * P + 2 * G * N + (8 if strided else 0)
+    buf = torch.randn((B, S, width), generator=g, device=dev)
+    buf[..., H * P:] *= 0.5
+    buf = buf.to(dtype)
+    x = buf[..., :H * P].reshape(B, S, H, P)
+    Bm = buf[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = buf[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
+    if not strided:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev)) * 0.5
+    a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3)
+    return x, dt, a, Bm, Cm
+
+
+def test_ssd_scan_kernel_equals_plain_at_the_prefill_shape(dev):
+    """mamba2_370m's prefill (x bf16 [4, 32768, 32, 64], G = 1, N = 128,
+    Q = 256) with strided x, B and C, against the plain version in f32 cast
+    once; tests/test_kernels.py's bf16 tolerance."""
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+
+    x, dt, a, Bm, Cm = _ssd_operands(4, 32768, 32, 1, 128, 64, torch.bfloat16, dev, 0,
+                                     strided=True)
+    n0 = ss_ops.ssd_scan.launches
+    y, st = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=256)
+    want_y, want_st = ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert ss_ops.ssd_scan.launches == n0 + 1
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(st, want_st, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("B,S,H,G,N,P,Q,strided", [
+    (1, 512, 8, 2, 128, 64, 64, False),     # G = 2, rep = 4, the model's N and P
+    (1, 512, 8, 2, 128, 64, 256, True),     # the model's chunk, strided views
+    (2, 288, 8, 2, 32, 16, 96, False),      # Q not a power of two: a ragged tile
+    (2, 100, 4, 4, 8, 8, 20, True),         # rep 1, Q 20
+    (2, 64, 4, 1, 16, 16, 16, False),       # tests/test_kernels.py's cases
+    (1, 128, 4, 2, 32, 16, 32, False),
+    (2, 64, 2, 2, 16, 32, 64, False),
+])
+def test_ssd_scan_kernel_equals_recurrence(dev, B, S, H, G, N, P, Q, strided):
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+
+    x, dt, a, Bm, Cm = _ssd_operands(B, S, H, G, N, P, torch.float32, dev, S + Q,
+                                     strided=strided)
+    y, st = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
+    want_y, want_st = ss_ref.ssd_ref_model_layout(x, dt, a, Bm, Cm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
+
+
+def test_ssd_scan_kernel_carries_init_state(dev):
+    """The second half of the sequence from the first half's state equals the
+    recurrence over the whole sequence (y of the second half, final state)."""
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+
+    x, dt, a, Bm, Cm = _ssd_operands(2, 512, 8, 2, 128, 64, torch.float32, dev, 9)
+    _, mid = ss_ops.ssd_scan(x[:, :256], dt[:, :256], a, Bm[:, :256], Cm[:, :256],
+                             chunk=128)
+    assert mid.abs().max() > 0.1
+    y2, st = ss_ops.ssd_scan(x[:, 256:], dt[:, 256:], a, Bm[:, 256:], Cm[:, 256:],
+                             chunk=128, init_state=mid)
+    want_y, want_st = ss_ref.ssd_ref_model_layout(x, dt, a, Bm, Cm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y2, want_y[:, 256:], atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("N,P,Q", [(12, 16, 16), (256, 16, 16), (16, 72, 16),
+                                   (16, 16, 512)])
+def test_ssd_scan_refuses_unsupported_shapes(dev, N, P, Q):
+    from repro_torch.kernels.ssd_scan import ops as ss_ops
+
+    x, dt, a, Bm, Cm = (t.cuda() for t in (torch.zeros(1, 512, 2, P), torch.zeros(1, 512, 2),
+                                           torch.zeros(2), torch.zeros(1, 512, 1, N),
+                                           torch.zeros(1, 512, 1, N)))
+    n0 = ss_ops.ssd_scan.launches
+    with pytest.raises(ValueError):
+        ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
+    assert ss_ops.ssd_scan.launches == n0
+
+
+def test_serve_mamba2_two_layers_full_width_on_card_equals_cpu(dev):
+    """mamba2_370m at full width, 2 layers, f32 compute, 2 x 512 prompts (two
+    chunks): prefill logits of the card (B5) within 1e-3 of the CPU's (the
+    jnp twin) and equal greedy tokens; B5 once a layer in the prefill only."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.config import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import zoo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("mamba2_370m"), num_layers=2, dtype="float32",
+                              param_dtype="bfloat16")
+    api = zoo.build(cfg)
+    tree = convert.lm_params_to_numpy(api.init_params(5, device=dev))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 512))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        params = convert.lm_params_from_numpy(cfg, tree, device=d)
+        batch = {"tokens": torch.from_numpy(toks).to(d)}
+        with torch.no_grad():
+            logits, _ = api.prefill(params, batch, 0)
+        out[d.type] = (logits.float().cpu(), serve_batch(api, params, batch, 4))
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-3, rtol=0)
+    assert out["cuda"][1].prefill_launches["ssd_scan"] == 2
+    assert out["cuda"][1].decode_launches["ssd_scan"] == 0
+    np.testing.assert_array_equal(out["cuda"][1].tokens, out["cpu"][1].tokens)

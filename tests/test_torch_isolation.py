@@ -33,6 +33,10 @@ MODULES = [
     "repro_torch.models.attention", "repro_torch.models.transformer",
     "repro_torch.models.zoo", "repro_torch.train", "repro_torch.train.steps",
     "repro_torch.launch", "repro_torch.launch.serve",
+    "repro_torch.configs.mamba2_370m", "repro_torch.kernels.ssd_scan",
+    "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.kernel",
+    "repro_torch.kernels.ssd_scan.ref", "repro_torch.models.ssm",
+    "repro_torch.models.mamba_lm",
 ]
 
 
@@ -74,6 +78,7 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.models import zoo
 
     api = zoo.build(get_smoke_config("stablelm_12b"))
+    ssm = zoo.build(get_smoke_config("mamba2_370m"))
     for call in (lambda: make_sampler("rtbs", n=4, lam=0.1),
                  lambda: make_bank("rtbs", num_keys=4, n=2, lam=0.1),
                  lambda: make_model("linreg"),
@@ -82,6 +87,10 @@ def test_entry_points_raise_without_a_card():
                  lambda: convert.params_from_numpy("linreg", [0.0, 0.0, 0.0]),
                  lambda: api.init_params(0),
                  lambda: api.init_decode_state(2, 8),
+                 lambda: ssm.init_params(0),
+                 lambda: ssm.init_decode_state(2, 8),
+                 lambda: convert.ssm_caches_from_numpy(ssm.cfg, [[[[0.0]]]], [[[[[0.0]]]]]),
+                 lambda: serve.main(["--gen", "1"]),
                  lambda: serve.main(["--arch", "stablelm_12b", "--gen", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -95,6 +104,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
 
     from repro_torch.bank import route
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.tbs_step.ops import tbs_step_apply_banked
 
     kernels.reset_launches()
@@ -111,6 +121,10 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     assert bank.tolist() == [[2.0, 1.0, 0.0, 0.0], [0.0] * 4, [1.0, 3.0, 0.0, 0.0]]
     q = torch.randn(1, 4, 2, 8)
     assert flash_attention(q, q[:, :, :1], q[:, :, :1]).shape == q.shape
+    x = torch.randn(1, 4, 2, 8)
+    y, _ = ssd_scan(x, torch.rand(1, 4, 2), -torch.ones(2), x[:, :, :1], x[:, :, 1:],
+                    chunk=2)
+    assert y.shape == x.shape
     assert kernels.launches() == {"tbs_step_apply": 0, "tbs_step_apply_banked": 0,
                                   "reservoir_compact": 0, "swap_delete": 0,
-                                  "flash_attention": 0}
+                                  "flash_attention": 0, "ssd_scan": 0}

@@ -86,7 +86,7 @@ def test_registry_equals_jax_and_unported_families_raise():
     assert {k: dataclasses.asdict(v) for k, v in tconfig.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfig.SHAPES.items()}
     assert tconfig.get_config("stablelm-12b") == tconfig.get_config("stablelm_12b")
-    for arch in set(tconfig.ARCH_IDS) - set(DENSE):
+    for arch in set(tconfig.ARCH_IDS) - set(DENSE) - {"mamba2_370m"}:
         with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
             tconfig.get_config(arch)
     moe = dataclasses.replace(tconfig.get_smoke_config("stablelm_12b"), family="moe")
@@ -339,8 +339,3 @@ def test_serve_counts_launches_by_phase_on_cpu():
 def test_serve_telemetry_raises(extra, telemetry):
     with pytest.raises(NotImplementedError, match="A.9"):
         serve.main(SMOKE_ARGS + extra, telemetry=telemetry, device="cpu")
-
-
-def test_serve_default_arch_raises_naming_the_ssm_slice():
-    with pytest.raises(NotImplementedError, match="A.11a"):
-        serve.main([], device="cpu")
