@@ -32,10 +32,14 @@ the JAX package. Every check raises on failure; no phase catches its own.
      unfused composition, and card == CPU at K = 4096;
   7. serving: ``stablelm_12b`` at full width and depth (40 layers, bf16
      params, B4 flash attention), 8 prompts x 2,048 tokens prefilled and
-     32 tokens decoded greedily, with exactly 40 B4 launches in the prefill
-     and none in decode; B4 against its plain version at the prefill's
-     shape and at f32 GQA / MQA / window / non-causal shapes; B4's time
-     beside its bound, its plain version and ``scaled_dot_product_attention``;
+     32 tokens decoded greedily, with exactly 40 B4 launches in the prefill,
+     all on B4's tensor-core route (bf16), and none in decode; B4 against
+     its plain version at the prefill's shape, at bf16 shapes of every
+     head-dim layout, mask, group, ragged and S != T length and a fused
+     projection's views (the tensor-core kernel; each row also against the
+     f32 reference), and at f32 GQA / MQA / window / non-causal shapes (the
+     CUDA-core kernel); B4's time beside its bound, its plain version and
+     ``scaled_dot_product_attention``;
      a profiled prefill and decode step by scope; and, at 2 layers of full
      width in f32 (that depth cut is (c)'s and (d)'s only), card == CPU
      and teacher-forced decode == forward;
@@ -769,25 +773,65 @@ def _b4_bound_ms(q, k, causal, window, bw):
     return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes"), flops, nbytes
 
 
-def _b4_equal(torch, B, S, H, KV, hd, dtype, causal, window, atol, g):
-    """B4 against its plain version on the card; returns max |diff|."""
+# bf16 B4 against attention_ref in f32 on the same bf16 inputs: the largest
+# |o - want| / |want| over the rows (b, s, h) of hd values. Rounding p and o
+# to bf16 (each off by at most 2^-8 of itself) leaves about 3e-3 at hd >= 64
+# and up to 6.7e-3 at hd 8, whose rows average only 8 values (NVIDIA H100,
+# phase 7 (b)); a fault that moves the late rows of a long sequence by 0.01,
+# a quarter of their typical |o|, gives about 0.25.
+B4_BF16_ROW_REL = 8e-3
+
+
+def _row_rel_err(torch, got, want) -> float:
+    d = (got.double() - want.double()).norm(dim=-1)
+    return float((d / want.double().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _b4_equal(torch, B, S, H, KV, hd, dtype, causal, window, atol, g, T=None,
+              fused=False):
+    """B4 against its plain version on the card, with T keys (default S);
+    ``fused``: q, k and v as views of one [B, S, (H + 2 KV) hd] projection.
+    Checks the route (bf16 on the tensor cores, f32 on the CUDA cores) and,
+    for bf16, each row against the f32 reference (B4_BF16_ROW_REL); returns
+    max |diff| to the plain version."""
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 
-    q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
-    k = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dtype)
+    T = S if T is None else T
+    if fused:
+        qkv = torch.randn((B, S, (H + 2 * KV) * hd), generator=g, device="cuda").to(dtype)
+        q = qkv[..., :H * hd].reshape(B, S, H, hd)
+        k = qkv[..., H * hd:(H + KV) * hd].reshape(B, S, KV, hd)
+        v = qkv[..., (H + KV) * hd:].reshape(B, S, KV, hd)
+    else:
+        q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, T, KV, hd), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, T, KV, hd), generator=g, device="cuda").to(dtype)
     n0 = fa_ops.flash_attention.launches
+    t0 = fa_ops.flash_attention.tensor_core_launches
     got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
-    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    want = fa_ref.attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=causal, window=window)
     torch.cuda.synchronize()
     check(fa_ops.flash_attention.launches == n0 + 1, "B4 not launched")
+    tc = fa_ops.flash_attention.tensor_core_launches - t0
+    check(tc == (dtype == torch.bfloat16), f"B4 {dtype} went to the wrong route")
     check(got.dtype == dtype and got.shape == q.shape, "B4 output dtype/shape")
     err = max_abs_err(torch, got, want)
     name = str(dtype).split(".")[1]
-    check(err <= atol, f"B4 [{B}, {S}, {H}, {KV}, {hd}] {name} causal={causal} "
-                       f"window={window}: |diff| {err} > {atol}")
-    print(f"[7] (b) B4 [B, S, H, KV, hd] = [{B}, {S}, {H}, {KV}, {hd}] {name} "
-          f"causal={causal} window={window}: max |diff| {err:.3g} <= {atol}")
+    what = (f"[B, S, T, H, KV, hd] = [{B}, {S}, {T}, {H}, {KV}, {hd}] {name} "
+            f"causal={causal} window={window}{' fused views' if fused else ''}")
+    check(err <= atol, f"B4 {what}: |diff| {err} > {atol}")
+    rel = ""
+    if dtype == torch.bfloat16:
+        want32 = fa_ref.attention_ref(*(x.float() for x in (q, k, v)), causal=causal,
+                                      window=window)
+        rerr = _row_rel_err(torch, got, want32)
+        del want32
+        check(rerr <= B4_BF16_ROW_REL, f"B4 {what}: a row is {rerr} of its norm off the "
+                                       f"f32 reference, > {B4_BF16_ROW_REL}")
+        rel = f"; rows vs f32 reference {rerr:.3g} of their norm <= {B4_BF16_ROW_REL}"
+    print(f"[7] (b) B4 {what} ({'tensor' if tc else 'CUDA'} cores): max |diff| "
+          f"{err:.3g} <= {atol}{rel}")
     return err
 
 
@@ -835,10 +879,14 @@ def phase_serve(torch, np, kernels, timer, bw):
           f"decode {res.decode_s:.3f} s = {SERVE_GEN * SERVE_PROMPTS / res.decode_s:.1f} "
           f"tokens/s ({1e3 * res.decode_s / SERVE_GEN:.2f} ms a step); peak memory "
           f"{peak_gb:.2f} GB")
-    print(f"[7] (a) B4 launches: prefill {pre_b4}, decode {dec_b4}; all {launches}")
+    tc_b4 = fa_ops.flash_attention.tensor_core_launches
+    print(f"[7] (a) B4 launches: prefill {pre_b4}, decode {dec_b4}, on the tensor-core "
+          f"route {tc_b4}; all {launches}")
     check(pre_b4 == cfg.num_layers, f"B4 launched {pre_b4} times in the prefill, "
                                      f"not once per layer ({cfg.num_layers})")
     check(dec_b4 == 0, f"B4 launched {dec_b4} times in decode")
+    check(tc_b4 == pre_b4, f"{pre_b4 - tc_b4} of the prefill's B4 launches missed the "
+                           f"tensor-core route")
     check(launches["flash_attention"] == cfg.num_layers, "B4 launches of the run")
     toks = res.tokens
     check(toks.shape == (SERVE_PROMPTS, SERVE_GEN + 1), f"tokens shape {toks.shape}")
@@ -848,7 +896,7 @@ def phase_serve(torch, np, kernels, timer, bw):
     # (e) profile one prefill and one decode step by scope
     max_len = SERVE_LEN + SERVE_GEN + 1
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    named = (("B4 kernel", "flash_attention_kernel"),)
+    named = (("B4 kernel", "flash_attention_tc_kernel"),)
     with torch.no_grad():
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -868,6 +916,7 @@ def phase_serve(torch, np, kernels, timer, bw):
             wall = (time.perf_counter() - t0) * 1e3
         dec = _breakdown(torch, prof, wall, "[7]", _LM_SCOPES, named, what="decode step")
         check(torch.isfinite(logits.float()).all().item(), "non-finite decode logits")
+    check(pre["B4 kernel"] > 0, "the profiled prefill shows no B4 tensor-core kernel")
     cache_bytes = sum(2 * c.k[:, : c.length].numel() * c.k.element_size() for c in caches)
     del caches, logits
     print(f"[7] (e) B4 is {100 * pre['B4 kernel'] / pre['device_ms']:.1f} % of prefill "
@@ -882,12 +931,25 @@ def phase_serve(torch, np, kernels, timer, bw):
     # (b) B4 against its plain version, and (e) its time at the prefill's shape
     g = torch.Generator(device="cuda").manual_seed(7)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    errs = [_b4_equal(torch, SERVE_PROMPTS, SERVE_LEN, H, KV, hd, torch.bfloat16, True, 0,
-                      2e-2, g),
-            _b4_equal(torch, 2, 256, 4, 2, 160, torch.float32, True, 0, 2e-5, g),
-            _b4_equal(torch, 1, 256, 4, 1, 128, torch.float32, True, 0, 2e-5, g),
-            _b4_equal(torch, 1, 256, 4, 2, 160, torch.float32, True, 64, 2e-5, g),
-            _b4_equal(torch, 2, 256, 4, 4, 160, torch.float32, False, 0, 2e-5, g)]
+    bf = torch.bfloat16
+    errs = [_b4_equal(torch, SERVE_PROMPTS, SERVE_LEN, H, KV, hd, bf, True, 0, 2e-2, g),
+            # the tensor-core kernel: every head-dim layout, both masks, MQA /
+            # GQA 4 / MHA, ragged, one-row and S != T lengths, fused views;
+            # the ring wraps many times at S 2,048 under each mask
+            _b4_equal(torch, 1, 2048, 8, 2, 160, bf, True, 100, 2e-2, g),
+            _b4_equal(torch, 2, 65, 4, 1, 8, bf, True, 0, 2e-2, g),
+            _b4_equal(torch, 1, 77, 8, 2, 24, bf, False, 0, 2e-2, g),
+            _b4_equal(torch, 2, 256, 4, 4, 64, bf, True, 64, 2e-2, g),
+            _b4_equal(torch, 1, 300, 8, 2, 128, bf, True, 100, 2e-2, g),
+            _b4_equal(torch, 1, 1, 4, 2, 256, bf, True, 0, 2e-2, g),
+            _b4_equal(torch, 1, 2048, 8, 2, 160, bf, False, 0, 2e-2, g),
+            _b4_equal(torch, 2, 100, 8, 2, 160, bf, True, 0, 2e-2, g, T=260),
+            _b4_equal(torch, 2, 150, H, KV, hd, bf, True, 0, 2e-2, g, fused=True)]
+    # the CUDA-core kernel
+    errs32 = [_b4_equal(torch, 2, 256, 4, 2, 160, torch.float32, True, 0, 2e-5, g),
+              _b4_equal(torch, 1, 256, 4, 1, 128, torch.float32, True, 0, 2e-5, g),
+              _b4_equal(torch, 1, 256, 4, 2, 160, torch.float32, True, 64, 2e-5, g),
+              _b4_equal(torch, 2, 256, 4, 4, 160, torch.float32, False, 0, 2e-5, g)]
     q = torch.randn((SERVE_PROMPTS, SERVE_LEN, H, hd), generator=g, device="cuda").bfloat16()
     k = torch.randn((SERVE_PROMPTS, SERVE_LEN, KV, hd), generator=g, device="cuda").bfloat16()
     v = torch.randn((SERVE_PROMPTS, SERVE_LEN, KV, hd), generator=g, device="cuda").bfloat16()
@@ -901,16 +963,17 @@ def phase_serve(torch, np, kernels, timer, bw):
     lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 20)
     bound, by, flops, nbytes = _b4_bound_ms(q, k, True, 0, bw)
     print(f"[7] (e) B4 at the prefill's shape (q bf16 [{SERVE_PROMPTS}, {SERVE_LEN}, {H}, "
-          f"{hd}], causal): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain "
-          f"{plain_ms:.3f} ms  scaled_dot_product_attention {lib_ms:.3f} ms (its "
-          f"|diff| to the plain version {lib_err:.3g})  bound {bound:.4f} ms by {by} "
-          f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); kernel = "
-          f"{ms / bound:.1f}x its bound; {cfg.num_layers} launches a prefill = "
-          f"{cfg.num_layers * ms / 1e3:.3f} s")
+          f"{hd}], causal): tensor-core kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s, {ms / bound:.2f}x its bound, {ms / lib_ms:.2f}x "
+          f"scaled_dot_product_attention)  plain {plain_ms:.3f} ms  "
+          f"scaled_dot_product_attention {lib_ms:.3f} ms (its |diff| to the plain "
+          f"version {lib_err:.3g})  bound {bound:.4f} ms by {by} "
+          f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); {cfg.num_layers} launches "
+          f"a prefill = {cfg.num_layers * ms / 1e3:.3f} s")
     del q, k, v, qt, kt, vt, params
     torch.cuda.empty_cache()
     b4 = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
-              err=max(errs))
+              err=max(errs), f32_err=max(errs32))
 
     # (c) card == CPU and (d) teacher-forced decode == forward, at 2 layers of
     # full width in f32 (bf16 weights cast to f32 at each use)
@@ -1299,7 +1362,7 @@ def main() -> int:
                              "src/repro/core/latent.py:188"),
              "tbs_step_apply_banked": ("src/repro_torch/kernels/csrc/tbs_step_banked.cu",
                                        "src/repro/kernels/tbs_step/kernel.py:64"),
-             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                                  "src/repro/kernels/flash_attention/kernel.py:73"),
              "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                           "src/repro/kernels/ssd_scan/kernel.py:66")}
@@ -1317,6 +1380,11 @@ def main() -> int:
                      "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
                      "library_ms": r["library_ms"]})
+    # B4's f32 calls build from their own source; the row's numbers are the
+    # bf16 route's, the one the served prefill runs
+    rows[list(kres).index("flash_attention")]["f32_route"] = {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "max_abs_err": kres["flash_attention"]["f32_err"]}
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,14 +12,17 @@ PyTorch version of the same function.
                          map, whose trip count lives on the device.
   * flash_attention   -- B4, online-softmax GQA attention with causal and
                          sliding-window masks (replaces the Pallas
-                         ``flash_attention_bhsd``): the LM prefill.
+                         ``flash_attention_bhsd``): the LM prefill. bf16
+                         runs on the tensor cores (wgmma fed by TMA), f32
+                         on the CUDA cores.
   * ssd_scan          -- B5, the Mamba2 SSD chunked scan with its state
                          carried across chunks (replaces the Pallas
                          ``ssd_scan_bhsp``): the Mamba2 prefill.
 
 Each ``ops`` wrapper launches its kernel for CUDA tensors (or raises) and
 runs the plain version for CPU tensors only. The kernels are compiled from
-``csrc/*.cu`` at first use (:mod:`._build`).
+``csrc/*.cu`` at first use (:mod:`._build`); ``csrc/hopper.cuh`` holds the
+Hopper building blocks (mbarriers, TMA, wgmma) the tensor-core kernels share.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ WRAPPERS = {
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    _fa.flash_attention.tensor_core_launches = 0
 
 
 def launches() -> dict[str, int]:

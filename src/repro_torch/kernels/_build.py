@@ -7,7 +7,9 @@ the checkout (listed in ``.gitignore``):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/repro_torch/lib<name>.so csrc/<name>.cu
 
-No PyTorch headers are involved, so a build takes seconds. Pointers and the
+No PyTorch headers are involved, so a build takes seconds. A source may
+include the shared headers ``csrc/*.cuh``; a library is rebuilt when its
+source or any header is newer. Pointers and the
 stream cross the boundary as ``ctypes.c_void_p``; every C entry returns
 ``cudaGetLastError()`` and :func:`check` raises when it is not 0.
 :func:`build_all` starts one ``nvcc`` per source at once, so a caller that
@@ -49,8 +51,10 @@ def _lib_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> subprocess.Popen:

@@ -1,5 +1,6 @@
 // B4: flash attention, the prefill's (and the training forward's) full
-// self-attention, by online softmax.
+// self-attention, by online softmax, on the CUDA cores: B4's f32 route. bf16
+// calls go to the tensor-core kernel (flash_attention_tc.cu).
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_bhsd
 // (its ops.flash_attention wrapper). The function, not its blocks:
@@ -9,35 +10,33 @@
 // over the keys t the masks keep: t <= s when causal, t > s - window when
 // window > 0 (positions count from 0 within the sequence, as the TPU kernel
 // counts them). Scores, the running max m and sum l, and the accumulator are
-// f32; the output is acc / max(l, 1e-30) in q's dtype. q heads of one kv
-// group are adjacent (h / G is the kv head), as in the JAX layout.
+// f32; the output is acc / max(l, 1e-30). q heads of one kv group are
+// adjacent (h / G is the kv head), as in the JAX layout.
 //
-// Bound: operations. At the serving prefill's shape (q bf16 [8, 2048, 32,
-// 160], k and v [8, 2048, 8, 160], causal) the two products need
-// 4 * hd * B * H * S (S + 1) / 2 = 343.7 GFLOP against 420 MB of q, k, v and
-// o: 0.35 ms at the tensor cores' bf16 rate, 0.13 ms at the memory's.
+// Bound: operations. At the f32 prefill of chip_smoke.py's parity check
+// (q [2, 256, 32, 160], k and v [2, 256, 8, 160], causal) the two products
+// need 4 * hd * B * H * S (S + 1) / 2 = 1.35 GFLOP: 20 us at the f32 CUDA
+// cores' 67 TFLOP/s, against 26 MB of q, k, v and o (8 us at 3.35 TB/s).
 //
-// Design (right and simple first; tensor cores, TMA and wgmma are later
-// work): one CTA of 256 threads per (q tile of 32 rows, head, batch), two
-// CTAs resident per SM. Eight
-// threads share a q row: thread j of the row holds dims c*32 + 4j .. 4j+3 of
+// Design (right and simple first): one CTA of 256 threads per (q tile of 32
+// rows, head, batch), two CTAs resident per SM. Eight threads share a q row:
+// thread j of the row holds dims c*32 + 4j .. 4j+3 of
 // q and of the accumulator in registers, for the c < HP/32 chunks of the head
 // dim padded to HP, a multiple of 32 (zeros past hd). Per step a tile of 32
-// keys and its values are converted to f32 and staged in shared memory
-// (2 * 32 * HP * 4 bytes: 40 KB at hd 160, 64 KB at hd 256, dynamic shared
-// memory); each thread reads its dims as float4, which the eight threads of a
-// row read as one conflict-free 128-byte line and the four rows of a warp
-// share as a broadcast. A score is the eight partial dots summed by a
+// keys and its values are staged in shared memory (2 * 32 * HP * 4 bytes:
+// 40 KB at hd 160, 64 KB at hd 256, dynamic shared memory); each thread
+// reads its dims as float4, which the eight threads of a row read as one
+// conflict-free 128-byte line and the four rows of a warp share as a
+// broadcast. A score is the eight partial dots summed by a
 // butterfly of shuffles, so every thread of the row holds the same 32 scores,
-// max, sum and correction. All arithmetic is f32 on the CUDA cores, bf16
-// inputs included (converted as they are staged), so f32 inputs get full f32
-// and no TF32. Key tiles wholly outside the causal and window masks are never
-// loaded: the CTA walks only keys [max(0, q0 - window + 1), last row + 1).
+// max, sum and correction. All arithmetic is f32 on the CUDA cores, so f32
+// inputs get full f32 and no TF32. Key tiles wholly outside the causal and
+// window masks are never loaded: the CTA walks only keys
+// [max(0, q0 - window + 1), last row + 1).
 // q tiles are issued heaviest first under the causal mask. q, k and v are
 // read through their strides in the [B, S, H, hd] layout (last dim unit
 // stride), so the wrapper makes no transposed copies; o is a new contiguous
 // [B, S, H, hd] tensor.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,11 +48,6 @@ constexpr int BK = 32;               // keys per shared-memory tile
 constexpr int THREADS = BQ * TPR;    // 256
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 struct Strides {
   long long b, s, h;   // elements; the head dim has unit stride
 };
@@ -61,10 +55,10 @@ struct Strides {
 // NC = HP / 32 chunks of the padded head dim. Two CTAs per SM: registers are
 // capped at 128 a thread (left alone, the compiler takes 123-187 and one CTA
 // of 8 warps fills an SM); the widest heads spill a few bytes.
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int S, int Tk,
                        int H, int KV, int hd, Strides qs, Strides ks, Strides vs,
                        int causal, int window, float scale) {
   constexpr int HP = NC * 32;
@@ -82,13 +76,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool live = qpos < S;
 
   float qr[NC][4], acc[NC][4];
-  const T* qrow = q + b * qs.b + (long long)(live ? qpos : 0) * qs.s + h * qs.h;
+  const float* qrow = q + b * qs.b + (long long)(live ? qpos : 0) * qs.s + h * qs.h;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = c * 32 + 4 * j + e;
-      qr[c][e] = (live && d < hd) ? to_f(qrow[d]) : 0.f;
+      qr[c][e] = (live && d < hd) ? qrow[d] : 0.f;
       acc[c][e] = 0.f;
     }
   }
@@ -98,16 +92,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int kend = causal ? min(Tk, min(q0 + BQ, S)) : Tk;
   kbeg = (kbeg / BK) * BK;
 
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();   // every thread is done with the previous tile
     for (int i = tid; i < BK * HP; i += THREADS) {
       const int row = i / HP, d = i - row * HP;
       const int t = k0 + row;
       const bool ok = t < Tk && d < hd;
-      ksm[i] = ok ? to_f(kb[(long long)t * ks.s + d]) : 0.f;
-      vsm[i] = ok ? to_f(vb[(long long)t * vs.s + d]) : 0.f;
+      ksm[i] = ok ? kb[(long long)t * ks.s + d] : 0.f;
+      vsm[i] = ok ? vb[(long long)t * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -164,48 +158,48 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (live) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* orow = o + (((long long)b * S + qpos) * H + h) * hd;
+    float* orow = o + (((long long)b * S + qpos) * H + h) * hd;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = c * 32 + 4 * j + e;
-        if (d < hd) store(orow + d, acc[c][e] * inv);
+        if (d < hd) orow[d] = acc[c][e] * inv;
       }
     }
   }
 }
 
-template <typename T, int NC>
+template <int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int S, int Tk, int H, int KV, int hd, Strides qs, Strides ks,
                    Strides vs, int causal, int window, float scale,
                    cudaStream_t stream) {
   const int smem = 2 * BK * NC * 32 * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attention_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale);
+  flash_attention_kernel<NC><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, Tk, H, KV, hd, qs, ks, vs,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B,
                      int S, int Tk, int H, int KV, int hd, Strides qs, Strides ks,
                      Strides vs, int causal, int window, float scale,
                      cudaStream_t st) {
   switch ((hd + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
-    case 2: return launch<T, 2>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
-    case 3: return launch<T, 3>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
-    case 4: return launch<T, 4>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
-    case 5: return launch<T, 5>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
-    case 6: return launch<T, 6>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
-    case 7: return launch<T, 7>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
-    case 8: return launch<T, 8>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
+    case 1: return launch<1>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
+    case 2: return launch<2>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
+    case 3: return launch<3>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
+    case 4: return launch<4>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
+    case 5: return launch<5>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
+    case 6: return launch<6>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
+    case 7: return launch<7>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
+    case 8: return launch<8>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -213,11 +207,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 }  // namespace
 
 // q [B, S, H, hd], k and v [B, T, KV, hd] through their (b, s, h) strides in
-// elements, unit stride in the head dim; o [B, S, H, hd] contiguous. dtype 0
-// is float32, 1 bfloat16. Needs 8 <= hd <= 256, H % KV == 0, H and B at most
-// 65,535; the wrapper checks.
+// elements, unit stride in the head dim; o [B, S, H, hd] contiguous; all
+// float32. Needs 8 <= hd <= 256, H % KV == 0, H and B at most 65,535; the
+// wrapper checks.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int B, int S, int Tk, int H,
+                                   void* o, int B, int S, int Tk, int H,
                                    int KV, int hd, long long qsb, long long qss,
                                    long long qsh, long long ksb, long long kss,
                                    long long ksh, long long vsb, long long vss,
@@ -226,12 +220,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, causal, window, scale,
+                       st);
 }

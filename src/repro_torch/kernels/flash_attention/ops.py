@@ -1,11 +1,16 @@
 """Wrapper of B4, flash attention over the JAX layout [B, S, H, hd].
 
-On CUDA tensors it launches the hand-written kernel
-(``csrc/flash_attention.cu``), which reads q, k and v through their strides,
-so no transposed copy is made; the plain version in :mod:`.ref` runs only
-for CPU tensors. ``flash_attention.launches`` counts kernel launches.
-Unlike the JAX wrapper it takes no ``block_q`` / ``block_k``: those were the
-TPU's tile sizes, and the kernel's tiles are fixed by its design.
+On CUDA tensors it launches one of two hand-written kernels, chosen by dtype
+alone (:func:`route`): bfloat16 goes to the tensor-core kernel
+(``csrc/flash_attention_tc.cu``: wgmma fed by TMA), float32 to the CUDA-core
+kernel (``csrc/flash_attention.cu``: full f32, no TF32). Both read q, k and
+v through their strides, so no transposed copy is made; a bfloat16 layout
+that TMA cannot address is refused before any launch. The plain version in
+:mod:`.ref` runs only for CPU tensors. ``flash_attention.launches`` counts
+the launches of both kernels, ``flash_attention.tensor_core_launches`` those
+of the tensor-core kernel. Unlike the JAX wrapper it takes no ``block_q`` /
+``block_k``: those were the TPU's tile sizes, and the kernels' tiles are
+fixed by their designs.
 """
 from __future__ import annotations
 
@@ -15,6 +20,9 @@ from .. import _common
 from . import kernel, ref
 
 _MAX_GRID_YZ = 65_535
+# TMA's rules for a tensor map: a 16-byte-aligned base, and every stride a
+# multiple of 16 bytes below 2^40
+_TMA_ALIGN, _TMA_MAX_STRIDE = 16, 1 << 40
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -39,6 +47,38 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"dtype expected, got {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def route(dtype: torch.dtype, shapes, strides, bases) -> str:
+    """Which kernel takes a CUDA call: ``"tensor_core"`` for bfloat16,
+    ``"cuda_core"`` for float32. ``shapes`` and ``strides`` (elements) are
+    q's, k's and v's, each with a unit last stride; ``bases`` their data
+    pointers. Raises ValueError for a bfloat16 layout whose base or (b, s, h)
+    strides TMA cannot address; a dim of extent 1 is never stepped, so its
+    stride does not count."""
+    if dtype == torch.float32:
+        return "cuda_core"
+    for name, shape, stride, base in zip("qkv", shapes, strides, bases):
+        if base % _TMA_ALIGN:
+            raise ValueError(f"flash_attention: bfloat16 {name} starts {base % _TMA_ALIGN} "
+                             f"bytes past a {_TMA_ALIGN}-byte boundary; the tensor-core "
+                             f"kernel's TMA loads need an aligned base")
+        for dim, n, st in zip("bsh", shape[:3], stride[:3]):
+            nbytes = st * dtype.itemsize
+            if n > 1 and (nbytes % _TMA_ALIGN or not 0 < nbytes < _TMA_MAX_STRIDE):
+                raise ValueError(f"flash_attention: bfloat16 {name}'s {dim} stride of {st} "
+                                 f"elements ({nbytes} bytes) is not a positive multiple "
+                                 f"of {_TMA_ALIGN} bytes below 2^40, as TMA needs")
+    return "tensor_core"
+
+
+def tma_strides(shape, stride) -> tuple[int, int, int]:
+    """The (b, s, h) strides handed to the tensor map: the tensor's own, with
+    a dim of extent 1 given its contiguous stride (a multiple of hd, so of 16
+    bytes for any admitted head dim), since it is never stepped."""
+    B, S, H, hd = shape
+    dense = (S * H * hd, H * hd, hd)
+    return tuple(st if n > 1 else d for n, st, d in zip(shape[:3], stride[:3], dense))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q [B,S,H,hd]; k,v [B,T,KV,hd] -> [B,S,H,hd] in q's dtype. q head h
@@ -52,10 +92,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: batch {q.shape[0]} and heads "
                          f"{q.shape[2]} must be at most {_MAX_GRID_YZ}")
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    qkv = (q, k, v)
+    which = route(q.dtype, [x.shape for x in qkv], [x.stride() for x in qkv],
+                  [x.data_ptr() for x in qkv])
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    kernel.flash_attention(q, k, v, out, causal, max(int(window), 0))
+    window = max(int(window), 0)
+    if which == "tensor_core":
+        kernel.flash_attention_tc(q, k, v, out, causal, window,
+                                  tuple(tma_strides(x.shape, x.stride()) for x in qkv))
+        flash_attention.tensor_core_launches += 1
+    else:
+        kernel.flash_attention(q, k, v, out, causal, window)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tensor_core_launches = 0

@@ -203,6 +203,23 @@ def test_bank_on_card_equals_cpu_and_does_not_sync(dev):
 # ---------------------------------------------------------------------------
 # B4, flash attention, and the dense LM's serve path
 # ---------------------------------------------------------------------------
+# bf16 B4 against attention_ref in f32 on the same bf16 inputs, row by row
+# ((b, s, h): hd values): rounding p and o to bf16 (each off by at most 2^-8
+# of itself) leaves about 3e-3 of a row's norm at hd >= 64 and up to 6.7e-3
+# at hd 8 (NVIDIA H100), while the late rows of a long sequence have |o| near
+# 0.04, so a plain 2e-2 bound on |diff| is loose there
+_B4_BF16_ROW_REL = 8e-3
+
+
+def _assert_bf16_rows_close(got, q, k, v, **mask):
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    want = fa_ref.attention_ref(q.float(), k.float(), v.float(), **mask)
+    d = (got.double() - want.double()).norm(dim=-1)
+    rel = float((d / want.double().norm(dim=-1).clamp_min(1e-30)).max())
+    assert rel <= _B4_BF16_ROW_REL, f"a row is {rel} of its norm off the f32 reference"
+
+
 @pytest.mark.parametrize("B,S,H,KV,hd,dtype,causal,window,atol", [
     (8, 2048, 32, 8, 160, torch.bfloat16, True, 0, 2e-2),   # the served prefill
     (2, 256, 4, 2, 160, torch.float32, True, 0, 2e-5),
@@ -211,6 +228,18 @@ def test_bank_on_card_equals_cpu_and_does_not_sync(dev):
     (2, 256, 4, 4, 160, torch.float32, False, 0, 2e-5),     # MHA, bidirectional
     (1, 77, 6, 3, 24, torch.bfloat16, True, 0, 2e-2),       # ragged tiles
     (2, 100, 4, 2, 8, torch.float32, True, 40, 2e-5),       # hd 8 (command-r smoke)
+    # bf16, the tensor-core kernel: every head-dim box layout, both masks,
+    # MQA / GQA 4 / MHA, ragged and one-row sequences
+    (2, 65, 4, 1, 8, torch.bfloat16, True, 0, 2e-2),        # hd 8, MQA
+    (1, 64, 2, 1, 40, torch.bfloat16, True, 0, 2e-2),       # hd 40: a part box
+    (2, 256, 8, 2, 64, torch.bfloat16, False, 0, 2e-2),     # GQA 4, bidirectional
+    (1, 130, 4, 2, 96, torch.bfloat16, True, 0, 2e-2),
+    (1, 300, 4, 4, 128, torch.bfloat16, True, 64, 2e-2),    # MHA, window 64
+    (2, 333, 8, 2, 160, torch.bfloat16, True, 100, 2e-2),   # window 100, ragged
+    (1, 2048, 8, 2, 160, torch.bfloat16, False, 0, 2e-2),
+    (1, 2048, 8, 2, 160, torch.bfloat16, True, 100, 2e-2),  # long, window 100
+    (1, 1, 4, 2, 256, torch.bfloat16, True, 0, 2e-2),       # S 1
+    (1, 200, 4, 1, 256, torch.bfloat16, False, 100, 2e-2),  # hd 256, window only
 ])
 def test_flash_attention_kernel_equals_plain(dev, B, S, H, KV, hd, dtype, causal, window,
                                              atol):
@@ -221,12 +250,98 @@ def test_flash_attention_kernel_equals_plain(dev, B, S, H, KV, hd, dtype, causal
     k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
     v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
     n0 = fa_ops.flash_attention.launches
+    t0 = fa_ops.flash_attention.tensor_core_launches
     got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention.launches == n0 + 1
+    # bf16 runs on the tensor cores, f32 on the CUDA cores
+    assert fa_ops.flash_attention.tensor_core_launches == t0 + (dtype == torch.bfloat16)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    if dtype == torch.bfloat16:
+        _assert_bf16_rows_close(got, q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("S,T,causal,window", [
+    (100, 260, True, 0), (96, 50, False, 0), (200, 130, True, 0), (70, 150, False, 32)])
+def test_flash_attention_tensor_cores_other_key_length(dev, S, T, causal, window):
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+    g = torch.Generator(device=dev).manual_seed(S + T)
+    q = torch.randn((2, S, 8, 160), generator=g, device=dev).bfloat16()
+    k = torch.randn((2, T, 2, 160), generator=g, device=dev).bfloat16()
+    v = torch.randn((2, T, 2, 160), generator=g, device=dev).bfloat16()
+    t0 = fa_ops.flash_attention.tensor_core_launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.tensor_core_launches == t0 + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    _assert_bf16_rows_close(got, q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("H,KV,hd,S", [(8, 2, 160, 150), (8, 2, 64, 130), (4, 4, 24, 77)])
+def test_flash_attention_tensor_cores_read_fused_projection(dev, H, KV, hd, S):
+    """bf16 q, k and v as views of one fused [B, S, (H + 2 KV) hd]
+    projection, read in place through their tensor maps."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+    g = torch.Generator(device=dev).manual_seed(hd)
+    qkv = torch.randn((2, S, (H + 2 * KV) * hd), generator=g, device=dev).bfloat16()
+    q = qkv[..., :H * hd].reshape(2, S, H, hd)
+    k = qkv[..., H * hd:(H + KV) * hd].reshape(2, S, KV, hd)
+    v = qkv[..., (H + KV) * hd:].reshape(2, S, KV, hd)
+    assert not q.is_contiguous() and k.data_ptr() != k.contiguous().data_ptr()
+    t0 = fa_ops.flash_attention.tensor_core_launches
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.tensor_core_launches == t0 + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    _assert_bf16_rows_close(got, q, k, v)
+
+
+def test_flash_attention_tensor_cores_are_deterministic(dev):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((2, 700, 8, 160), generator=g, device=dev).bfloat16()
+    k = torch.randn((2, 700, 2, 160), generator=g, device=dev).bfloat16()
+    v = torch.randn((2, 700, 2, 160), generator=g, device=dev).bfloat16()
+    a = fa_ops.flash_attention(q, k, v, window=300)
+    b = fa_ops.flash_attention(q, k, v, window=300)
+    assert torch.equal(a, b)
+
+
+def _tma_unfit(kind, dtype, dev):
+    """q, k, v whose layout the tensor maps cannot take: a base 8 bytes past
+    a 16-byte boundary, or an h stride of 20 elements (40 bytes)."""
+    if kind == "base":
+        buf = torch.zeros((1, 16, 2, 32), dtype=dtype, device=dev)
+        x = buf[..., 4:20]
+    else:
+        buf = torch.zeros((1, 16, 2, 20), dtype=dtype, device=dev)
+        x = buf[..., :16]
+    return x, x[:, :, :1], x[:, :, :1]
+
+
+@pytest.mark.parametrize("kind", ["base", "stride"])
+def test_flash_attention_refuses_tma_unfit_bf16_before_launch(dev, kind):
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+    n0, t0 = fa_ops.flash_attention.launches, fa_ops.flash_attention.tensor_core_launches
+    with pytest.raises(ValueError, match="TMA"):
+        fa_ops.flash_attention(*_tma_unfit(kind, torch.bfloat16, dev))
+    assert fa_ops.flash_attention.launches == n0
+    assert fa_ops.flash_attention.tensor_core_launches == t0
+    # the same layout in f32 goes to the CUDA-core kernel
+    q, k, v = _tma_unfit(kind, torch.float32, dev)
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == n0 + 1
+    assert fa_ops.flash_attention.tensor_core_launches == t0
+    torch.testing.assert_close(got, fa_ref.attention_ref(q, k, v), atol=2e-5, rtol=0)
 
 
 def test_flash_attention_reads_strided_inputs(dev):

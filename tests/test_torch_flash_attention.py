@@ -78,3 +78,78 @@ def test_bad_group_and_dtype_raise():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         x = torch.zeros(1, 8, 2, 16, dtype=torch.float16)
         ops.flash_attention(x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# The route on CUDA tensors: a pure function of dtype, shapes, strides and
+# base addresses, tested here without a card
+# ---------------------------------------------------------------------------
+def _layout(*xs, bases=None):
+    return ([x.shape for x in xs], [x.stride() for x in xs],
+            bases if bases is not None else [0] * len(xs))
+
+
+@pytest.mark.parametrize("hd", range(8, 257, 8))
+def test_route_is_chosen_by_dtype_for_every_admitted_head_dim(hd):
+    q, k = torch.empty(2, 77, 8, hd), torch.empty(2, 77, 2, hd)
+    assert ops.route(torch.bfloat16, *_layout(q, k, k)) == "tensor_core"
+    assert ops.route(torch.float32, *_layout(q, k, k)) == "cuda_core"
+
+
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 160), (8, 1, 128), (4, 4, 8)])
+def test_route_takes_views_of_a_fused_projection(H, KV, hd):
+    """The served layout: q, k, v sliced from one [B, S, (H + 2 KV) hd]
+    projection, k and v starting (H or H + KV) * hd elements in."""
+    qkv = torch.empty(2, 64, (H + 2 * KV) * hd, dtype=torch.bfloat16)
+    q = qkv[..., :H * hd].reshape(2, 64, H, hd)
+    k = qkv[..., H * hd:(H + KV) * hd].reshape(2, 64, KV, hd)
+    v = qkv[..., (H + KV) * hd:].reshape(2, 64, KV, hd)
+    bases = [0, 2 * H * hd, 2 * (H + KV) * hd]
+    assert ops.route(torch.bfloat16, *_layout(q, k, v, bases=bases)) == "tensor_core"
+
+
+@pytest.mark.parametrize("case,match", [
+    ("base", "boundary"),          # k starts 8 bytes past a 16-byte boundary
+    ("h_stride", "h stride"),      # rows of 20 elements: 40 bytes
+    ("s_stride", "s stride"),      # an s stride of 12 elements: 24 bytes
+    ("broadcast", "b stride"),     # a zero stride on a batch of 2
+])
+def test_route_refuses_bf16_layouts_tma_cannot_address(case, match):
+    q = torch.empty(2, 16, 4, 16)
+    k = torch.empty(2, 16, 2, 16)
+    shapes, strides, bases = _layout(q, k, k)
+    if case == "base":
+        bases = [0, 8, 0]
+    elif case == "h_stride":
+        strides[1] = (16 * 2 * 20, 2 * 20, 20, 1)
+    elif case == "s_stride":
+        shapes[1], strides[1] = (2, 16, 1, 8), (16 * 12, 12, 12, 1)
+    else:
+        strides[2] = (0, 32, 16, 1)
+    with pytest.raises(ValueError, match=match):
+        ops.route(torch.bfloat16, shapes, strides, bases)
+    # f32 never goes to the tensor maps, so it is never refused for its layout
+    assert ops.route(torch.float32, shapes, strides, bases) == "cuda_core"
+
+
+def test_route_ignores_the_stride_of_an_extent_one_dim():
+    """A dim of extent 1 is never stepped: its stride, whatever it is, does
+    not refuse the call, and the tensor map gets the contiguous one."""
+    shape = (1, 16, 1, 24)
+    odd = (5, 24, 3, 1)
+    assert ops.route(torch.bfloat16, [shape] * 3, [odd] * 3, [0] * 3) == "tensor_core"
+    assert ops.tma_strides(shape, odd) == (16 * 24, 24, 24)
+    assert ops.tma_strides((2, 16, 4, 24), (3 * 16 * 4 * 24, 4 * 24, 24, 1)) == \
+        (3 * 16 * 4 * 24, 4 * 24, 24)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_core_kernel_takes_float32_only(dtype):
+    """The CUDA-core kernel has no bfloat16 instantiation (bf16 is the
+    tensor-core kernel's): any other dtype is refused before the library is
+    loaded or a kernel launched."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    q = torch.zeros((1, 16, 2, 16), dtype=dtype)
+    with pytest.raises(TypeError, match="float32"):
+        kernel.flash_attention(q, q[:, :, :1], q[:, :, :1], torch.empty_like(q), True, 0)
