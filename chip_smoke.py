@@ -44,15 +44,21 @@ the JAX package. Every check raises on failure; no phase catches its own.
      width in f32 (that depth cut is (c)'s and (d)'s only), card == CPU
      and teacher-forced decode == forward;
   8. Mamba2 serving: ``mamba2_370m`` at full width and depth (48 layers,
-     bf16 params, B5 SSD chunked scan), 4 prompts x 32,768 tokens
-     prefilled and 32 tokens decoded greedily, with exactly 48 B5 launches
-     in the prefill and none in decode; B5 against its plain version at
-     the prefill's shape (bf16) and against the per-token recurrence in f32
-     (G = 2, distinct A per head, Q 64 / 96 / 256, init_state, strided
-     views); B5's time beside its bound and its plain version; a profiled
-     prefill and decode step by scope; and, at 2 layers of full width in
-     f32 (that depth cut is (e)'s only), card == CPU and teacher-forced
-     decode == forward;
+     bf16 params, B5 SSD chunked scan), SSM_PROMPTS prompts x 32,768
+     tokens prefilled and 32 tokens decoded greedily, with exactly 48 B5
+     launches in the prefill, all on B5's tensor-core route (bf16), and
+     none in decode; B5 against its plain version at the prefill's shape
+     (bf16, the tensor-core kernel; the last prompt's rows also against
+     the f32 recurrence), again on its first 4 prompts (the timed shape,
+     bit for bit the served call's; each row against the recurrence), at
+     bf16 shapes of other groups, widths, ragged
+     chunks and a carried state, and against the per-token recurrence in f32
+     (the CUDA-core kernel: G = 2, distinct A per head, Q 64 / 96 / 256,
+     init_state, strided views); B5's time at 4 prompts beside its bound,
+     its plain version and the CUDA-core kernel's on the same shape in f32;
+     a profiled prefill and decode step by scope; and, at 2 layers of full
+     width in f32 (that depth cut is (e)'s only), card == CPU and
+     teacher-forced decode == forward;
   9. the ``kernels`` JSON line, the card line, and the result line.
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
@@ -384,10 +390,17 @@ def _breakdown(torch, prof, wall_ms: float, tag: str = "[3]", scopes=_SCOPES,
                       ("H1 kernel", "swap_delete_kernel")),
                what: str = "retrain tick") -> dict:
     """Device time of one profiled tick (or serving step): kernel time summed
-    over the device's kernel events, each scope's share (the kernels
-    launched under it), the ctypes-launched kernels by name (the profiler
-    does not put them under a scope), and the device's idle share of the
-    step's wall time."""
+    over the device's kernel events, each scope's share, the hand-written
+    kernels by name, and the device's idle share of the step's wall time.
+    A scope's share is the time of the kernels that start inside its ranges
+    on the device (the profiler's device-side annotation of each
+    ``record_function``, ctypes-launched kernels included). Those ranges
+    hold a scope's kernels but not those of a scope nested in it, so the
+    shares split the device time. (Summing the CPU ranges'
+    ``device_time_total`` instead counted some kernels under several
+    ranges: the Mamba2 prefill's scopes summed to 3.1x its device time.)"""
+    import bisect
+
     from torch.autograd import DeviceType
 
     evs = prof.events()
@@ -397,9 +410,17 @@ def _breakdown(torch, prof, wall_ms: float, tag: str = "[3]", scopes=_SCOPES,
     res = {"wall_ms": wall_ms, "device_ms": busy, "kernels": len(kern)}
     for label, sub in named:
         res[label] = sum(e.device_time_total for e in kern if sub in e.name) / 1e3
-    for e in evs:
-        if e.device_type == DeviceType.CPU and e.name in scopes:
-            res[e.name] = res.get(e.name, 0.0) + e.device_time_total / 1e3
+    for name in scopes:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                       if e.device_type == DeviceType.CUDA and e.is_user_annotation
+                       and e.name == name)
+        starts = [a for a, _ in spans]
+        total = 0.0
+        for k in kern:
+            i = bisect.bisect_right(starts, k.time_range.start) - 1
+            if i >= 0 and k.time_range.start < spans[i][1]:
+                total += k.device_time_total
+        res[name] = total / 1e3
     print(f"{tag} profiled {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms in {len(kern)} kernels, idle "
           f"{100 * (1 - busy / wall_ms):.1f} % of the {what}")
@@ -1026,14 +1047,25 @@ def phase_serve(torch, np, kernels, timer, bw):
     return dict(launches=launches, b4=b4, prefill_s=res.prefill_s, decode_s=res.decode_s)
 
 
-# the Mamba2 serving cell: mamba2_370m at full width and depth; the
-# prefill_32k sequence length, its batch of 32 cut to 4
-SSM_PROMPTS, SSM_LEN, SSM_GEN = 4, 32768, 32
+# the Mamba2 serving cell: mamba2_370m at full width and depth at the
+# prefill_32k shape (32 prompts of 32,768 tokens); B5 is held against its
+# plain version at that shape, and timed at 4 prompts, the size its earlier
+# CUDA-core timings (PERF.md) were taken at, so its row stays comparable
+SSM_PROMPTS, SSM_LEN, SSM_GEN = 32, 32768, 32
+B5_PROMPTS = 4
 _SSM_SCOPES = ("lm.embed", "lm.norm", "lm.ssm_in", "lm.conv", "lm.ssd", "lm.ssm_out",
                "lm.logits")
 # B5 against its plain version / the recurrence: tests/test_kernels.py's
 # tolerances, absolute and relative alike (|got - want| <= tol + tol |want|)
 B5_BF16_TOL, B5_F32_TOL = 5e-2, 1e-3
+# bf16 B5 against the recurrence in f32 on the same bf16 inputs: the largest
+# |y - want| / |want| over the rows (b, s, h) of P values. The tensor-core
+# kernel rounds four things to bf16, each by at most u = 2^-8 of itself:
+# the decayed scores, w_j x_j, the state's snapshot and y. Where a row's
+# terms do not cancel that bounds it by 3u = 1.2e-2 (the state's path: w x,
+# snapshot, y); where they cancel, the errors add in quadrature, and rows of
+# few values (P 8) spread the most. PERF.md Sec. 6 derives it.
+B5_BF16_ROW_REL = 2e-2
 
 
 def _b5_bound_ms(x, Bm, Q, bw):
@@ -1052,6 +1084,18 @@ def _b5_bound_ms(x, Bm, Q, bw):
     return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes"), flops, nbytes
 
 
+def _b5_wgmma_flops(B, S, H, N, P, Q) -> int:
+    """The FLOPs of wgmma the tensor-core kernel issues, at its padded
+    widths: per (b, h, chunk), C_I B_J^T and S x_J over the causal tile
+    pairs, the inter-chunk term per query tile (twice: the state's bf16 hi
+    and lo) and the state update per key tile (C B^T once a head, not once a
+    group)."""
+    nt, NP, NBX = -(-Q // 64), -(-P // 32) * 32, -(-N // 64)
+    K = 64 * NBX   # whole boxes of N
+    per = nt * (nt + 1) // 2 * 64 * 64 * (K + NP) + 2 * nt * 64 * NP * K + nt * 64 ** 3 * NBX
+    return 2 * B * H * (S // Q) * per
+
+
 def _b5_operands(torch, B, S, H, G, N, P, dtype, g, *, strided, model=False):
     """x, B and C as views into one [B, S, width] buffer, as the model's conv
     output holds them (contiguous copies unless ``strided``). ``model``: the
@@ -1063,7 +1107,7 @@ def _b5_operands(torch, B, S, H, G, N, P, dtype, g, *, strided, model=False):
     width = H * P + 2 * G * N + (8 if strided and not model else 0)
     buf = torch.randn((B, S, width), generator=g, device="cuda")
     if model:
-        buf = F.silu(buf)
+        F.silu(buf, inplace=True)
     else:
         buf[..., H * P:] *= 0.5
     buf = buf.to(dtype)
@@ -1082,41 +1126,73 @@ def _b5_operands(torch, B, S, H, G, N, P, dtype, g, *, strided, model=False):
 
 
 def _b5_close(torch, got, want, tol, what) -> float:
-    """allclose with atol = rtol = tol; returns max |diff|."""
-    got, want = got.double(), want.double()
-    diff = (got - want).abs()
-    worst = float((diff - tol * want.abs()).max())
-    err = float(diff.max())
+    """allclose with atol = rtol = tol, one batch entry at a time (the
+    served prefill's y in f64 would take 17 GB); returns max |diff|."""
+    worst = err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        diff = (g - w).abs()
+        worst = max(worst, float((diff - tol * w.abs()).max()))
+        err = max(err, float(diff.max()))
     check(worst <= tol, f"B5 {what}: |diff| exceeds {tol} + {tol} |want| "
                         f"(max |diff| {err})")
     return err
 
 
-def _b5_equal(torch, B, S, H, G, N, P, Q, g, *, strided, init):
-    """B5 in f32 against the per-token recurrence (ssd_ref); with ``init``
-    the second half of the sequence runs from the first half's state."""
+def _b5_rows(torch, got, x, dt, a, Bm, Cm, what) -> float:
+    """Each row of bf16 ``got`` (the last got.shape[1] positions) against the
+    f32 recurrence over (x, dt, a, Bm, Cm): returns the largest
+    |y - want| / |want|, raising above B5_BF16_ROW_REL."""
+    from repro_torch.kernels.ssd_scan import ref as ss_ref
+
+    want, _ = ss_ref.ssd_ref_model_layout(x.float(), dt, a, Bm.float(), Cm.float())
+    rel = _row_rel_err(torch, got, want[:, want.shape[1] - got.shape[1]:])
+    check(rel <= B5_BF16_ROW_REL, f"B5 {what}: a row is {rel} of its norm off the f32 "
+                                  f"recurrence, > {B5_BF16_ROW_REL}")
+    return rel
+
+
+def _b5_equal(torch, B, S, H, G, N, P, Q, g, *, strided, init, dtype):
+    """B5 on its route for ``dtype``: f32 (the CUDA-core kernel) against the
+    per-token recurrence (ssd_ref) at B5_F32_TOL; bf16 (the tensor-core
+    kernel) against its plain version at B5_BF16_TOL and each row against
+    the f32 recurrence. With ``init`` the second half of the sequence runs
+    from the first half's state."""
     from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
 
-    x, dt, a, Bm, Cm = _b5_operands(torch, B, S, H, G, N, P, torch.float32, g,
-                                    strided=strided)
-    n0 = ss_ops.ssd_scan.launches
+    x, dt, a, Bm, Cm = _b5_operands(torch, B, S, H, G, N, P, dtype, g, strided=strided)
+    n0, t0 = ss_ops.ssd_scan.launches, ss_ops.ssd_scan.tensor_core_launches
+    mid, args = None, (x, dt, a, Bm, Cm)
     if init:
         h = S // 2
         _, mid = ss_ops.ssd_scan(x[:, :h], dt[:, :h], a, Bm[:, :h], Cm[:, :h], chunk=Q)
         check(float(mid.abs().max()) > 0.1, "B5: the carried state is ~0")
-        y, st = ss_ops.ssd_scan(x[:, h:], dt[:, h:], a, Bm[:, h:], Cm[:, h:], chunk=Q,
-                                init_state=mid)
+        args = (x[:, h:], dt[:, h:], a, Bm[:, h:], Cm[:, h:])
+    y, st = ss_ops.ssd_scan(*args, chunk=Q, init_state=mid)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        want_y, want_st = ss_ref.ssd_scan_ref(*args, chunk=Q, init_state=mid)
     else:
-        y, st = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
-    want_y, want_st = ss_ref.ssd_ref_model_layout(x, dt, a, Bm, Cm)
+        want_y, want_st = ss_ref.ssd_ref_model_layout(x, dt, a, Bm, Cm)
+        want_y = want_y[:, S - y.shape[1]:]
     torch.cuda.synchronize()
     check(ss_ops.ssd_scan.launches == n0 + 1 + int(init), "B5 not launched")
-    what = (f"[B, S, H, G, N, P, Q] = [{B}, {S}, {H}, {G}, {N}, {P}, {Q}] f32"
-            f"{' strided' if strided else ''}{' init_state' if init else ''}")
-    err = max(_b5_close(torch, y, want_y[:, S - y.shape[1]:], B5_F32_TOL, what),
-              _b5_close(torch, st, want_st, B5_F32_TOL, what + " state"))
-    print(f"[8] (b) B5 {what} vs the recurrence: max |diff| {err:.3g} (atol = rtol = "
-          f"{B5_F32_TOL})")
+    tc = ss_ops.ssd_scan.tensor_core_launches - t0
+    check(tc == (1 + int(init)) * bf16, f"B5 {dtype} went to the wrong route")
+    what = (f"[B, S, H, G, N, P, Q] = [{B}, {S}, {H}, {G}, {N}, {P}, {Q}] "
+            f"{str(dtype).split('.')[1]}{' strided' if strided else ''}"
+            f"{' init_state' if init else ''}")
+    tol = B5_BF16_TOL if bf16 else B5_F32_TOL
+    err = max(_b5_close(torch, y, want_y, tol, what),
+              _b5_close(torch, st, want_st, tol, what + " state"))
+    if bf16:
+        rel = _b5_rows(torch, y, x, dt, a, Bm, Cm, what)
+        print(f"[8] (b) B5 {what} (tensor cores) vs its plain version: max |diff| {err:.3g} "
+              f"(atol = rtol = {tol}); rows vs the f32 recurrence {rel:.3g} of their norm "
+              f"<= {B5_BF16_ROW_REL}")
+    else:
+        print(f"[8] (b) B5 {what} (CUDA cores) vs the recurrence: max |diff| {err:.3g} "
+              f"(atol = rtol = {tol})")
     return err
 
 
@@ -1167,22 +1243,35 @@ def phase_serve_ssm(torch, np, kernels, timer, bw):
     gemm += 2 * SSM_PROMPTS * cfg.d_model * cfg.padded_vocab
     xs = torch.empty((SSM_PROMPTS, SSM_LEN, H, P), dtype=torch.bfloat16, device="meta")
     bs = torch.empty((SSM_PROMPTS, SSM_LEN, G, N), dtype=torch.bfloat16, device="meta")
-    b5_bound, b5_by, b5_flops, b5_bytes = _b5_bound_ms(xs, bs, Q, bw)
-    pre_bound = (gemm + cfg.num_layers * b5_flops) / PEAK["bfloat16"]
+    pre_b5_flops = _b5_bound_ms(xs, bs, Q, bw)[2]
+    pre_bound = (gemm + cfg.num_layers * pre_b5_flops) / PEAK["bfloat16"]
+    b5_bound, b5_by, b5_flops, b5_bytes = _b5_bound_ms(xs[:B5_PROMPTS], bs[:B5_PROMPTS], Q, bw)
     print(f"[8] (a) serve {SSM_PROMPTS} x {SSM_LEN} prompts, {SSM_GEN} generated: prefill "
           f"{res.prefill_s:.3f} s = {ntok / res.prefill_s:.0f} prompt tokens/s (bound "
-          f"{pre_bound:.4f} s by operations: {(gemm + cfg.num_layers * b5_flops) / 1e12:.1f} "
+          f"{pre_bound:.4f} s by operations: "
+          f"{(gemm + cfg.num_layers * pre_b5_flops) / 1e12:.1f} "
           f"TFLOP of GEMMs and B5 at the bf16 peak = {ntok / pre_bound:.0f} tokens/s); "
           f"decode {res.decode_s:.3f} s = {SSM_GEN * SSM_PROMPTS / res.decode_s:.1f} "
           f"tokens/s, {1e3 * res.decode_s / SSM_GEN:.2f} ms a step (bound "
           f"{1e3 * dec_bound:.3f} ms by bytes: {w_bytes / 1e9:.3f} GB of weights + "
           f"{2 * state_bytes / 1e9:.3f} GB of state read and written = "
           f"{SSM_PROMPTS / dec_bound:.0f} tokens/s); peak memory {peak_gb:.2f} GB")
-    print(f"[8] (a) launches: prefill {res.prefill_launches}, decode {res.decode_launches}")
+    tc_b5 = ss_ops.ssd_scan.tensor_core_launches
+    # B5_PROMPTS prompts: the prefill rate beside the CUDA-core kernel's
+    # (2.161 s for 4 x 32,768 on an H100 80GB HBM3 at 700 W, PERF.md)
+    small = serve_batch(api, params, zoo.make_demo_batch(cfg, dev_gen, B5_PROMPTS, SSM_LEN), 1)
+    print(f"[8] (a) prefill of {B5_PROMPTS} x {SSM_LEN} prompts: {small.prefill_s:.3f} s = "
+          f"{B5_PROMPTS * SSM_LEN / small.prefill_s:.0f} prompt tokens/s (with the "
+          f"CUDA-core B5: 2.161 s = 60,662)")
+    del small
+    print(f"[8] (a) launches: prefill {res.prefill_launches}, decode {res.decode_launches}; "
+          f"B5 on the tensor-core route {tc_b5}")
     pre_b5, dec_b5 = res.prefill_launches["ssd_scan"], res.decode_launches["ssd_scan"]
     check(pre_b5 == cfg.num_layers, f"B5 launched {pre_b5} times in the prefill, not "
                                     f"once per layer ({cfg.num_layers})")
     check(dec_b5 == 0, f"B5 launched {dec_b5} times in decode")
+    check(tc_b5 == pre_b5, f"{pre_b5 - tc_b5} of the prefill's B5 launches missed the "
+                           f"tensor-core route")
     check(launches == dict.fromkeys(launches, 0) | {"ssd_scan": cfg.num_layers},
           f"launches of the run: {launches}")
     toks = res.tokens
@@ -1192,7 +1281,7 @@ def phase_serve_ssm(torch, np, kernels, timer, bw):
 
     # (d) profile one prefill and one decode step by scope
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    named = (("B5 kernel", "ssd_scan_kernel"),)
+    named = (("B5 kernel", "ssd_scan_tc_kernel"),)
     with torch.no_grad():
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -1213,6 +1302,7 @@ def phase_serve_ssm(torch, np, kernels, timer, bw):
         dec = _breakdown(torch, prof, wall, "[8]", _SSM_SCOPES, named, what="decode step")
         check(torch.isfinite(logits.float()).all().item(), "non-finite decode logits")
     del caches, logits, batch
+    check(pre["B5 kernel"] > 0, "the profiled prefill shows no B5 tensor-core kernel")
     print(f"[8] (d) B5 is {100 * pre['B5 kernel'] / pre['device_ms']:.1f} % of prefill "
           f"device time; the prefill's device is idle "
           f"{100 * (1 - pre['device_ms'] / pre['wall_ms']):.1f} % of it, the decode "
@@ -1220,43 +1310,93 @@ def phase_serve_ssm(torch, np, kernels, timer, bw):
     del params
     torch.cuda.empty_cache()
 
-    # (b) B5 against its plain version at the prefill's shape (bf16, the
-    # model's strides and statistics) and against the recurrence in f32
+    # (b) B5 against its plain version at the served prefill's shape
+    # (SSM_PROMPTS prompts; bf16, the conv output's views and the model's
+    # statistics), the rows of its last prompt against the f32 recurrence;
+    # its first B5_PROMPTS prompts alone (the timed shape: the same bits as
+    # in the served call, each row against the recurrence); more bf16
+    # shapes; and f32 against the recurrence
     g = torch.Generator(device="cuda").manual_seed(8)
-    x, dt, a, Bm, Cm = _b5_operands(torch, SSM_PROMPTS, SSM_LEN, H, G, N, P, torch.bfloat16,
-                                    g, strided=True, model=True)
-    check(x.stride(1) == H * P + 2 * G * N, "B5's operands are not the conv's views")
-    n0 = ss_ops.ssd_scan.launches
-    y, st = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
-    want_y, want_st = ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q)
+    xa, dta, a, Ba, Ca = _b5_operands(torch, SSM_PROMPTS, SSM_LEN, H, G, N, P,
+                                      torch.bfloat16, g, strided=True, model=True)
+    check(xa.stride(1) == H * P + 2 * G * N, "B5's operands are not the conv's views")
+    span = SSM_PROMPTS * SSM_LEN * xa.stride(1)   # the conv output's elements
+    n0, t0 = ss_ops.ssd_scan.launches, ss_ops.ssd_scan.tensor_core_launches
+    y, st = ss_ops.ssd_scan(xa, dta, a, Ba, Ca, chunk=Q)
+    want_y, want_st = ss_ref.ssd_scan_ref(xa, dta, a, Ba, Ca, chunk=Q)
     torch.cuda.synchronize()
     check(ss_ops.ssd_scan.launches == n0 + 1, "B5 not launched")
-    check(y.dtype == torch.bfloat16 and y.shape == x.shape, "B5 output dtype/shape")
-    what = f"at the prefill's shape (x bf16 [{SSM_PROMPTS}, {SSM_LEN}, {H}, {P}], Q {Q})"
+    check(ss_ops.ssd_scan.tensor_core_launches == t0 + 1, "bf16 B5 missed the tensor cores")
+    check(y.dtype == torch.bfloat16 and y.shape == xa.shape, "B5 output dtype/shape")
+    what = (f"at the served prefill's shape (x bf16 [{SSM_PROMPTS}, {SSM_LEN}, {H}, {P}], "
+            f"Q {Q}; the conv output {span / 2 ** 31:.2f} x 2^31 elements)")
     errs = [_b5_close(torch, y, want_y, B5_BF16_TOL, what),
             _b5_close(torch, st, want_st, B5_BF16_TOL, what + " state")]
-    print(f"[8] (b) B5 {what} vs its plain version: max |diff| y {errs[0]:.3g} (|y| up to "
-          f"{float(want_y.float().abs().max()):.1f}), state {errs[1]:.3g} (atol = rtol = "
-          f"{B5_BF16_TOL})")
-    del y, st, want_y, want_st
-    errs += [_b5_equal(torch, 1, 512, 8, 2, 128, 64, 64, g, strided=False, init=False),
-             _b5_equal(torch, 1, 512, 8, 2, 128, 64, 256, g, strided=True, init=False),
-             _b5_equal(torch, 2, 288, 8, 2, 32, 16, 96, g, strided=False, init=False),
-             _b5_equal(torch, 2, 512, 8, 2, 128, 64, 128, g, strided=True, init=True)]
+    last = slice(SSM_PROMPTS - 1, SSM_PROMPTS)
+    rel = _b5_rows(torch, y[last], xa[last], dta[last], a, Ba[last], Ca[last],
+                   what + ", last prompt")
+    print(f"[8] (b) B5 {what} (tensor cores) vs its plain version: max |diff| y "
+          f"{errs[0]:.3g}, state {errs[1]:.3g} (atol = rtol = {B5_BF16_TOL}); rows of the "
+          f"last prompt vs the f32 recurrence {rel:.3g} of their norm <= {B5_BF16_ROW_REL}")
+    x, dt, Bm, Cm = (t[:B5_PROMPTS] for t in (xa, dta, Ba, Ca))
+    y4, st4 = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
+    check(torch.equal(y4, y[:B5_PROMPTS]) and torch.equal(st4, st[:B5_PROMPTS]),
+          f"B5 on the first {B5_PROMPTS} prompts differs from the same prompts served in a "
+          f"batch of {SSM_PROMPTS}")
+    what = f"at the timed shape (x bf16 [{B5_PROMPTS}, {SSM_LEN}, {H}, {P}], Q {Q})"
+    errs += [_b5_close(torch, y4, want_y[:B5_PROMPTS], B5_BF16_TOL, what),
+             _b5_close(torch, st4, want_st[:B5_PROMPTS], B5_BF16_TOL, what + " state")]
+    ymax = float(want_y[:B5_PROMPTS].float().abs().max())
+    del want_y, want_st, y, st
+    rel = _b5_rows(torch, y4, x, dt, a, Bm, Cm, what)
+    print(f"[8] (b) B5 {what} (tensor cores): y and state equal the served call's first "
+          f"{B5_PROMPTS} prompts bit for bit; vs its plain version max |diff| y "
+          f"{errs[2]:.3g} (|y| up to {ymax:.1f}), state {errs[3]:.3g}; rows vs the f32 "
+          f"recurrence {rel:.3g} of their norm <= {B5_BF16_ROW_REL}")
+    del y4, st4
+    bf, f32 = torch.bfloat16, torch.float32
+    # the tensor-core kernel: G = 2 / rep 4, ragged chunks (tiles into the
+    # next chunk's rows), one-box and part-box widths, a carried state
+    errs += [_b5_equal(torch, 1, 512, 8, 2, 128, 64, 64, g, strided=False, init=False,
+                       dtype=bf),
+             _b5_equal(torch, 2, 288, 8, 2, 32, 16, 96, g, strided=True, init=False, dtype=bf),
+             _b5_equal(torch, 2, 100, 4, 4, 8, 8, 20, g, strided=True, init=False, dtype=bf),
+             _b5_equal(torch, 2, 192, 4, 2, 64, 40, 192, g, strided=False, init=False,
+                       dtype=bf),
+             _b5_equal(torch, 2, 512, 8, 2, 128, 64, 128, g, strided=True, init=True,
+                       dtype=bf)]
+    # the CUDA-core kernel
+    errs32 = [_b5_equal(torch, 1, 512, 8, 2, 128, 64, 64, g, strided=False, init=False,
+                        dtype=f32),
+              _b5_equal(torch, 1, 512, 8, 2, 128, 64, 256, g, strided=True, init=False,
+                        dtype=f32),
+              _b5_equal(torch, 2, 288, 8, 2, 32, 16, 96, g, strided=False, init=False,
+                        dtype=f32),
+              _b5_equal(torch, 2, 512, 8, 2, 128, 64, 128, g, strided=True, init=True,
+                        dtype=f32)]
 
-    # (c) B5's time at the prefill's shape beside its bound and its plain version
+    # (c) B5's time at the timed shape beside its bound, its plain version
+    # and the CUDA-core kernel on the same shape in f32
     ms = timer(lambda: ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q), 10)
     plain_ms = timer(lambda: ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q), 3)
-    print(f"[8] (c) B5 at the prefill's shape: kernel {ms:.3f} ms ({b5_flops / ms / 1e9:.1f} "
-          f"TFLOP/s, {b5_bytes / ms / 1e6:.1f} GB/s)  plain {plain_ms:.3f} ms  bound "
-          f"{b5_bound:.4f} ms by {b5_by} ({b5_bytes / 1e9:.3f} GB, {b5_flops / 1e9:.1f} "
-          f"GFLOP); kernel = {ms / b5_bound:.1f}x its bound; {cfg.num_layers} launches a "
-          f"prefill = {cfg.num_layers * ms / 1e3:.3f} s; no single PyTorch call computes "
-          f"this function")
-    del x, dt, a, Bm, Cm
+    x32, B32, C32 = (t.float() for t in (x, Bm, Cm))
+    f32_ms = timer(lambda: ss_ops.ssd_scan(x32, dt, a, B32, C32, chunk=Q), 3)
+    del x32, B32, C32
+    wgmma_flops = _b5_wgmma_flops(B5_PROMPTS, SSM_LEN, H, N, P, Q)
+    print(f"[8] (c) B5 at the prefill's shape: tensor-core kernel {ms:.3f} ms "
+          f"({b5_flops / ms / 1e9:.1f} TFLOP/s of the function's {b5_flops / 1e9:.1f} GFLOP; "
+          f"{wgmma_flops / ms / 1e9:.1f} TFLOP/s of the {wgmma_flops / 1e9:.1f} GFLOP of "
+          f"wgmma it issues; {b5_bytes / ms / 1e6:.1f} GB/s)  plain {plain_ms:.3f} ms  "
+          f"CUDA-core kernel on the same shape in f32 {f32_ms:.3f} ms (in bf16, before "
+          f"the tensor-core route: 25.278 ms)  bound {b5_bound:.4f} ms by {b5_by} "
+          f"({b5_bytes / 1e9:.3f} GB); "
+          f"kernel = {ms / b5_bound:.2f}x its bound; {cfg.num_layers} launches a prefill "
+          f"of {B5_PROMPTS} prompts = {cfg.num_layers * ms / 1e3:.3f} s; no single PyTorch "
+          f"call computes this function")
+    del x, dt, a, Bm, Cm, xa, dta, Ba, Ca
     torch.cuda.empty_cache()
     b5 = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b5_bound, bound_by=b5_by,
-              err=max(errs))
+              err=max(errs), f32_err=max(errs32), f32_ms=f32_ms)
 
     # (e) card == CPU, and teacher-forced decode == forward, at 2 layers of
     # full width in f32 (bf16 weights cast to f32 at each use)
@@ -1364,7 +1504,7 @@ def main() -> int:
                                        "src/repro/kernels/tbs_step/kernel.py:64"),
              "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                                  "src/repro/kernels/flash_attention/kernel.py:73"),
-             "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
                           "src/repro/kernels/ssd_scan/kernel.py:66")}
     kres["tbs_step_apply_banked"] = bank_res["b3"]
     kres["flash_attention"] = serve_res["b4"]
@@ -1385,6 +1525,10 @@ def main() -> int:
     rows[list(kres).index("flash_attention")]["f32_route"] = {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "max_abs_err": kres["flash_attention"]["f32_err"]}
+    # so are B5's, timed on the prefill's shape in f32
+    rows[list(kres).index("ssd_scan")]["f32_route"] = {
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "max_abs_err": kres["ssd_scan"]["f32_err"], "ms": kres["ssd_scan"]["f32_ms"]}
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

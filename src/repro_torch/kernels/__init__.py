@@ -17,7 +17,9 @@ PyTorch version of the same function.
                          on the CUDA cores.
   * ssd_scan          -- B5, the Mamba2 SSD chunked scan with its state
                          carried across chunks (replaces the Pallas
-                         ``ssd_scan_bhsp``): the Mamba2 prefill.
+                         ``ssd_scan_bhsp``): the Mamba2 prefill. bf16 runs
+                         on the tensor cores (wgmma fed by TMA), f32 on
+                         the CUDA cores.
 
 Each ``ops`` wrapper launches its kernel for CUDA tensors (or raises) and
 runs the plain version for CPU tensors only. The kernels are compiled from
@@ -46,6 +48,7 @@ def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     _fa.flash_attention.tensor_core_launches = 0
+    _ss.ssd_scan.tensor_core_launches = 0
 
 
 def launches() -> dict[str, int]:

@@ -104,6 +104,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+# the tensor-core entry points' own codes past cudaError_t's (csrc/hopper.cuh)
+TC_NO_ENCODER, TC_ENCODE = 10_000, 20_000
+
+
+def check_tc(err: int, what: str) -> None:
+    """:func:`check` for an entry point that builds TMA tensor maps."""
+    if err == TC_NO_ENCODER:
+        raise RuntimeError(f"{what}: libcuda has no cuTensorMapEncodeTiled")
+    if err >= TC_ENCODE:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a map "
+                           f"(CUresult {err - TC_ENCODE})")
+    check(err, what)
+
+
 def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 

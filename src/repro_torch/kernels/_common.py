@@ -26,3 +26,36 @@ def vector_width(row_bytes: int, *tensors: torch.Tensor) -> int:
         if row_bytes % v == 0 and all(t.data_ptr() % v == 0 for t in tensors):
             return v
     return 1
+
+
+# TMA's rules for a tensor map: a 16-byte-aligned base, and every stride a
+# multiple of 16 bytes below 2^40
+TMA_ALIGN, TMA_MAX_STRIDE = 16, 1 << 40
+
+
+def check_tma(what: str, dtype: torch.dtype, names, dims, shapes, strides, bases) -> None:
+    """Raise ValueError for a layout a tensor-core kernel's tensor maps cannot
+    address: per tensor (``names``), its base (``bases``, bytes) and the
+    strides (elements) of its three outer dims (named by ``dims``); a dim of
+    extent 1 is never stepped, so its stride does not count."""
+    for name, dn, shape, stride, base in zip(names, dims, shapes, strides, bases):
+        if base % TMA_ALIGN:
+            raise ValueError(f"{what}: bfloat16 {name} starts {base % TMA_ALIGN} bytes past "
+                             f"a {TMA_ALIGN}-byte boundary; the tensor-core kernel's TMA "
+                             f"loads need an aligned base")
+        for dim, n, st in zip(dn, shape[:3], stride[:3]):
+            nbytes = st * dtype.itemsize
+            if n > 1 and (nbytes % TMA_ALIGN or not 0 < nbytes < TMA_MAX_STRIDE):
+                raise ValueError(f"{what}: bfloat16 {name}'s {dim} stride of {st} elements "
+                                 f"({nbytes} bytes) is not a positive multiple of "
+                                 f"{TMA_ALIGN} bytes below 2^40, as TMA needs")
+
+
+def tma_strides(shape, stride) -> tuple[int, int, int]:
+    """The three outer strides of a 4-d tensor handed to its tensor map: the
+    tensor's own, with a dim of extent 1 given its contiguous stride (a
+    multiple of the last dim, so of 16 bytes for any admitted width), since
+    it is never stepped."""
+    _, d1, d2, d3 = shape
+    dense = (d1 * d2 * d3, d2 * d3, d3)
+    return tuple(st if n > 1 else d for n, st, d in zip(shape[:3], stride[:3], dense))

@@ -288,49 +288,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---- host side ----------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime, so the
-// library links against nothing but the runtime
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-d map over [batch, rows, heads, hd] (given innermost first) with the
-// tensor's own strides in elements; boxes of `box_cols` x `box_rows`.
-CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int rows,
-                  int heads, int batch, long long s_row, long long s_head, long long s_batch,
-                  int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_row) * 2,
-                                 static_cast<cuuint64_t>(s_head) * 2,
-                                 static_cast<cuuint64_t>(s_batch) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int NP>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                    const Params& p, int B, cudaStream_t stream) {
@@ -345,16 +302,12 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
 
 }  // namespace
 
-// Error codes past cudaError_t's: cuTensorMapEncodeTiled is missing, or it
-// refused a map (FA_TC_ENCODE + its CUresult).
-constexpr int FA_TC_NO_ENCODER = 10000;
-constexpr int FA_TC_ENCODE = 20000;
-
 // q [B, S, H, hd], k and v [B, T, KV, hd], all bfloat16, through their
 // (b, s, h) strides in elements with a unit stride in the head dim; o
 // [B, S, H, hd] contiguous. Needs 8 <= hd <= 256 a multiple of 8, H % KV == 0,
 // H and B at most 65,535, 16-byte-aligned bases and strides whose bytes are
-// multiples of 16 (TMA's rules); the wrapper checks.
+// multiples of 16 (TMA's rules); the wrapper checks. Returns a cudaError_t or
+// one of hopper.cuh's TC_NO_ENCODER / TC_ENCODE codes.
 extern "C" int flash_attention_tc_fwd(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int Tk, int H, int KV, int hd,
                                       long long qsb, long long qss, long long qsh,
@@ -362,18 +315,20 @@ extern "C" int flash_attention_tc_fwd(const void* q, const void* k, const void* 
                                       long long vsb, long long vss, long long vsh, int causal,
                                       int window, float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return FA_TC_NO_ENCODER;
+  hopper::EncodeTiled enc = hopper::encode_tiled();
+  if (enc == nullptr) return hopper::TC_NO_ENCODER;
   const int NP = (hd + 31) / 32 * 32;
   // q and k in boxes of 64 columns (128-byte rows), v in boxes of 32 (64-byte rows)
   CUtensorMap tq, tk, tv;
-  CUresult r = make_map(enc, &tq, q, hd, S, H, B, qss, qsh, qsb, 64, BM,
-                        CU_TENSOR_MAP_SWIZZLE_128B);
+  CUresult r = hopper::make_map(enc, &tq, q, hd, S, H, B, qss, qsh, qsb, 64, BM,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
   if (r == CUDA_SUCCESS)
-    r = make_map(enc, &tk, k, hd, Tk, KV, B, kss, ksh, ksb, 64, BN, CU_TENSOR_MAP_SWIZZLE_128B);
+    r = hopper::make_map(enc, &tk, k, hd, Tk, KV, B, kss, ksh, ksb, 64, BN,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
   if (r == CUDA_SUCCESS)
-    r = make_map(enc, &tv, v, hd, Tk, KV, B, vss, vsh, vsb, 32, BN, CU_TENSOR_MAP_SWIZZLE_64B);
-  if (r != CUDA_SUCCESS) return FA_TC_ENCODE + static_cast<int>(r);
+    r = hopper::make_map(enc, &tv, v, hd, Tk, KV, B, vss, vsh, vsb, 32, BN,
+                         CU_TENSOR_MAP_SWIZZLE_64B);
+  if (r != CUDA_SUCCESS) return hopper::TC_ENCODE + static_cast<int>(r);
 
   const Params p{static_cast<__nv_bfloat16*>(o), S, Tk, H, KV, hd, causal, window,
                  scale * LOG2E};

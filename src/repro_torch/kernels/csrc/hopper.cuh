@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the tensor-core kernels: mbarriers,
-// TMA tile loads, register reallocation, and warpgroup matrix multiplies
-// (wgmma) with their shared-memory descriptors. PTX as the ISA names it;
-// nothing here calls a library.
+// named barriers, TMA tile loads and the host's tensor maps, register
+// reallocation, transposing shared-memory loads, and warpgroup matrix
+// multiplies (wgmma) with their shared-memory descriptors. PTX as the ISA
+// names it; nothing here calls a library.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (the type only; libcuda is looked up at run time)
@@ -50,6 +51,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// A barrier over the first `count` threads of the CTA (a multiple of 32), by
+// id; id 0 is __syncthreads()'s
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Makes this thread's plain shared-memory stores visible to the async proxy
+// (wgmma's descriptor reads, TMA) once a barrier has ordered them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // ---- TMA --------------------------------------------------------------------
 // One box of a 4-d tensor map into shared memory at coordinates (c0 innermost);
 // elements past the tensor's extent arrive as zeros. Completion is counted in
@@ -63,6 +76,57 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "r"(c3)
       : "memory");
 }
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime, so a
+// library links against nothing but the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 4-d map over [batch, rows, heads, cols] (given innermost first) with
+// the tensor's own strides in elements; boxes of `box_cols` x `box_rows`,
+// zeros past the extents.
+inline CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int cols,
+                         int rows, int heads, int batch, long long s_row, long long s_head,
+                         long long s_batch, int box_cols, int box_rows,
+                         CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_row) * 2,
+                                 static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Error codes of the tensor-core entry points past cudaError_t's:
+// cuTensorMapEncodeTiled is missing, or it refused a map (TC_ENCODE + its
+// CUresult).
+constexpr int TC_NO_ENCODER = 10000;
+constexpr int TC_ENCODE = 20000;
 
 // ---- register reallocation between warpgroups --------------------------------
 template <int R>
@@ -117,6 +181,16 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// four 8 x 8 b16 matrices, transposed: lanes 8m .. 8m + 7 give the addresses
+// of matrix m's 8 rows (16 bytes each); r[m] of lane l holds its elements
+// (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4), the first in the low half
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
 // two floats as bf16x2, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
@@ -140,6 +214,20 @@ __device__ __forceinline__ void mma_m64n64k16_ss(float (&d)[32], uint64_t a, uin
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same with N = 32: D[64 x 32] (+)= A[64 x 16] B[16 x 32]^T, both
+// K-major; d[4c + 2i + j] as above, c < 4.
+__device__ __forceinline__ void mma_m64n32k16_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -1,4 +1,6 @@
-// B5: the Mamba2 SSD chunked scan, the prefill's sequence mixer.
+// B5: the Mamba2 SSD chunked scan, the prefill's sequence mixer, on the CUDA
+// cores: B5's f32 route. bf16 calls go to the tensor-core kernel
+// (ssd_scan_tc.cu).
 //
 // Replaces src/repro/kernels/ssd_scan/kernel.py::ssd_scan_bhsp (its
 // ops.ssd_scan wrapper). The function, not its blocks: for each (batch b,
@@ -10,18 +12,18 @@
 //     state = exp(cl_(Q-1)) state + sum_j exp(cl_(Q-1) - cl_j) dt_j B_j^T x_j
 //
 // state [N, P] f32 starts at init (or zeros) and is carried from chunk to
-// chunk; y is cast to x's dtype once, the final state is written in f32.
+// chunk; y and the final state are written in f32.
 // The upper triangle (j > i) is never computed into a product: there
 // exp(cl_i - cl_j) is exp of a positive number and overflows to inf over a
 // chunk of the model's decay, so it is selected away, never multiplied by 0.
 //
-// Bound: bytes. At the serving prefill's shape (x bf16 [4, 32768, 32, 64],
-// B and C bf16 [4, 32768, 1, 128], Q 256) the function must move 1.162 GB
-// (0.347 ms at 3.35 TB/s) and needs 211 GFLOP (0.213 ms at the bf16 tensor
-// cores' rate).
+// Bound: operations. At the f32 shape of chip_smoke.py's recurrence check
+// (x [1, 512, 8, 64], B and C [1, 512, 2, 128], Q 256) the function needs
+// 0.235 GFLOP, 3.5 us at the f32 CUDA cores' 67 TFLOP/s, against 3.4 MB
+// (1.0 us at 3.35 TB/s). Its tolerance against the recurrence (1e-3) rules
+// out bf16 or TF32 operands, so f32 stays on the CUDA cores.
 //
-// Design (right and simple first; tensor cores, TMA and wgmma are later
-// work): one CTA of 256 threads per (head, batch) walks the chunks in order,
+// Design (right and simple first): one CTA of 256 threads per (head, batch) walks the chunks in order,
 // as the TPU grid (BH, nc) does, with the [N, P] state in shared memory
 // (N padded to 128, P to 64). Per chunk: dt and cl by a block scan; then for
 // each query tile of 64 rows, the causal key tiles J <= I: the 64 x 64
@@ -32,13 +34,10 @@
 // read of the state from its update, which each thread does for its 8 x 4
 // slice of [N, P] over the chunk's key tiles. The [Q, Q] score block (256 KB
 // in f32 at Q 256) is never materialized: only one 64 x 64 tile pair. All
-// arithmetic is f32 FMA and expf on the CUDA cores (bf16 inputs are
-// converted as they are staged). x, B, C and dt are read through their
-// strides in the model layout ([B, S, H, P], [B, S, G, N], [B, S, H]; the
-// last dim of x, B, C unit stride), so the wrapper makes no transposed
-// copies; y is a new contiguous [B, S, H, P]. One CTA a (b, h) makes
-// B * H = 128 CTAs at the serving shape, one wave of 132 SMs.
-#include <cuda_bf16.h>
+// arithmetic is f32 FMA and expf on the CUDA cores. x, B, C and dt are read
+// through their strides in the model layout ([B, S, H, P], [B, S, G, N],
+// [B, S, H]; the last dim of x, B, C unit stride), so the wrapper makes no
+// transposed copies; y is a new contiguous [B, S, H, P]. One CTA a (b, h).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,20 +55,15 @@ constexpr int SMEM_FLOATS = NMAX * PMAX + 2 * QMAX + 2 * NMAX * LDT + 2 * TILE *
 static_assert(THREADS == 256 && TILE == 64 && PMAX == 64 && NMAX == 128 && QMAX == THREADS,
               "tile shapes");
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 struct Args {
-  const void* x;
+  const float* x;
   const float* dt;
   const float* a;
-  const void* bm;
-  const void* cm;
-  const float* init;   // [B, H, N, P] f32 or null (zeros)
-  void* y;             // [B, S, H, P] contiguous, x's dtype
-  float* state;        // [B, H, N, P] f32 contiguous
+  const float* bm;
+  const float* cm;
+  const float* init;   // [B, H, N, P] or null (zeros)
+  float* y;            // [B, S, H, P] contiguous
+  float* state;        // [B, H, N, P] contiguous
   int S, H, G, N, P, Q;
   long long xsb, xss, xsh;   // strides in elements; p has unit stride
   long long dsb, dss, dsh;
@@ -79,17 +73,15 @@ struct Args {
 
 // rows [row0, row0 + rows) of src (row stride rs, n unit stride) into
 // dst[n][r] (row stride LDT), zeros past rows and N
-template <typename E>
-__device__ __forceinline__ void stage_transposed(float* dst, const E* src, long long rs,
+__device__ __forceinline__ void stage_transposed(float* dst, const float* src, long long rs,
                                                  int row0, int rows, int N) {
   for (int e = threadIdx.x; e < TILE * NMAX; e += THREADS) {
     const int r = e / NMAX, n = e - r * NMAX;
     dst[n * LDT + r] =
-        (r < rows && n < N) ? to_f(src[(long long)(row0 + r) * rs + n]) : 0.f;
+        (r < rows && n < N) ? src[(long long)(row0 + r) * rs + n] : 0.f;
   }
 }
 
-template <typename E>
 __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(Args p) {
   extern __shared__ float4 smem4[];
   __shared__ float wsum[THREADS / 32];
@@ -107,11 +99,11 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(Args p) {
   const int tid = threadIdx.x;
   const int N = p.N, P = p.P, Q = p.Q;
   const float A = p.a[h];
-  const E* x = static_cast<const E*>(p.x) + b * p.xsb + h * p.xsh;
+  const float* x = p.x + b * p.xsb + h * p.xsh;
   const float* dt = p.dt + b * p.dsb + h * p.dsh;
-  const E* bg = static_cast<const E*>(p.bm) + b * p.bsb + g * p.bsg;
-  const E* cg = static_cast<const E*>(p.cm) + b * p.csb + g * p.csg;
-  E* y = static_cast<E*>(p.y) + ((long long)b * p.S * p.H + h) * P;
+  const float* bg = p.bm + b * p.bsb + g * p.bsg;
+  const float* cg = p.cm + b * p.csb + g * p.csg;
+  float* y = p.y + ((long long)b * p.S * p.H + h) * P;
   const long long yrs = (long long)p.H * P;
   const long long sbase = ((long long)b * p.H + h) * N * P;
 
@@ -164,7 +156,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(Args p) {
         stage_transposed(bt, bg, p.bss, s0 + j0, jrows, N);
         for (int e = tid; e < TILE * PMAX; e += THREADS) {
           const int r = e / PMAX, q = e - r * PMAX;
-          xs[e] = (r < jrows && q < P) ? to_f(x[(long long)(s0 + j0 + r) * p.xss + q]) : 0.f;
+          xs[e] = (r < jrows && q < P) ? x[(long long)(s0 + j0 + r) * p.xss + q] : 0.f;
         }
         __syncthreads();
 
@@ -238,10 +230,10 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(Args p) {
         const int i = i0 + r4 + u;
         if (i >= Q) continue;
         const float e = expf(cl[i]);
-        E* yr = y + (long long)(s0 + i) * yrs;
+        float* yr = y + (long long)(s0 + i) * yrs;
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
-          if (c4 + v < P) store(yr + c4 + v, fmaf(e, t[u][v], acc[u][v]));
+          if (c4 + v < P) yr[c4 + v] = fmaf(e, t[u][v], acc[u][v]);
         }
       }
     }
@@ -266,13 +258,13 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(Args p) {
       const int jrows = min(TILE, Q - j0);
       for (int e = tid; e < TILE * NMAX; e += THREADS) {
         const int r = e / NMAX, n = e - r * NMAX;
-        bs[e] = (r < jrows && n < N) ? to_f(bg[(long long)(s0 + j0 + r) * p.bss + n]) : 0.f;
+        bs[e] = (r < jrows && n < N) ? bg[(long long)(s0 + j0 + r) * p.bss + n] : 0.f;
       }
       for (int e = tid; e < TILE * PMAX; e += THREADS) {
         const int r = e / PMAX, q = e - r * PMAX;
         xs[e] = (r < jrows && q < P)
                     ? expf(clq - cl[j0 + r]) * dts[j0 + r] *
-                          to_f(x[(long long)(s0 + j0 + r) * p.xss + q])
+                          x[(long long)(s0 + j0 + r) * p.xss + q]
                     : 0.f;
       }
       __syncthreads();
@@ -304,27 +296,16 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(Args p) {
   }
 }
 
-template <typename E>
-cudaError_t launch(const Args& args, int B, cudaStream_t stream) {
-  const int smem = SMEM_FLOATS * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  ssd_scan_kernel<E><<<dim3(args.H, B), THREADS, smem, stream>>>(args);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// x [B, S, H, P] and B, C [B, S, G, N] through their (b, s, h|g) strides in
-// elements, unit stride in the last dim; dt [B, S, H] f32 through its
-// strides; a [H] f32; init [B, H, N, P] f32 contiguous or null; y
-// [B, S, H, P] and state [B, H, N, P] contiguous. dtype 0 is float32, 1
-// bfloat16 (x, B, C and y). Needs 1 <= Q <= 256 dividing S, N <= 128,
+// All float32: x [B, S, H, P] and B, C [B, S, G, N] through their (b, s, h|g)
+// strides in elements, unit stride in the last dim; dt [B, S, H] through its
+// strides; a [H]; init [B, H, N, P] contiguous or null; y [B, S, H, P] and
+// state [B, H, N, P] contiguous. Needs 1 <= Q <= 256 dividing S, N <= 128,
 // P <= 64, H % G == 0, B <= 65,535; the wrapper checks.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* bm,
                             const void* cm, const void* init, void* y, void* state,
-                            int dtype, int B, int S, int H, int G, int N, int P, int Q,
+                            int B, int S, int H, int G, int N, int P, int Q,
                             long long xsb, long long xss, long long xsh, long long dsb,
                             long long dss, long long dsh, long long bsb, long long bss,
                             long long bsg, long long csb, long long css, long long csg,
@@ -333,16 +314,15 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a, const 
   if (Q < 1 || Q > QMAX || S % Q || N < 1 || N > NMAX || P < 1 || P > PMAX || G < 1 ||
       H % G)
     return (int)cudaErrorInvalidValue;
-  Args args{x, static_cast<const float*>(dt), static_cast<const float*>(a), bm, cm,
-            static_cast<const float*>(init), y, static_cast<float*>(state),
+  Args args{static_cast<const float*>(x), static_cast<const float*>(dt),
+            static_cast<const float*>(a), static_cast<const float*>(bm),
+            static_cast<const float*>(cm), static_cast<const float*>(init),
+            static_cast<float*>(y), static_cast<float*>(state),
             S, H, G, N, P, Q, xsb, xss, xsh, dsb, dss, dsh, bsb, bss, bsg, csb, css, csg};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch<float>(args, B, st);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(args, B, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  const int smem = SMEM_FLOATS * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_kernel<<<dim3(H, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  return (int)cudaGetLastError();
 }

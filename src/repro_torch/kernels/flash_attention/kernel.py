@@ -10,8 +10,6 @@ import torch
 from .. import _build
 
 _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# flash_attention_tc_fwd's own codes past cudaError_t's
-_NO_ENCODER, _ENCODE = 10_000, 20_000
 
 
 def _fn(source: str):
@@ -54,9 +52,4 @@ def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     out.data_ptr(), B, S, T, H, KV, hd, *strides[0],
                                     *strides[1], *strides[2], int(causal), int(window),
                                     1.0 / hd ** 0.5, _build.stream_ptr(q.device))
-    if err == _NO_ENCODER:
-        raise RuntimeError("flash_attention: libcuda has no cuTensorMapEncodeTiled")
-    if err >= _ENCODE:
-        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a map "
-                           f"(CUresult {err - _ENCODE})")
-    _build.check(err, "flash_attention (tensor cores)")
+    _build.check_tc(err, "flash_attention (tensor cores)")

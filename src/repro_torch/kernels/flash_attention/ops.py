@@ -17,12 +17,10 @@ from __future__ import annotations
 import torch
 
 from .. import _common
+from .._common import tma_strides
 from . import kernel, ref
 
 _MAX_GRID_YZ = 65_535
-# TMA's rules for a tensor map: a 16-byte-aligned base, and every stride a
-# multiple of 16 bytes below 2^40
-_TMA_ALIGN, _TMA_MAX_STRIDE = 16, 1 << 40
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -56,27 +54,8 @@ def route(dtype: torch.dtype, shapes, strides, bases) -> str:
     stride does not count."""
     if dtype == torch.float32:
         return "cuda_core"
-    for name, shape, stride, base in zip("qkv", shapes, strides, bases):
-        if base % _TMA_ALIGN:
-            raise ValueError(f"flash_attention: bfloat16 {name} starts {base % _TMA_ALIGN} "
-                             f"bytes past a {_TMA_ALIGN}-byte boundary; the tensor-core "
-                             f"kernel's TMA loads need an aligned base")
-        for dim, n, st in zip("bsh", shape[:3], stride[:3]):
-            nbytes = st * dtype.itemsize
-            if n > 1 and (nbytes % _TMA_ALIGN or not 0 < nbytes < _TMA_MAX_STRIDE):
-                raise ValueError(f"flash_attention: bfloat16 {name}'s {dim} stride of {st} "
-                                 f"elements ({nbytes} bytes) is not a positive multiple "
-                                 f"of {_TMA_ALIGN} bytes below 2^40, as TMA needs")
+    _common.check_tma("flash_attention", dtype, "qkv", ("bsh",) * 3, shapes, strides, bases)
     return "tensor_core"
-
-
-def tma_strides(shape, stride) -> tuple[int, int, int]:
-    """The (b, s, h) strides handed to the tensor map: the tensor's own, with
-    a dim of extent 1 given its contiguous stride (a multiple of hd, so of 16
-    bytes for any admitted head dim), since it is never stepped."""
-    B, S, H, hd = shape
-    dense = (S * H * hd, H * hd, hd)
-    return tuple(st if n > 1 else d for n, st, d in zip(shape[:3], stride[:3], dense))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,12 +1,16 @@
 """Wrapper of B5, the Mamba2 SSD chunked scan over the model layout.
 
-On CUDA tensors it launches the hand-written kernel (``csrc/ssd_scan.cu``),
-which reads x, B and C through their strides (in the model they are views
-into the conv output), so no transposed copy is made; the plain version
-:func:`.ref.ssd_scan_ref` runs only for CPU tensors. ``ssd_scan.launches``
-counts kernel launches. Unlike the JAX wrapper it takes an ``init_state``
-(the carried state at chunk 0), so the model's ``ssd_chunked`` has one
-route on the card.
+On CUDA tensors it launches one of two hand-written kernels, chosen by dtype
+alone (:func:`route`): bfloat16 goes to the tensor-core kernel
+(``csrc/ssd_scan_tc.cu``: wgmma fed by TMA), float32 to the CUDA-core
+kernel (``csrc/ssd_scan.cu``: full f32, no TF32). Both read x, B and C
+through their strides (in the model they are views into the conv output),
+so no transposed copy is made; a bfloat16 layout that TMA cannot address is
+refused before any launch. The plain version :func:`.ref.ssd_scan_ref` runs
+only for CPU tensors. ``ssd_scan.launches`` counts the launches of both
+kernels, ``ssd_scan.tensor_core_launches`` those of the tensor-core kernel.
+Unlike the JAX wrapper it takes an ``init_state`` (the carried state at
+chunk 0), so the model's ``ssd_chunked`` has one route on the card.
 """
 from __future__ import annotations
 
@@ -51,6 +55,20 @@ def _check(x, dt, a, Bm, Cm, chunk, init_state) -> int:
     return Q
 
 
+def route(dtype: torch.dtype, shapes, strides, bases) -> str:
+    """Which kernel takes a CUDA call: ``"tensor_core"`` for bfloat16,
+    ``"cuda_core"`` for float32. ``shapes`` and ``strides`` (elements) are
+    x's, Bm's and Cm's, each with a unit last stride; ``bases`` their data
+    pointers. Raises ValueError for a bfloat16 layout whose base or (b, s,
+    h|g) strides TMA cannot address; a dim of extent 1 is never stepped, so
+    its stride does not count."""
+    if dtype == torch.float32:
+        return "cuda_core"
+    _common.check_tma("ssd_scan", dtype, ("x", "Bm", "Cm"), ("bsh", "bsg", "bsg"), shapes,
+                      strides, bases)
+    return "tensor_core"
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int = 256,
              init_state: torch.Tensor | None = None):
@@ -68,12 +86,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tenso
     a = a.contiguous()
     if init_state is not None:
         init_state = init_state.contiguous()
+    xbc = (x, Bm, Cm)
+    which = route(x.dtype, [t.shape for t in xbc], [t.stride() for t in xbc],
+                  [t.data_ptr() for t in xbc])
     B, S, H, P = x.shape
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
-    kernel.ssd_scan(x, dt, a, Bm, Cm, init_state, y, state, Q)
+    if which == "tensor_core":
+        kernel.ssd_scan_tc(x, dt, a, Bm, Cm, init_state, y, state, Q,
+                           tuple(_common.tma_strides(t.shape, t.stride()) for t in xbc))
+        ssd_scan.tensor_core_launches += 1
+    else:
+        kernel.ssd_scan(x, dt, a, Bm, Cm, init_state, y, state, Q)
     ssd_scan.launches += 1
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.tensor_core_launches = 0

@@ -418,22 +418,139 @@ def _ssd_operands(B, S, H, G, N, P, dtype, dev, seed, *, strided=False):
     return x, dt, a, Bm, Cm
 
 
+# bf16 B5 against the recurrence in f32 on the same bf16 inputs: the
+# largest |y - want| / |want| over the rows (b, s, h) of P values. The
+# kernel rounds four things to bf16 (each off by at most u = 2^-8 of
+# itself): the decayed scores, w_j x_j, the state's snapshot and y. Where
+# the terms of a row do not cancel that is at most 3u = 1.2e-2 (the state's
+# path: w x, snapshot, y); where they cancel, the errors add in quadrature
+# and rows of few values (P 8) spread the most. 2e-2 leaves that tail room
+# (PERF.md Sec. 6 derives it).
+_B5_BF16_ROW_REL = 2e-2
+
+
+def _assert_b5_rows_close(got, x, dt, a, Bm, Cm, tail=None):
+    """Each row of bf16 ``got`` within _B5_BF16_ROW_REL of its norm of the
+    f32 recurrence over (x, dt, a, Bm, Cm); ``tail``: got holds only the
+    last ``tail`` positions."""
+    from repro_torch.kernels.ssd_scan import ref as ss_ref
+
+    want, _ = ss_ref.ssd_ref_model_layout(x.float(), dt, a, Bm.float(), Cm.float())
+    want = want[:, want.shape[1] - (tail or want.shape[1]):]
+    d = (got.double() - want.double()).norm(dim=-1)
+    rel = float((d / want.double().norm(dim=-1).clamp_min(1e-30)).max())
+    assert rel <= _B5_BF16_ROW_REL, f"a row is {rel} of its norm off the f32 recurrence"
+
+
 def test_ssd_scan_kernel_equals_plain_at_the_prefill_shape(dev):
     """mamba2_370m's prefill (x bf16 [4, 32768, 32, 64], G = 1, N = 128,
     Q = 256) with strided x, B and C, against the plain version in f32 cast
-    once; tests/test_kernels.py's bf16 tolerance."""
+    once (tests/test_kernels.py's bf16 tolerance), on the tensor-core route;
+    each row also against the f32 recurrence."""
     from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
 
     x, dt, a, Bm, Cm = _ssd_operands(4, 32768, 32, 1, 128, 64, torch.bfloat16, dev, 0,
                                      strided=True)
-    n0 = ss_ops.ssd_scan.launches
+    n0, t0 = ss_ops.ssd_scan.launches, ss_ops.ssd_scan.tensor_core_launches
     y, st = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=256)
     want_y, want_st = ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=256)
     torch.cuda.synchronize()
     assert ss_ops.ssd_scan.launches == n0 + 1
+    assert ss_ops.ssd_scan.tensor_core_launches == t0 + 1
     assert y.dtype == torch.bfloat16 and y.shape == x.shape and st.dtype == torch.float32
     torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(st, want_st, atol=5e-2, rtol=5e-2)
+    del want_y, want_st
+    _assert_b5_rows_close(y, x, dt, a, Bm, Cm)
+
+
+@pytest.mark.parametrize("B,S,H,G,N,P,Q,strided,init", [
+    (1, 512, 8, 2, 128, 64, 64, False, False),    # G = 2, rep 4, the model's N and P
+    (1, 512, 8, 2, 128, 64, 256, True, False),    # the model's chunk, conv-output views
+    (2, 288, 8, 2, 32, 16, 96, False, False),     # ragged: Q 96, tiles into the next chunk
+    (2, 100, 4, 4, 8, 8, 20, True, False),        # N 8, P 8, Q 20, rep 1
+    (2, 400, 8, 2, 32, 16, 20, False, True),      # Q 20 from a carried state
+    (1, 512, 8, 2, 128, 64, 128, True, True),     # init_state, conv-output views
+    (2, 256, 4, 1, 8, 64, 256, False, False),     # N 8 (one k-step), P 64
+    (1, 256, 4, 2, 128, 8, 64, True, False),      # N 128, P 8
+    (2, 192, 4, 2, 64, 40, 192, False, False),    # N 64 (one box), P 40, three tiles
+    (1, 128, 4, 1, 96, 24, 32, True, True),       # N 96 (a part box), P 24
+    (1, 16, 2, 1, 16, 16, 1, False, False),       # Q 1: a chunk a token
+])
+def test_ssd_scan_tensor_cores_equal_plain_and_recurrence(dev, B, S, H, G, N, P, Q, strided,
+                                                          init):
+    """bf16 on the tensor-core kernel across the wrapper's range, against the
+    plain version at tests/test_kernels.py's 5e-2 and each row against the
+    f32 recurrence; ``init``: the second half from the first half's state."""
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+
+    x, dt, a, Bm, Cm = _ssd_operands(B, S, H, G, N, P, torch.bfloat16, dev, S + N + P,
+                                     strided=strided)
+    t0 = ss_ops.ssd_scan.tensor_core_launches
+    if init:
+        h = S // 2
+        _, mid = ss_ops.ssd_scan(x[:, :h], dt[:, :h], a, Bm[:, :h], Cm[:, :h], chunk=Q)
+        assert mid.abs().max() > 0.1
+        args = (x[:, h:], dt[:, h:], a, Bm[:, h:], Cm[:, h:])
+    else:
+        mid, args = None, (x, dt, a, Bm, Cm)
+    y, st = ss_ops.ssd_scan(*args, chunk=Q, init_state=mid)
+    want_y, want_st = ss_ref.ssd_scan_ref(*args, chunk=Q, init_state=mid)
+    torch.cuda.synchronize()
+    assert ss_ops.ssd_scan.tensor_core_launches == t0 + 1 + int(init)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(st, want_st, atol=5e-2, rtol=5e-2)
+    _assert_b5_rows_close(y, x, dt, a, Bm, Cm, tail=y.shape[1])
+
+
+def test_ssd_scan_tensor_cores_are_deterministic(dev):
+    from repro_torch.kernels.ssd_scan import ops as ss_ops
+
+    x, dt, a, Bm, Cm = _ssd_operands(2, 1024, 8, 2, 128, 64, torch.bfloat16, dev, 12,
+                                     strided=True)
+    init = torch.randn((2, 8, 128, 64), generator=torch.Generator(device=dev).manual_seed(13),
+                       device=dev)
+    y1, s1 = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=256, init_state=init)
+    y2, s2 = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=256, init_state=init)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def _ssd_tma_unfit(kind, dtype, dev):
+    """x, dt, a, Bm, Cm whose layout the tensor maps cannot take: Bm based 8
+    bytes past a 16-byte boundary, or Cm with a g stride of 20 elements."""
+    S, H, G, N, P = 64, 4, 2, 16, 16
+    x = torch.randn((1, S, H, P), device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((1, S, H), device=dev)) * 0.5
+    a = -torch.ones((H,), device=dev)
+    Cm = torch.randn((1, S, G, N), device=dev).to(dtype) * 0.5
+    if kind == "base":
+        flat = torch.randn((S * G * N + 8,), device=dev).to(dtype) * 0.5
+        Bm = flat[8 // flat.element_size():][:S * G * N].view(1, S, G, N)
+    else:
+        Bm = (torch.randn((1, S, G, N + 4), device=dev).to(dtype) * 0.5)[..., :N]
+        Cm = (torch.randn((1, S, G, N + 4), device=dev).to(dtype) * 0.5)[..., :N]
+    return x, dt, a, Bm, Cm
+
+
+@pytest.mark.parametrize("kind", ["base", "stride"])
+def test_ssd_scan_refuses_tma_unfit_bf16_before_launch(dev, kind):
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+
+    n0, t0 = ss_ops.ssd_scan.launches, ss_ops.ssd_scan.tensor_core_launches
+    with pytest.raises(ValueError, match="TMA"):
+        ss_ops.ssd_scan(*_ssd_tma_unfit(kind, torch.bfloat16, dev), chunk=32)
+    assert ss_ops.ssd_scan.launches == n0
+    assert ss_ops.ssd_scan.tensor_core_launches == t0
+    # the same layout in f32 goes to the CUDA-core kernel
+    args = _ssd_tma_unfit(kind, torch.float32, dev)
+    y, st = ss_ops.ssd_scan(*args, chunk=32)
+    want_y, want_st = ss_ref.ssd_ref_model_layout(*args)
+    torch.cuda.synchronize()
+    assert ss_ops.ssd_scan.launches == n0 + 1
+    assert ss_ops.ssd_scan.tensor_core_launches == t0
+    torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("B,S,H,G,N,P,Q,strided", [
@@ -446,13 +563,17 @@ def test_ssd_scan_kernel_equals_plain_at_the_prefill_shape(dev):
     (2, 64, 2, 2, 16, 32, 64, False),
 ])
 def test_ssd_scan_kernel_equals_recurrence(dev, B, S, H, G, N, P, Q, strided):
+    """f32, on the CUDA-core kernel, against the recurrence."""
     from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
 
     x, dt, a, Bm, Cm = _ssd_operands(B, S, H, G, N, P, torch.float32, dev, S + Q,
                                      strided=strided)
+    n0, t0 = ss_ops.ssd_scan.launches, ss_ops.ssd_scan.tensor_core_launches
     y, st = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
     want_y, want_st = ss_ref.ssd_ref_model_layout(x, dt, a, Bm, Cm)
     torch.cuda.synchronize()
+    assert ss_ops.ssd_scan.launches == n0 + 1
+    assert ss_ops.ssd_scan.tensor_core_launches == t0
     torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
 

@@ -35,7 +35,8 @@ MODULES = [
     "repro_torch.launch", "repro_torch.launch.serve",
     "repro_torch.configs.mamba2_370m", "repro_torch.kernels.ssd_scan",
     "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.kernel",
-    "repro_torch.kernels.ssd_scan.ref", "repro_torch.models.ssm",
+    "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.ablate",
+    "repro_torch.models.ssm",
     "repro_torch.models.mamba_lm",
 ]
 

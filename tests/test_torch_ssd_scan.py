@@ -212,3 +212,100 @@ def test_bad_dtypes_raise():
         ops.ssd_scan(x, dt.double(), a, Bm, Cm)
     with pytest.raises(ValueError, match="init_state"):
         ops.ssd_scan(x, dt, a, Bm, Cm, init_state=torch.zeros(1, 4, 16, 8))
+
+
+# ---------------------------------------------------------------------------
+# The route on CUDA tensors: a pure function of dtype, shapes, strides and
+# base addresses, tested here without a card
+# ---------------------------------------------------------------------------
+def _layout(*ts, bases=None):
+    return ([t.shape for t in ts], [t.stride() for t in ts],
+            bases if bases is not None else [0] * len(ts))
+
+
+def _conv_views(B, S, H, G, N, P, extra=0, dtype=torch.bfloat16):
+    """x, Bm and Cm as the model's conv output holds them: views of one
+    [B, S, H*P + 2*G*N (+ extra)] buffer; their bases in bytes from its own."""
+    buf = torch.empty(B, S, H * P + 2 * G * N + extra, dtype=dtype)
+    x = buf[..., :H * P].reshape(B, S, H, P)
+    Bm = buf[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = buf[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
+    e = buf.element_size()
+    return (x, Bm, Cm), [0, H * P * e, (H * P + G * N) * e]
+
+
+# the admitted range's ends and the kernel's instantiation boundaries: N in
+# one or two 64-column boxes, P padded to 32 or 64 columns
+@pytest.mark.parametrize("N,P", [(n, p) for n in (8, 64, 72, 128) for p in (8, 32, 40, 64)])
+def test_route_is_chosen_by_dtype_for_every_admitted_width(N, P):
+    x = torch.empty(2, 64, 4, P)
+    Bm = torch.empty(2, 64, 2, N)
+    assert ops.route(torch.bfloat16, *_layout(x, Bm, Bm)) == "tensor_core"
+    assert ops.route(torch.float32, *_layout(x, Bm, Bm)) == "cuda_core"
+
+
+@pytest.mark.parametrize("H,G,N,P,extra", [(32, 1, 128, 64, 0),   # mamba2_370m's conv output
+                                           (8, 2, 32, 16, 8),
+                                           (4, 4, 8, 8, 0)])
+def test_route_takes_views_of_the_conv_output(H, G, N, P, extra):
+    """The served layout: x, B and C sliced from one [B, S, H*P + 2*G*N]
+    buffer, B and C starting H*P and H*P + G*N elements in."""
+    xbc, bases = _conv_views(2, 64, H, G, N, P, extra)
+    assert not xbc[0].is_contiguous() and xbc[1].stride(1) == H * P + 2 * G * N + extra
+    assert ops.route(torch.bfloat16, *_layout(*xbc, bases=bases)) == "tensor_core"
+
+
+@pytest.mark.parametrize("case,match", [
+    ("base", "boundary"),          # B starts 8 bytes past a 16-byte boundary
+    ("h_stride", "h stride"),      # x rows of 20 elements: 40 bytes
+    ("s_stride", "s stride"),      # C with an s stride of 12 elements: 24 bytes
+    ("broadcast", "b stride"),     # a zero stride on a batch of 2
+])
+def test_route_refuses_bf16_layouts_tma_cannot_address(case, match):
+    x = torch.empty(2, 16, 4, 16)
+    Bm = torch.empty(2, 16, 1, 16)
+    shapes, strides, bases = _layout(x, Bm, Bm)
+    if case == "base":
+        bases = [0, 8, 0]
+    elif case == "h_stride":
+        strides[0] = (16 * 4 * 20, 4 * 20, 20, 1)
+    elif case == "s_stride":
+        shapes[2], strides[2] = (2, 16, 1, 8), (16 * 12, 12, 12, 1)
+    else:
+        strides[2] = (0, 16, 16, 1)
+    with pytest.raises(ValueError, match=match):
+        ops.route(torch.bfloat16, shapes, strides, bases)
+    # f32 never goes to the tensor maps, so it is never refused for its layout
+    assert ops.route(torch.float32, shapes, strides, bases) == "cuda_core"
+
+
+def test_route_ignores_the_stride_of_an_extent_one_dim():
+    """One group (the served G = 1): the g stride, whatever it is, does not
+    refuse the call, and the tensor map gets the contiguous one."""
+    x = torch.empty(2, 16, 4, 16)
+    shape, odd = (2, 16, 1, 24), (16 * 40, 40, 3, 1)
+    shapes, strides, bases = _layout(x, x, x)
+    shapes[1:], strides[1:] = [shape] * 2, [odd] * 2
+    assert ops.route(torch.bfloat16, shapes, strides, bases) == "tensor_core"
+    from repro_torch.kernels import _common
+    assert _common.tma_strides(shape, odd) == (16 * 40, 40, 24)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_core_kernel_takes_float32_only(dtype):
+    """The CUDA-core kernel has no bfloat16 instantiation (bf16 is the
+    tensor-core kernel's): any other dtype is refused before the library is
+    loaded or a kernel launched."""
+    from repro_torch.kernels.ssd_scan import kernel
+
+    x, dt, a, Bm, Cm = _zeros(dtype=dtype)
+    y = torch.empty_like(x)
+    state = torch.empty(1, 4, 16, 16)
+    with pytest.raises(TypeError, match="float32"):
+        kernel.ssd_scan(x, dt, a, Bm, Cm, None, y, state, 16)
+
+
+def test_reset_launches_clears_the_tensor_core_count():
+    ops.ssd_scan.tensor_core_launches = 3
+    kernels.reset_launches()
+    assert ops.ssd_scan.tensor_core_launches == 0
