@@ -17,7 +17,9 @@ the JAX package. Every check raises on failure; no phase catches its own.
   2. kernels B1 (tbs_step_apply), B2 (reservoir_compact) and H1
      (swap_delete) against their plain versions at the main path's shapes,
      with CUDA-event times, the memory bound and, for B1, one
-     ``torch.index_select`` as the library yardstick;
+     ``torch.index_select`` as the library yardstick; H1 at L = 2^20 with
+     4,096, 32,768 and 65,536 trips (its forest route) and at the bank's
+     65,536 rows of L = 65 and 97 (its rows route), with launches by route;
   3. the main path at cap = 2^20: branch schedule, W recurrence, launch
      counts, a tick under ``set_sync_debug_mode("error")``, B2 through
      ``materialize_view``, ticks per second and a profiled tick;
@@ -220,27 +222,58 @@ def phase_kernels(torch, timer, bw, reps):
         print(f"[2] B2 reservoir_compact {name:10s} items and count exact  kernel "
               f"{ms:.4f} ms  plain {plain:.4f} ms  bound {nbytes / bw * 1e3:.4f} ms")
 
-    # H1 on the stage-1 map's shapes: L = cap, D = bcap words, ~4096 trips
+    # H1 on the main path's maps (L = cap, D = bcap words: the forest route)
+    # at 4,096 to 65,536 trips, and at the bank's shape (the rows route)
     D = bcap
+    sd = sd_ops.swap_delete
+    n0, f0 = sd.launches, sd.forest_launches
     bits = torch.randint(0, 2**32, (D + 2,), generator=g, device="cuda")
     k = torch.full((), cap - 1, dtype=torch.int64, device="cuda")
-    h1 = {}
-    for trips_n in (4096, 32768):
+    h1, shapes = {}, {}
+    for trips_n in (4096, 32768, 65536):
         trips = torch.full((), trips_n, dtype=torch.int64, device="cuda")
-        got = sd_ops.swap_delete(cap, trips, k, bits, D)
-        ms = timer(lambda: sd_ops.swap_delete(cap, trips, k, bits, D), reps)
+        got = sd(cap, trips, k, bits, D)
+        ms = timer(lambda: sd(cap, trips, k, bits, D), reps)
+        bound = (8 * cap + 8 * trips_n + 16) / bw * 1e3
         if trips_n == 4096:
             t0 = time.perf_counter()
             want = sd_ref.swap_delete_ref(cap, trips, k, bits, D)
             torch.cuda.synchronize()
-            plain = (time.perf_counter() - t0) * 1e3   # one call: D masked steps
-            check(torch.equal(got, want), "H1 differs from its plain version")
-            nbytes = 8 * cap + 8 * trips_n + 16
-            h1 = dict(ms=ms, plain_ms=plain, library_ms=None,
-                      bound_ms=nbytes / bw * 1e3, err=max_abs_err(torch, got, want))
-        print(f"[2] H1 swap_delete trips={trips_n:6d} kernel {ms:.4f} ms"
-              + (f"  plain {h1['plain_ms']:.1f} ms (one call)  exact"
-                 if trips_n == 4096 else ""))
+            plain = (time.perf_counter() - t0) * 1e3   # one call: one step at a time
+            h1 = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
+                      err=max_abs_err(torch, got, want))
+            held = f"swap_delete_ref (plain {plain:.1f} ms, one call)"
+        else:
+            want = sd_ref.swap_delete_forest_ref(cap, trips, k, bits, D)
+            held = "swap_delete_forest_ref"
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"H1 at {trips_n} trips differs from {held}")
+        shapes[f"L={cap} D={D} trips={trips_n}"] = dict(ms=ms, bound_ms=bound)
+        print(f"[2] H1 swap_delete L={cap} trips={trips_n:6d} ({sd_ops.route(cap, D)}) "
+              f"kernel {ms:.4f} ms  bound {bound:.4f} ms  equal to {held}")
+    ratio = shapes[f"L={cap} D={D} trips=65536"]["ms"] / h1["ms"]
+    print(f"[2] H1 at 65,536 trips / at 4,096 trips: {ratio:.2f}x")
+    # the bank's tick maps: b routed rows at L = cap (stage 1) and cap + bcap
+    # (overshoot), D = bcap words; ~17,300 live rows with up to D trips each
+    T, Db = B_BANK, min(BCAP_BANK, N_BANK + 1)
+    live = torch.arange(T, device="cuda") < 17_344
+    for L in (N_BANK + 1, N_BANK + 1 + BCAP_BANK):
+        kb = torch.randint(0, L + 1, (T,), generator=g, device="cuda")
+        tb = torch.where(live, (torch.rand((T,), generator=g, device="cuda")
+                                * (torch.clamp(kb, max=Db) + 1)).long(), 0)
+        bb = torch.randint(0, 2**32, (T, Db + 2), generator=g, device="cuda")
+        got = sd(L, tb, kb, bb, Db)
+        ms = timer(lambda: sd(L, tb, kb, bb, Db), reps)
+        bound = (T * (8 * L + 16) + 8 * int(tb.sum())) / bw * 1e3
+        for fn in (sd_ref.swap_delete_ref, sd_ref.swap_delete_forest_ref):
+            check(torch.equal(got, fn(L, tb, kb, bb, Db)),
+                  f"H1 at the bank's L = {L} differs from {fn.__name__}")
+        shapes[f"bank T={T} L={L} D={Db}"] = dict(ms=ms, bound_ms=bound)
+        print(f"[2] H1 swap_delete bank T={T} L={L} D={Db} ({sd_ops.route(L, Db)}) "
+              f"kernel {ms:.4f} ms  bound {bound:.4f} ms  equal to both plain versions")
+    h1["shapes"] = shapes
+    nf, nall = sd.forest_launches - f0, sd.launches - n0
+    print(f"[2] H1 launches by route in this phase: forest {nf}, rows {nall - nf}")
     return {"tbs_step_apply": b1, "reservoir_compact": b2, "swap_delete": h1}
 
 
@@ -283,6 +316,7 @@ def phase_main(torch, np, kernels):
     from repro_torch.core import prng
     from repro_torch.core.api import make_sampler, materialize_view
     from repro_torch.data.streams import LinRegStream, mode_schedule
+    from repro_torch.kernels.swap_delete import ops as sd_ops
     from repro_torch.manage import make_model, make_run_loop, materialize_stream
 
     T = 48
@@ -315,7 +349,11 @@ def phase_main(torch, np, kernels):
           f"launches {launches}")
     check(launches["tbs_step_apply"] == 2 * T, "B1 not launched once per leaf per tick")
     check(launches["swap_delete"] >= T, "H1 not launched on every tick")
+    check(sd_ops.swap_delete.forest_launches == launches["swap_delete"],
+          "H1 left its forest route on the main path")
     check(launches["reservoir_compact"] == 2, "B2 not launched by materialize_view")
+    print(f"[3] H1 launches by route: forest {sd_ops.swap_delete.forest_launches}, "
+          f"rows {launches['swap_delete'] - sd_ops.swap_delete.forest_launches}")
 
     sizes_t = trace["size"].cpu().numpy()
     metrics = trace["metric"].cpu().numpy()
@@ -379,6 +417,9 @@ def phase_main(torch, np, kernels):
                 profile=_breakdown(torch, prof, wall_ms))
 
 
+# every kernel H1's two routes launch (csrc/swap_delete.cu)
+H1_KERNELS = ("swap_delete_init_kernel", "swap_delete_last_kernel",
+              "swap_delete_map_kernel", "swap_delete_rows_kernel")
 _SCOPES = ("manage.eval", "manage.sampler_step", "rtbs.tick_map", "rtbs.payload",
            "manage.retrain", "manage.size")
 _BANK_SCOPES = ("manage.eval", "manage.sampler_step", "bank.decay", "bank.route",
@@ -387,7 +428,7 @@ _BANK_SCOPES = ("manage.eval", "manage.sampler_step", "bank.decay", "bank.route"
 
 def _breakdown(torch, prof, wall_ms: float, tag: str = "[3]", scopes=_SCOPES,
                named=(("B1 kernel", "tbs_step_apply_kernel"),
-                      ("H1 kernel", "swap_delete_kernel")),
+                      ("H1 kernels", H1_KERNELS)),
                what: str = "retrain tick") -> dict:
     """Device time of one profiled tick (or serving step): kernel time summed
     over the device's kernel events, each scope's share, the hand-written
@@ -409,7 +450,9 @@ def _breakdown(torch, prof, wall_ms: float, tag: str = "[3]", scopes=_SCOPES,
     busy = sum(e.device_time_total for e in kern) / 1e3
     res = {"wall_ms": wall_ms, "device_ms": busy, "kernels": len(kern)}
     for label, sub in named:
-        res[label] = sum(e.device_time_total for e in kern if sub in e.name) / 1e3
+        subs = (sub,) if isinstance(sub, str) else sub
+        res[label] = sum(e.device_time_total for e in kern
+                         if any(x in e.name for x in subs)) / 1e3
     for name in scopes:
         spans = sorted((e.time_range.start, e.time_range.end) for e in evs
                        if e.device_type == DeviceType.CUDA and e.is_user_annotation
@@ -558,6 +601,7 @@ def phase_bank(torch, np, kernels, timer, bw, reps):
     from repro_torch.bank.bank import _rtbs_tick_map
     from repro_torch.core import prng
     from repro_torch.data.streams import KeyedStream, LinRegStream
+    from repro_torch.kernels.swap_delete import ops as sd_ops
     from repro_torch.kernels.tbs_step import ops as ts_ops, ref as ts_ref
     from repro_torch.manage import (make_bank_manage_step, make_bank_run_loop,
                                     make_model, materialize_stream)
@@ -590,6 +634,8 @@ def phase_bank(torch, np, kernels, timer, bw, reps):
           f"card; launches {launches}")
     check(launches["tbs_step_apply_banked"] == 2 * T, "B3 not launched once per leaf per tick")
     check(launches["swap_delete"] >= T, "H1 not launched on every bank tick")
+    check(sd_ops.swap_delete.forest_launches == 0,
+          "H1 left its rows route on the bank path")
     sizes = trace["size"].cpu().numpy()
     metric = trace["metric"].cpu().numpy()
     check(sizes.shape == (T, Q) and (sizes <= n).all(), "bank size > n")
@@ -652,7 +698,7 @@ def phase_bank(torch, np, kernels, timer, bw, reps):
         wall_ms = (time.perf_counter() - t0) * 1e3
     profile = _breakdown(torch, prof, wall_ms, "[6]", _BANK_SCOPES,
                          (("B3 kernel", "tbs_step_banked_kernel"),
-                          ("H1 kernel", "swap_delete_kernel")))
+                          ("H1 kernels", H1_KERNELS)))
 
     # (a) and B3's time at this shape, on one tick's real operands, made by
     # the bank's own tick up to its payload pass
@@ -1499,7 +1545,7 @@ def main() -> int:
              "reservoir_compact": ("src/repro_torch/kernels/csrc/reservoir_compact.cu",
                                    "src/repro/kernels/reservoir_compact/kernel.py:49"),
              "swap_delete": ("src/repro_torch/kernels/csrc/swap_delete.cu",
-                             "src/repro/core/latent.py:188"),
+                             "src/repro/core/latent.py:180-189"),
              "tbs_step_apply_banked": ("src/repro_torch/kernels/csrc/tbs_step_banked.cu",
                                        "src/repro/kernels/tbs_step/kernel.py:64"),
              "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
@@ -1520,6 +1566,8 @@ def main() -> int:
                      "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
                      "library_ms": r["library_ms"]})
+        if "shapes" in r:
+            rows[-1]["shapes"] = r["shapes"]
     # B4's f32 calls build from their own source; the row's numbers are the
     # bf16 route's, the one the served prefill runs
     rows[list(kres).index("flash_attention")]["f32_route"] = {

@@ -8,8 +8,10 @@ PyTorch version of the same function.
                          place (replaces ``apply_banked``).
   * reservoir_compact -- B2, stable compaction of a realized sample
                          (replaces the Pallas ``reservoir_compact`` kernel).
-  * swap_delete       -- H1, the delete-complement loop of the downsample
-                         map, whose trip count lives on the device.
+  * swap_delete       -- H1, the delete-complement map of the downsample,
+                         whose trip count lives on the device: a parallel
+                         last-writer forest for long rows, one thread a
+                         row for the bank's short ones.
   * flash_attention   -- B4, online-softmax GQA attention with causal and
                          sliding-window masks (replaces the Pallas
                          ``flash_attention_bhsd``): the LM prefill. bf16
@@ -49,6 +51,7 @@ def reset_launches() -> None:
         fn.launches = 0
     _fa.flash_attention.tensor_core_launches = 0
     _ss.ssd_scan.tensor_core_launches = 0
+    _sd.swap_delete.forest_launches = 0
 
 
 def launches() -> dict[str, int]:

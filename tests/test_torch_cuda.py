@@ -12,6 +12,7 @@ from repro_torch import kernels
 from repro_torch.core import prng
 from repro_torch.kernels.reservoir_compact import ops as rc_ops
 from repro_torch.kernels.reservoir_compact import ref as rc_ref
+from repro_torch.kernels.swap_delete import kernel as sd_kernel
 from repro_torch.kernels.swap_delete import ops as sd_ops
 from repro_torch.kernels.swap_delete import ref as sd_ref
 from repro_torch.kernels.tbs_step import ops as ts_ops
@@ -74,15 +75,100 @@ def test_reservoir_compact_kernel_equals_plain(dev, cap, tail, dtype, p):
     assert torch.equal(got, want.reshape(items.shape))
 
 
-@pytest.mark.parametrize("L,D,trips,k", [(64, 8, [8, 0, 3], [40, 40, 5]),
-                                         (5000, 300, [300, 17], [4999, 320])])
+# (L, D, trips, k): the rows route (L <= 256, D <= 64) and the forest route
+SWAP_DELETE_CASES = [
+    (64, 8, [8, 0, 3], [40, 40, 5]),
+    (5000, 300, [300, 17], [4999, 320]),
+    (5000, 300, [300], [300]),                 # trips = k: the whole prefix
+    (64, 8, [8], [8]),
+    (5000, 300, [300, 250], [5000, 5000]),     # k = L
+    (64, 64, [64], [64]),
+    (5000, 300, [290, 300, 40], [7000, 5000, 60]),   # a k > L row among others
+    (64, 8, [8, 5], [90, 64]),
+    (3000, 512, [0, 512, 100], [3000, 2999, 0]),     # T = 3 mixed rows
+    (300, 40, [40, 12, 0], [300, 13, 7]),
+]
+
+
+def _check_swap_delete(L, D, trips, k, bits, want=None, route=None):
+    """The wrapper (and, for a given route, that route's launch on the same
+    inputs) against ``want`` or the plain loop, bit for bit."""
+    n0 = sd_ops.swap_delete.launches
+    got = sd_ops.swap_delete(L, trips, k, bits, D)
+    if want is None:
+        want = sd_ref.swap_delete_ref(L, trips, k, bits, D)
+    torch.cuda.synchronize()
+    assert sd_ops.swap_delete.launches == n0 + 1
+    assert torch.equal(got, want)
+    if route is not None:
+        out = torch.empty_like(want.reshape(-1, L))
+        getattr(sd_kernel, route)(out, trips.reshape(-1), k.reshape(-1),
+                                  bits.reshape(out.shape[0], -1), D)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want.reshape(-1, L)), route
+
+
+@pytest.mark.parametrize("L,D,trips,k", SWAP_DELETE_CASES)
 def test_swap_delete_kernel_equals_plain(dev, L, D, trips, k):
     trips = torch.tensor(trips, device=dev)
     k = torch.tensor(k, device=dev)
     bits = prng.bits(prng.key(L), (trips.numel(), D + 2), dev)
-    got = sd_ops.swap_delete(L, trips, k, bits, D)
-    want = sd_ref.swap_delete_ref(L, trips, k, bits, D)
+    _check_swap_delete(L, D, trips, k, bits, route="forest")
+    if L + D <= sd_kernel.ROWS_MAX_LD:   # what the rows route's shared memory holds
+        _check_swap_delete(L, D, trips, k, bits, route="rows")
+
+
+@pytest.mark.parametrize("L,D,k", [(64, 62, 64), (300, 250, 260), (5000, 1000, 4000),
+                                   (70_000, 65_536, 65_538)])
+def test_swap_delete_kernel_equals_plain_on_deep_chains(dev, L, D, k):
+    """bits[j] = k - 2 - j: every step moves the value the step before
+    placed, so one chain spans all D steps; both routes where they fit."""
+    j = torch.arange(D + 2, device=dev)
+    bits = (k - 2 - j).clamp(min=0)[None]
+    trips = torch.tensor([D], device=dev)
+    kt = torch.tensor([k], device=dev)
+    want = (sd_ref.swap_delete_forest_ref if D > 4096 else sd_ref.swap_delete_ref)(
+        L, trips, kt, bits, D)
+    _check_swap_delete(L, D, trips, kt, bits, want,
+                       route="rows" if L + D <= sd_kernel.ROWS_MAX_LD else "forest")
+    _check_swap_delete(L, D, trips, kt, bits, want, route="forest")
+
+
+@pytest.mark.parametrize("L,k", [(65, 65), (97, 97)])
+def test_swap_delete_kernel_equals_plain_at_the_bank_shape(dev, L, k):
+    """The bank's regime: 17,000 rows, D = 32, on the rows route, with
+    collision-heavy bits on every third row."""
+    T, D = 17_000, 32
+    g = torch.Generator(device=dev).manual_seed(L)
+    kk = torch.randint(0, k + 1, (T,), generator=g, device=dev)
+    trips = (torch.rand((T,), generator=g, device=dev)
+             * (torch.clamp(kk, max=D) + 1)).long()
+    bits = torch.randint(0, 2**32, (T, D + 2), generator=g, device=dev)
+    bits[::3] %= 3
+    assert sd_ops.route(L, D) == "rows"
+    f0 = sd_ops.swap_delete.forest_launches
+    _check_swap_delete(L, D, trips, kk, bits, route="forest")
+    assert sd_ops.swap_delete.forest_launches == f0
+
+
+def test_swap_delete_forest_at_full_size_equals_forest_ref_without_sync(dev):
+    """L = 2^20, D = 65,536 at 65,536 trips, as the main path's stage-1 map
+    is shaped, against the plain forest; the call runs with every host sync
+    an error."""
+    L, D = 1 << 20, 65_536
+    bits = prng.bits(prng.key(3), (D + 2,), dev)
+    trips = torch.tensor(D, device=dev)
+    k = torch.tensor(L - 1, device=dev)
+    want = sd_ref.swap_delete_forest_ref(L, trips, k, bits, D)
+    f0 = sd_ops.swap_delete.forest_launches
     torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sd_ops.swap_delete(L, trips, k, bits, D)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert sd_ops.swap_delete.forest_launches == f0 + 1
     assert torch.equal(got, want)
 
 

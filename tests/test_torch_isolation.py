@@ -19,6 +19,7 @@ MODULES = [
     "repro_torch.kernels.reservoir_compact.ops",
     "repro_torch.kernels.reservoir_compact.kernel",
     "repro_torch.kernels.swap_delete.ops", "repro_torch.kernels.swap_delete.kernel",
+    "repro_torch.kernels.swap_delete.ref", "repro_torch.kernels.swap_delete.bench",
     "repro_torch.decay", "repro_torch.decay.schedules", "repro_torch.data.streams",
     "repro_torch.models.simple_ml", "repro_torch.manage",
     "repro_torch.manage.models", "repro_torch.manage.loop",
