@@ -17,21 +17,25 @@ the JAX package. Every check raises on failure; no phase catches its own.
   2. kernels B1 (tbs_step_apply), B2 (reservoir_compact) and H1
      (swap_delete) against their plain versions at the main path's shapes,
      with CUDA-event times, the memory bound and, for B1, one
-     ``torch.index_select`` as the library yardstick; H1 at L = 2^20 with
+     ``torch.index_select`` as the library yardstick; B1 per dtype, every
+     dtype as one pytree in one launch, and the main tick's x + y leaves in
+     one launch, timed beside the single-launch bound and a ``copy_`` of
+     the same bytes; H1 at L = 2^20 with
      4,096, 32,768 and 65,536 trips (its forest route) and at the bank's
      65,536 rows of L = 65 and 97 (its rows route), with launches by route;
   3. the main path at cap = 2^20: branch schedule, W recurrence, launch
-     counts, a tick under ``set_sync_debug_mode("error")``, B2 through
+     counts (B1 once a tick), a tick under ``set_sync_debug_mode("error")``, B2 through
      ``materialize_view``, ticks per second and a profiled tick;
   4. the same path at cap = 4096 on the card and on the CPU: bit for bit;
   5. naive_bayes on a 100-word bag-of-words stream;
   6. the keyed bank (``make_bank`` / ``make_bank_run_loop``) at K = 2^20
      tenants, n = 64, b = 65,536 arrivals a tick: ticks and keyed items per
-     second, B3 (tbs_step_apply_banked) launched on every tick and equal to
+     second, B3 (tbs_step_apply_banked) launched once a tick and equal to
      its plain version, the [K] columns' W recurrence and pending product
      on every tick, a tick under ``set_sync_debug_mode("error")``, a
-     profiled retrain tick, B3's time against its bound and against the
-     unfused composition, and card == CPU at K = 4096;
+     profiled retrain tick, B3's time (x + y in one launch) against its
+     bound, the bytes its design moves and the unfused composition, and
+     card == CPU at K = 4096;
   7. serving: ``stablelm_12b`` at full width and depth (40 layers, bf16
      params, B4 flash attention), 8 prompts x 2,048 tokens prefilled and
      32 tokens decoded greedily, with exactly 40 B4 launches in the prefill,
@@ -70,8 +74,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -91,17 +93,14 @@ _HBM = [("H200", 4.8e12, "H200 SXM spec sheet, 4.8 TB/s"),
 N_MAIN, BCAP_MAIN, LAM = 1_048_575, 65_536, 0.03
 RETRAIN_EVERY = 4
 
+# B1 and B3 on x + y before their one-launch designs (a launch per leaf):
+# this script's phases 2 and 6 on an NVIDIA H100 80GB HBM3 at 700 W
+B1_BEFORE_MS, B3_BEFORE_MS = 0.0351, 0.0506
+
 
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def hbm_for(name: str):
@@ -109,35 +108,6 @@ def hbm_for(name: str):
         if key in name:
             return bw, label
     return 3.35e12, "H100 SXM spec sheet, 3.35 TB/s (card not in table)"
-
-
-class Timer:
-    """Median CUDA-event time of ``fn`` over ``reps`` launches, with the L2
-    cache flushed before each (the tick finds its buffers cold). A 5 ms
-    device sleep is queued ahead of the first event, so the host has
-    enqueued ``fn``'s launches before the device reaches them: the events
-    time the device work, not the wrapper's Python."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn, reps: int) -> float:
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        evs = []
-        for _ in range(reps):
-            self.flush.zero_()
-            torch.cuda._sleep(10_000_000)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            evs.append((a, b))
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -161,7 +131,7 @@ def phase_kernels(torch, timer, bw, reps):
     cases = [("f32[.,2]", torch.float32, (2,)), ("f32[.]", torch.float32, ()),
              ("i32[.]", torch.int32, ()), ("bool[.]", torch.bool, ()),
              ("bf16[.]", torch.bfloat16, ()), ("f32[.,100]", torch.float32, (100,))]
-    rows = {}
+    rows, pytree_items, pytree_batch = {}, {}, {}
     for name, dt, tail in cases:
         if dt == torch.bool:
             items = torch.rand((cap,) + tail, generator=g, device="cuda") < 0.5
@@ -192,13 +162,64 @@ def phase_kernels(torch, timer, bw, reps):
         bound = nbytes / bw * 1e3
         rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                           err=err)
+        pytree_items[name], pytree_batch[name] = items, batch
         print(f"[2] B1 tbs_step_apply {name:10s} equal  kernel {ms:.4f} ms  "
               f"plain {plain:.4f} ms  index_select {lib:.4f} ms  bound {bound:.4f} ms "
               f"({nbytes / 1e6:.1f} MB)")
-    # the main path's two leaves: x f32[., 2] and y f32[.]
-    b1 = {k: rows["f32[.,2]"][k] + rows["f32[.]"][k]
-          for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    b1["err"] = max(rows["f32[.,2]"]["err"], rows["f32[.]"]["err"])
+    # every case above as one pytree: one launch, each leaf bit for bit
+    n0 = ts_ops.tbs_step_apply.launches
+    got = ts_ops.tbs_step_apply(pytree_items, pytree_batch, src)
+    torch.cuda.synchronize()
+    check(ts_ops.tbs_step_apply.launches == n0 + 1, "B1 pytree of every dtype: one launch")
+    for name in pytree_items:
+        want = ts_ref.apply_ref(pytree_items[name].reshape(1, cap, -1),
+                                pytree_batch[name].reshape(1, bcap, -1), src[None])
+        check(torch.equal(got[name], want.reshape(got[name].shape)),
+              f"B1 {name} in the one-launch pytree differs from its plain version")
+    print(f"[2] B1 all {len(pytree_items)} dtype cases as one pytree: one launch, each "
+          f"leaf equal to its plain version")
+    del got, pytree_items, pytree_batch
+
+    # the main path's two leaves, x f32[., 2] and y f32[.], in one call
+    items = {"x": torch.randn((cap, 2), generator=g, device="cuda"),
+             "y": torch.randn((cap,), generator=g, device="cuda")}
+    batch = {"x": torch.randn((bcap, 2), generator=g, device="cuda"),
+             "y": torch.randn((bcap,), generator=g, device="cuda")}
+    n0 = ts_ops.tbs_step_apply.launches
+    got = ts_ops.tbs_step_apply(items, batch, src)
+    torch.cuda.synchronize()
+    check(ts_ops.tbs_step_apply.launches == n0 + 1, "B1 x + y not in one launch")
+
+    def plain_xy():
+        return {f: ts_ref.apply_ref(items[f].reshape(1, cap, -1),
+                                    batch[f].reshape(1, bcap, -1), src[None])
+                for f in items}
+
+    want = plain_xy()
+    err = 0.0
+    for f in items:
+        w = want[f].reshape(got[f].shape)
+        check(torch.equal(got[f], w), f"B1 {f} in the x + y call differs from its plain version")
+        err = max(err, max_abs_err(torch, got[f], w))
+    # each output row read once and written once, src read once for both leaves
+    nbytes = 2 * cap * (8 + 4) + 4 * cap
+    cats = {f: torch.cat([items[f], batch[f]]) for f in items}
+    yard_a = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    yard_b = torch.empty_like(yard_a)
+    ms = timer(lambda: ts_ops.tbs_step_apply(items, batch, src), reps)
+    plain = timer(plain_xy, reps)
+    lib = sum(timer(lambda c=c: torch.index_select(c, 0, src), reps) for c in cats.values())
+    copy_ms = timer(lambda: yard_b.copy_(yard_a), reps)
+    bound = nbytes / bw * 1e3
+    per_leaf = rows["f32[.,2]"]["bound_ms"] + rows["f32[.]"]["bound_ms"]
+    print(f"[2] B1 main tick x + y in one launch: kernel {ms:.4f} ms ({B1_BEFORE_MS} before, "
+          f"a launch per leaf)  bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, src "
+          f"once; the per-leaf bound summed {per_leaf:.4f})  plain {plain:.4f} ms  "
+          f"index_select x + y {lib:.4f} ms  copy_ of {nbytes / 1e6:.1f} MB {copy_ms:.4f} ms "
+          f"(yardstick); kernel = {ms / bound:.2f}x its bound, {nbytes / ms / 1e9:.2f} TB/s")
+    b1 = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, err=err,
+              copy_ms=copy_ms)
+    del got, want, cats, yard_a, yard_b
 
     # B2 at the same cap, scattered mask; the main path's two leaves
     mask = torch.rand((cap,), generator=g, device="cuda") < 0.6
@@ -311,7 +332,7 @@ def _check_w(np, Ws, bcounts, lam):
         check(Ws[t] == w, f"tick {t}: W {Ws[t]!r} != d*W + B = {w!r}")
 
 
-def phase_main(torch, np, kernels):
+def phase_main(torch, np, kernels, timer, bw, reps):
     """Phase 3: the main path at cap = 2^20 on the card."""
     from repro_torch.core import prng
     from repro_torch.core.api import make_sampler, materialize_view
@@ -347,7 +368,7 @@ def phase_main(torch, np, kernels):
     launches = kernels.launches()
     print(f"[3] main path: {T} ticks in {wall:.3f} s = {T / wall:.2f} ticks/s; "
           f"launches {launches}")
-    check(launches["tbs_step_apply"] == 2 * T, "B1 not launched once per leaf per tick")
+    check(launches["tbs_step_apply"] == T, "B1 not launched once per tick")
     check(launches["swap_delete"] >= T, "H1 not launched on every tick")
     check(sd_ops.swap_delete.forest_launches == launches["swap_delete"],
           "H1 left its forest route on the main path")
@@ -403,6 +424,8 @@ def phase_main(torch, np, kernels):
     check(out[0].lat.weight.item() <= N_MAIN, "sync-check tick")
     print("[3] one non-retrain tick ran under set_sync_debug_mode('error'): no host sync")
 
+    b1_tick_ms = _b1_on_a_tick_map(torch, timer, bw, state, b_t, bcounts[T - 1], reps)
+
     # profile one retrain tick
     prof_t = 4 * RETRAIN_EVERY - 1
     s_in = st2
@@ -413,8 +436,35 @@ def phase_main(torch, np, kernels):
         tick(key, prof_t, s_in, params, b_t, bcounts[T - 1])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return dict(ticks_per_s=T / wall, launches=launches,
+    return dict(ticks_per_s=T / wall, launches=launches, b1_tick_ms=b1_tick_ms,
                 profile=_breakdown(torch, prof, wall_ms))
+
+
+def _b1_on_a_tick_map(torch, timer, bw, state, b_t, bcount, reps) -> float:
+    """B1 on the map of a real main tick (the next tick's, composed from the
+    run's final state), x + y in one launch, against its plain version."""
+    from repro_torch.core import prng, rtbs
+    from repro_torch.kernels.tbs_step import ops as ts_ops, ref as ts_ref
+
+    items = state.lat.items
+    batch = {f: b_t[f] for f in items}
+    cap, bcap = state.lat.cap, batch["y"].shape[0]
+    decay = torch.full((), math.exp(-LAM), dtype=torch.float32, device="cuda")
+    src, _, _ = rtbs.tick_map(rtbs.draw_tick(prng.key(1234), cap=cap, bcap=bcap, device="cuda"),
+                              state.lat.nfull, state.lat.weight, state.total_weight, bcount,
+                              decay, cap=cap, bcap=bcap, n=N_MAIN)
+    got = ts_ops.tbs_step_apply(items, batch, src)
+    for f in items:
+        want = ts_ref.apply_ref(items[f].reshape(1, cap, -1), batch[f].reshape(1, bcap, -1),
+                                src[None]).reshape(got[f].shape)
+        check(torch.equal(got[f], want), f"B1 {f} on a tick map differs from its plain version")
+    kept = int((src == torch.arange(cap, device="cuda")).sum())
+    ms = timer(lambda: ts_ops.tbs_step_apply(items, batch, src), reps)
+    bound = (2 * cap * 12 + 4 * cap) / bw * 1e3
+    print(f"[3] B1 on a main tick's map ({kept} of {cap} rows kept in place), x + y in one "
+          f"launch: kernel {ms:.4f} ms, equal to its plain version; bound {bound:.4f} ms; "
+          f"kernel = {ms / bound:.2f}x its bound")
+    return ms
 
 
 # every kernel H1's two routes launch (csrc/swap_delete.cu)
@@ -533,7 +583,7 @@ def phase_nb(torch, np, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launches()
-    check(launches["tbs_step_apply"] == 2 * T, "B1 not once per leaf per tick")
+    check(launches["tbs_step_apply"] == T, "B1 not once per tick")
     check(launches["swap_delete"] >= T, "H1 not launched")
     m = trace["metric"].cpu().numpy()
     check(np.isfinite(m).all(), "non-finite NB metric")
@@ -552,29 +602,30 @@ def _b3_bytes(torch, src, r, row_bytes, cap, bcap):
     """The least bytes B3's in-place function moves on one tick's operands,
     for leaves of the given row bytes updated together, counted on the
     device: each live row's ``touched``, ``starts`` and ``src`` entries once;
-    per leaf, each distinct reservoir row that a moved slot reads, each
+    per leaf, each distinct reservoir row that a written slot reads, each
     distinct batch row that a slot takes (its ``order`` entry once for all
-    leaves), and each slot whose row changes, written. A slot that keeps its
-    own row (``src[t, i] == i``) moves nothing. Returns (bytes, slots
-    written per leaf, batch rows taken)."""
+    leaves), and each slot of ``ref.banked_write_mask``, written. A slot
+    that keeps its own row moves nothing. Returns (bytes, slots written per
+    leaf, of which batch rows taken, distinct batch rows)."""
+    from repro_torch.kernels.tbs_step import ref as ts_ref
+
     b = src.shape[0]
     dev = src.device
     live = (torch.arange(b, device=dev) < r.ntouched).unsqueeze(-1)
     s = src.long()
-    own = s < cap
-    j = s.clamp(0, cap - 1)
-    moved = live & own & (j != torch.arange(cap, device=dev))
-    take = live & ~own
+    write = live & ts_ref.banked_write_mask(src, cap)
+    take = write & (s >= cap)
+    moved = write & ~take
     rd = torch.zeros((b, cap + 1), dtype=torch.bool, device=dev)
-    rd.scatter_(1, torch.where(moved, j, cap), True)    # column cap: no read
+    rd.scatter_(1, torch.where(moved, s.clamp(0, cap - 1), cap), True)  # column cap: no read
     rb = torch.zeros((b, bcap + 1), dtype=torch.bool, device=dev)
     rb.scatter_(1, torch.where(take, (s - cap).clamp(0, bcap - 1), bcap), True)
     n_rd, n_pay = int(rd[:, :cap].sum()), int(rb[:, :bcap].sum())
-    n_wr = int(moved.sum()) + int(take.sum())
+    n_wr, n_take = int(write.sum()), int(take.sum())
     nt = min(int(r.ntouched), b)
     nbytes = (sum(B * (n_wr + n_rd + n_pay) for B in row_bytes) + 4 * n_pay
               + (4 * cap + 8) * nt + 4)
-    return nbytes, n_wr, n_pay
+    return nbytes, n_wr, n_take, n_pay
 
 
 def _b3_equal(torch, leaf, pleaf, src, r, bcap, what):
@@ -632,7 +683,7 @@ def phase_bank(torch, np, kernels, timer, bw, reps):
     print(f"[6] bank loop: {T} ticks in {wall:.3f} s = {T / wall:.2f} ticks/s, "
           f"{T * b / wall:.0f} keyed items/s; bank items {items_mb:.1f} MB on the "
           f"card; launches {launches}")
-    check(launches["tbs_step_apply_banked"] == 2 * T, "B3 not launched once per leaf per tick")
+    check(launches["tbs_step_apply_banked"] == T, "B3 not launched once per tick")
     check(launches["swap_delete"] >= T, "H1 not launched on every bank tick")
     check(sd_ops.swap_delete.forest_launches == 0,
           "H1 left its rows route on the bank path")
@@ -683,7 +734,7 @@ def phase_bank(torch, np, kernels, timer, bw, reps):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    check(kernels.launches()["tbs_step_apply_banked"] == 2, "sync-check tick: B3")
+    check(kernels.launches()["tbs_step_apply_banked"] == 1, "sync-check tick: B3")
     print("[6] (c) one non-retrain bank tick ran under set_sync_debug_mode('error'): "
           "no host sync")
 
@@ -728,13 +779,30 @@ def phase_bank(torch, np, kernels, timer, bw, reps):
 
     nt = int(r.ntouched)
     row_bytes = [leaf[0, 0].numel() * leaf.element_size() for leaf in st2.items.values()]
-    nbytes, n_wr, npay = _b3_bytes(torch, src, r, row_bytes, cap, bcap)
+    nbytes, n_wr, n_take, npay = _b3_bytes(torch, src, r, row_bytes, cap, bcap)
     bound = nbytes / bw * 1e3
-    # what this design moves: every slot of a touched key staged and written,
-    # src read once per leaf, each batch row taken with its order entry
-    design = sum(nt * (2 * cap * B + 4 * cap + 8) + npay * (B + 4) + 4
-                 for B in row_bytes)
+    # what this design moves: each live row's touched and starts entries
+    # (the routing's int64) and its src row once for all leaves, an order
+    # entry per slot that takes a batch row, and per leaf a read and a write
+    # for each written slot
+    design = (nt * (4 * cap + 16) + 8 + 8 * n_take
+              + sum(2 * B * n_wr for B in row_bytes))
     items = st2.items
+    # x + y in one call, as the tick makes it, against the plain version
+    got, want = ({f: v.clone() for f, v in items.items()} for _ in range(2))
+    n0 = ts_ops.tbs_step_apply_banked.launches
+    ts_ops.tbs_step_apply_banked(got, payload, src, order=r.order, starts=r.starts,
+                                 touched=r.touched, ntouched=r.ntouched, bcap=bcap)
+    for f, leaf in want.items():
+        ts_ref.banked_ref(leaf.view(K, cap, -1), payload[f].reshape(b, -1), src,
+                          r.order, r.starts, r.touched, r.ntouched, bcap)
+    torch.cuda.synchronize()
+    check(ts_ops.tbs_step_apply_banked.launches == n0 + 1, "B3 x + y not in one launch")
+    for f in got:
+        check(torch.equal(got[f], want[f]), f"B3 {f} in the x + y call differs from "
+              f"its plain version")
+    print("[6] (a) B3 x + y in one launch: equal to its plain version bit for bit")
+    del got, want
 
     def fused():
         ts_ops.tbs_step_apply_banked(items, payload, src, order=r.order, starts=r.starts,
@@ -763,11 +831,13 @@ def phase_bank(torch, np, kernels, timer, bw, reps):
     plain_ms = timer(plain, max(3, reps // 4))
     unf_ms = timer(unfused, reps)
     print(f"[6] B3 at this shape (ntouched {nt}, {n_wr} of {nt * cap} slots "
-          f"rewritten per leaf, {npay} landing batch rows, x + y leaves): kernel "
-          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  unfused index_select -> B1 -> "
-          f"index_copy_ {unf_ms:.4f} ms  bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB "
-          f"that the function must move); this design moves {design / 1e6:.3f} MB "
-          f"= {design / bw * 1e3:.4f} ms at the bound's rate")
+          f"written per leaf, {n_take} of them batch rows from {npay} distinct, x + y "
+          f"leaves in one launch): kernel {ms:.4f} ms ({B3_BEFORE_MS} before, two "
+          f"launches, one a leaf)  plain {plain_ms:.4f} ms  unfused index_select -> "
+          f"B1 -> index_copy_ {unf_ms:.4f} ms  bound {bound:.4f} ms ({nbytes / 1e6:.3f} "
+          f"MB that the function must move); this design moves {design / 1e6:.3f} MB "
+          f"= {design / bw * 1e3:.4f} ms at the bound's rate; kernel = "
+          f"{ms / bound:.2f}x its bound")
     return dict(ticks_per_s=T / wall, items_per_s=T * b / wall, launches=launches,
                 profile=profile,
                 b3=dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
@@ -1513,8 +1583,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import kernels
     from repro_torch.kernels import _build
+    from repro_torch.kernels._bench import Timer, card
 
-    smi = smi_line()
+    smi = card()
     name = torch.cuda.get_device_name(0)
     bw, bw_label = hbm_for(smi)
     print(f"[1] card: {smi}")
@@ -1530,9 +1601,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[1]   {src}: {line.strip()}")
 
-    timer = Timer(torch)
+    timer = Timer()
     kres = phase_kernels(torch, timer, bw, reps=20)
-    main_res = phase_main(torch, np, kernels)
+    main_res = phase_main(torch, np, kernels, timer, bw, reps=20)
     phase_cpu_parity(torch, np)
     phase_nb(torch, np, kernels)
     bank_res = phase_bank(torch, np, kernels, timer, bw, reps=20)
@@ -1552,6 +1623,7 @@ def main() -> int:
                                  "src/repro/kernels/flash_attention/kernel.py:73"),
              "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
                           "src/repro/kernels/ssd_scan/kernel.py:66")}
+    kres["tbs_step_apply"]["main_tick_map_ms"] = main_res["b1_tick_ms"]
     kres["tbs_step_apply_banked"] = bank_res["b3"]
     kres["flash_attention"] = serve_res["b4"]
     kres["ssd_scan"] = ssm_res["b5"]
@@ -1568,6 +1640,8 @@ def main() -> int:
                      "library_ms": r["library_ms"]})
         if "shapes" in r:
             rows[-1]["shapes"] = r["shapes"]
+        if "main_tick_map_ms" in r:     # B1's row: ms is phase 2's uniform map
+            rows[-1]["main_tick_map_ms"] = r["main_tick_map_ms"]
     # B4's f32 calls build from their own source; the row's numbers are the
     # bf16 route's, the one the served prefill runs
     rows[list(kres).index("flash_attention")]["f32_route"] = {
@@ -1578,7 +1652,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "max_abs_err": kres["ssd_scan"]["f32_err"], "ms": kres["ssd_scan"]["f32_ms"]}
     print(json.dumps({"kernels": rows}))
-    print(smi_line())
+    print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -22,8 +22,13 @@ def as_bytes(x: torch.Tensor) -> torch.Tensor:
 def vector_width(row_bytes: int, *tensors: torch.Tensor) -> int:
     """The widest copy word (16, 8, 4, 2 or 1 bytes) dividing the row and
     every base pointer."""
+    return vector_width_of(row_bytes, [t.data_ptr() for t in tensors])
+
+
+def vector_width_of(row_bytes: int, addrs) -> int:
+    """:func:`vector_width` on addresses (ints)."""
     for v in (16, 8, 4, 2):
-        if row_bytes % v == 0 and all(t.data_ptr() % v == 0 for t in tensors):
+        if row_bytes % v == 0 and all(a % v == 0 for a in addrs):
             return v
     return 1
 

@@ -6,7 +6,8 @@ compared in one run on one card:
     PYTHONPATH=<other checkout>/src python src/repro_torch/kernels/swap_delete/bench.py
 
 Whichever ``repro_torch`` the path holds is timed (its kernels built in its
-own checkout). Shapes: the main path's maps, L = 2^20 (stage 1) and
+own checkout); the timer is always this file's checkout's
+(``kernels/_bench.py``). Shapes: the main path's maps, L = 2^20 (stage 1) and
 2^20 + 65,536 (overshoot), D = 65,536, k = L - 1, at 0 (a gated call),
 4,096, 32,768 and 65,536 trips; and the bank's, 65,536 rows of L = 65 and
 97, D = 32, the first 17,344 rows live with up to min(k, D) trips each.
@@ -19,44 +20,19 @@ one JSON line, with the card's name and power limit."""
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
-import statistics
-import subprocess
+from pathlib import Path
 
 
-def _time(torch, fn, reps: int, flush) -> float:
-    fn()
-    torch.cuda.synchronize()
-    evs = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(10_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        evs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in evs)
-
-
-def _kernels(torch, fn, flush) -> dict:
-    """Mean device ms of each kernel ``fn`` launches, over 5 calls each
-    after an L2 flush."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_time_total > 0 and "FillFunctor" not in e.key:   # the flush
-            name = e.key.split("(")[0][:60]
-            out[name] = out.get(name, 0.0) + e.device_time_total / 5 / 1e3
-    return out
+def _bench_helper():
+    """This checkout's ``kernels/_bench.py``, loaded from its file, so that
+    the same timer times another checkout's wrapper."""
+    path = Path(__file__).resolve().parents[1] / "_bench.py"
+    spec = importlib.util.spec_from_file_location("_swap_delete_bench_timer", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main(argv=None) -> int:
@@ -69,13 +45,14 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench: no CUDA device")
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    helper = _bench_helper()
+    timer = helper.Timer()
     g = torch.Generator(device="cuda").manual_seed(0)
     res, split = {}, {}
 
     def run(name, fn):
-        res[name] = _time(torch, fn, args.reps, flush)
-        split[name] = _kernels(torch, fn, flush)
+        res[name] = timer(fn, args.reps)
+        split[name] = timer.kernels(fn)
 
     D = 65_536
     bits = torch.randint(0, 2**32, (D + 2,), generator=g, device="cuda")
@@ -92,10 +69,7 @@ def main(argv=None) -> int:
                                 * (torch.clamp(kb, max=Db) + 1)).long(), 0)
         bb = torch.randint(0, 2**32, (T, Db + 2), generator=g, device="cuda")
         run(f"bank T={T} L={L}", lambda: ops.swap_delete(L, tb, kb, bb, Db))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": smi, "source": ops.__file__, "ms": res,
+    print(json.dumps({"card": helper.card(), "source": ops.__file__, "ms": res,
                       "kernel_ms": split}))
     return 0
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the fused TBS-step payload pass (B1)."""
+"""Plain PyTorch versions of the fused TBS-step payload passes (B1, B3)."""
 from __future__ import annotations
 
 import torch
@@ -35,6 +35,18 @@ def subbatches_ref(payload: torch.Tensor, order: torch.Tensor,
     j = torch.arange(bcap, dtype=torch.int64, device=order.device)
     idx = (starts.to(torch.int64).unsqueeze(-1) + j).clamp(0, b - 1)
     return payload[order.to(torch.int64)][idx]
+
+
+def banked_write_mask(src: torch.Tensor, cap: int) -> torch.Tensor:
+    """The slots a tick map must write, [..., cap] bool for ``src``
+    [..., cap]: a slot whose source is a batch row (``src >= cap``), or
+    another slot of the reservoir once ``src`` is clamped into [0, cap).
+    A slot whose clamped source is itself (``src[i] == i``, or
+    ``src[0] < 0``) keeps its row. B3 writes these slots of the touched
+    keys and nothing else; the bound in ``chip_smoke.py`` counts them."""
+    s = src.to(torch.int64)
+    i = torch.arange(s.shape[-1], device=s.device)
+    return (s >= cap) | (s.clamp(0, cap - 1) != i)
 
 
 def banked_ref(bank: torch.Tensor, payload: torch.Tensor, src: torch.Tensor,

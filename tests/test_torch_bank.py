@@ -177,14 +177,15 @@ def test_subbatches_equal_jax(case):
 # ---------------------------------------------------------------------------
 # B3's plain composition against JAX's
 # ---------------------------------------------------------------------------
-def _jax_banked(bank, payload, src, keys, bcount, K, bcap):
-    """The JAX bank's payload scope (bank.py:339-346), interpret route."""
+def _jax_banked(bank, payload, src, keys, bcount, K, bcap, impl="interpret"):
+    """The JAX bank's payload scope (bank.py:339-346), interpret route (or
+    ``impl="ref"``, whose gathers clamp an out-of-range ``src`` where the
+    kernel's one-hot rows select nothing)."""
     r = j_route(jnp.asarray(keys), jnp.int32(bcount), num_keys=K, bcap=bcap)
     sub = j_subbatches(r, jnp.asarray(payload), bcap=bcap)
     idx = jnp.minimum(r.touched, K - 1)
     items_t = jl.gather(jnp.asarray(bank), idx)
-    out = jts_ops.tbs_step_apply_banked(items_t, sub, jnp.asarray(src),
-                                        impl="interpret")
+    out = jts_ops.tbs_step_apply_banked(items_t, sub, jnp.asarray(src), impl=impl)
     return np.asarray(jnp.asarray(bank).at[r.touched].set(out, mode="drop"))
 
 
@@ -219,6 +220,51 @@ def test_banked_plain_composition_equals_jax(K, b, cap, bcap, D, dtype):
         bcap=bcap)
     np.testing.assert_array_equal(got.numpy(), want)
     assert ts_ops.tbs_step_apply_banked.launches == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_banked_pass_writes_only_the_write_mask(seed):
+    """Exact: ``ref.banked_write_mask`` marks a slot unless its clamped
+    source is itself, and the plain composition (like JAX's, which it
+    equals here) leaves every slot outside it, and every key not touched,
+    bit-unchanged: self-copies, ``src < 0`` at slot 0, ``src >= cap +
+    bcap``, out-of-range keys and routing rows past ``ntouched``. JAX's
+    composition is its ``impl="ref"`` route where ``src`` leaves [0, cap +
+    bcap) (the kernel's one-hot rows select nothing there), its interpret
+    route on the same map with those entries brought into range."""
+    from repro_torch.kernels.tbs_step import ref as ts_ref
+
+    rs = np.random.RandomState(seed)
+    K, b, cap, bcap, D = 12, 24, 9, 4, 2
+    bank = rs.randn(K, cap, D).astype(np.float32)
+    payload = rs.randn(b, D).astype(np.float32)
+    keys = rs.randint(-2, K + 3, size=b).astype(np.int32)
+    bcount = b - 4
+    src = rs.randint(-3, cap + bcap + 4, size=(b, cap)).astype(np.int32)
+    src = np.where(rs.rand(b, cap) < 0.6, np.arange(cap, dtype=np.int32), src)
+    src[::2, 0] = -2                     # reads slot 0: a self-copy at slot 0
+    src[1::2, 0] = 5                     # a move into slot 0
+    src[::3, -1] = cap + bcap + 5        # clamps to the last batch slot
+    mask = ts_ref.banked_write_mask(torch.from_numpy(src), cap).numpy()
+    slot = np.arange(cap)
+    np.testing.assert_array_equal(mask, (src >= cap) | (np.clip(src, 0, cap - 1) != slot))
+    assert not mask[::2, 0].any() and mask[1::2, 0].all() and mask[::3, -1].all()
+    assert not mask[src == slot].any()
+
+    r = route(torch.from_numpy(keys), bcount, num_keys=K, bcap=bcap)
+    for s, impl in ((src, "ref"), (np.clip(src, 0, cap + bcap - 1), "interpret")):
+        got = torch.from_numpy(bank.copy())
+        ts_ops.tbs_step_apply_banked({"a": got}, {"a": torch.from_numpy(payload)},
+                                     torch.from_numpy(s), order=r.order, starts=r.starts,
+                                     touched=r.touched, ntouched=r.ntouched, bcap=bcap)
+        np.testing.assert_array_equal(
+            got.numpy(), _jax_banked(bank, payload, s, keys, bcount, K, bcap, impl), impl)
+        may = np.zeros((K, cap), bool)
+        may[r.touched[: int(r.ntouched)].numpy()] = mask[: int(r.ntouched)]
+        bits, old = got.numpy().view(np.int32), bank.view(np.int32)
+        np.testing.assert_array_equal(bits[~may], old[~may])
+        assert (bits[may] != old[may]).any(axis=-1).mean() > 0.9
+    assert int(r.ntouched) < b and int(r.invalid) > 0   # padded rows, dropped ids
 
 
 # ---------------------------------------------------------------------------

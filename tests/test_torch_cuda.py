@@ -204,7 +204,83 @@ def test_tick_on_card_equals_cpu_and_does_not_sync(dev):
         tick(prng.key(0), 0, sg, model.init(), batch, torch.full((), 64, device=dev))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert kernels.launches()["tbs_step_apply"] == 2
+    assert kernels.launches()["tbs_step_apply"] == 1
+
+
+def _src(kind, shape, cap, bcap, g, dev):
+    """A tick map: "random" over [-3, cap + bcap + 3) (out-of-range entries
+    clamp), or "bank" with about 95 % of the slots their own row."""
+    src = torch.randint(-3, cap + bcap + 3, shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    if kind == "bank":
+        keep = torch.rand(shape, generator=g, device=dev) < 0.95
+        src = torch.where(keep, torch.arange(shape[-1], device=dev, dtype=torch.int32), src)
+    return src
+
+
+# one leaf of each width: 1, 4, 8, 12 and 400 bytes a row
+_MIXED = {"b": ((), torch.int8), "y": ((), torch.float32), "x": ((2,), torch.float32),
+          "w": ((3,), torch.float32), "nb": ((100,), torch.float32)}
+
+
+@pytest.mark.parametrize("kind", ["random", "bank"])
+@pytest.mark.parametrize("T,cap,bcap", [(1, 4099, 300), (2, 1023, 64), (1, 65, 32)])
+def test_tbs_step_mixed_leaves_in_one_launch(dev, kind, T, cap, bcap):
+    """B1 moves a pytree of 1-, 4-, 8-, 12- and 400-byte rows in one launch,
+    bit for bit, at caps that are not a multiple of its 4 rows a thread."""
+    g = torch.Generator(device=dev).manual_seed(cap + T)
+    items = {k: _payload((T, cap) + tail, dt, g, dev) for k, (tail, dt) in _MIXED.items()}
+    batch = {k: _payload((T, bcap) + tail, dt, g, dev) for k, (tail, dt) in _MIXED.items()}
+    src = _src(kind, (T, cap), cap, bcap, g, dev)
+    n0 = ts_ops.tbs_step_apply.launches
+    got = ts_ops.tbs_step_apply(items, batch, src)
+    torch.cuda.synchronize()
+    assert ts_ops.tbs_step_apply.launches == n0 + 1
+    for k in items:
+        want = ts_ref.apply_ref(items[k].reshape(T, cap, -1), batch[k].reshape(T, bcap, -1),
+                                src).reshape(items[k].shape)
+        assert torch.equal(got[k], want), k
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_tbs_step_offset_views(dev, offset):
+    """Views whose storage offset rules out the 16-byte copy (x f32[., 2] at
+    4, 8 or 12 bytes past a 16-byte boundary; y one element in) and a
+    [rows] src that starts off a 16-byte boundary: bit for bit, one launch."""
+    g = torch.Generator(device=dev).manual_seed(offset)
+    cap, bcap = 5003, 77
+    xb = torch.randn(2 * cap + 8, generator=g, device=dev)
+    yb = torch.randn(cap + 8, generator=g, device=dev)
+    items = {"x": xb[offset:offset + 2 * cap].view(cap, 2), "y": yb[offset:offset + cap]}
+    batch = {"x": torch.randn(bcap, 2, generator=g, device=dev),
+             "y": torch.randn(bcap, generator=g, device=dev)}
+    sb = torch.randint(0, cap + bcap, (cap + 4,), generator=g, device=dev, dtype=torch.int32)
+    src = sb[offset:offset + cap]
+    n0 = ts_ops.tbs_step_apply.launches
+    got = ts_ops.tbs_step_apply(items, batch, src)
+    torch.cuda.synchronize()
+    assert ts_ops.tbs_step_apply.launches == n0 + 1
+    for k in items:
+        want = ts_ref.apply_ref(items[k].reshape(1, cap, -1), batch[k].reshape(1, bcap, -1),
+                                src[None]).reshape(items[k].shape)
+        assert torch.equal(got[k], want), k
+
+
+def test_tbs_step_groups_leaves_past_the_table(dev):
+    """More leaves than the kernel's table: one launch per group of them."""
+    from repro_torch.kernels.tbs_step import kernel as ts_kernel
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, cap, bcap = ts_kernel.MAX_LEAVES + 3, 999, 50
+    items = [torch.randn(cap, 1 + i % 3, generator=g, device=dev) for i in range(n)]
+    batch = [torch.randn(bcap, 1 + i % 3, generator=g, device=dev) for i in range(n)]
+    src = torch.randint(0, cap + bcap, (cap,), generator=g, device=dev)
+    n0 = ts_ops.tbs_step_apply.launches
+    got = ts_ops.tbs_step_apply(items, batch, src)
+    torch.cuda.synchronize()
+    assert ts_ops.tbs_step_apply.launches == n0 + 2
+    for a, b, o in zip(items, batch, got):
+        assert torch.equal(o, ts_ref.apply_ref(a[None], b[None], src[None])[0])
 
 
 def _banked_case(dev, K, b, cap, bcap, tail, dtype, seed):
@@ -238,6 +314,39 @@ def test_tbs_step_banked_kernel_equals_plain(dev, K, b, cap, bcap, tail, dtype):
     torch.cuda.synchronize()
     assert ts_ops.tbs_step_apply_banked.launches == n0 + 1
     assert torch.equal(bank, want)
+
+
+@pytest.mark.parametrize("kind", ["random", "bank"])
+@pytest.mark.parametrize("K,b,cap,bcap", [
+    (4096, 2048, 65, 32),    # the bank's cap: groups of 16 lanes
+    (500, 700, 128, 16),     # WARP_CAP: 16 lanes of 8 slots
+    (700, 900, 200, 16),     # past WARP_CAP: a CTA a key, staged
+    (300, 500, 300, 8),      # a CTA a key, staged
+    (64, 100, 1, 4),
+])
+def test_tbs_step_banked_mixed_leaves_in_one_launch(dev, kind, K, b, cap, bcap):
+    """B3 updates a pytree of 1-, 4-, 8-, 12- and 400-byte rows in one
+    launch, bit for bit, on random maps and on bank-like ones (~95 % of the
+    slots their own row), with out-of-range keys and padded routing rows."""
+    from repro_torch.bank import route
+
+    g = torch.Generator(device=dev).manual_seed(cap + b)
+    bank = {k: _payload((K, cap) + tail, dt, g, dev) for k, (tail, dt) in _MIXED.items()}
+    payload = {k: _payload((b,) + tail, dt, g, dev) for k, (tail, dt) in _MIXED.items()}
+    keys = torch.randint(-1, K + 1, (b,), generator=g, device=dev)
+    r = route(keys, b - 5, num_keys=K, bcap=bcap)
+    src = _src(kind, (b, cap), cap, bcap, g, dev)
+    want = {k: v.clone() for k, v in bank.items()}
+    for k, v in want.items():
+        ts_ref.banked_ref(v.view(K, cap, -1), payload[k].reshape(b, -1), src, r.order,
+                          r.starts, r.touched, r.ntouched, bcap)
+    n0 = ts_ops.tbs_step_apply_banked.launches
+    ts_ops.tbs_step_apply_banked(bank, payload, src, order=r.order, starts=r.starts,
+                                 touched=r.touched, ntouched=r.ntouched, bcap=bcap)
+    torch.cuda.synchronize()
+    assert ts_ops.tbs_step_apply_banked.launches == n0 + 1
+    for k in bank:
+        assert torch.equal(bank[k], want[k]), k
 
 
 def test_tbs_step_banked_refuses_a_reservoir_past_shared_memory(dev):
@@ -283,7 +392,7 @@ def test_bank_on_card_equals_cpu_and_does_not_sync(dev):
         tick(prng.key(1), 6, st, p, {f: v[5] for f, v in batches.items()}, bcounts[5])
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert kernels.launches()["tbs_step_apply_banked"] == 2
+    assert kernels.launches()["tbs_step_apply_banked"] == 1
 
 
 # ---------------------------------------------------------------------------

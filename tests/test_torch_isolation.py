@@ -25,7 +25,8 @@ MODULES = [
     "repro_torch.manage.models", "repro_torch.manage.loop",
     "repro_torch.obs.profile", "repro_torch.bank", "repro_torch.bank.routing",
     "repro_torch.bank.bank", "repro_torch.manage.bank_loop",
-    "repro_torch.kernels.tbs_step.ref",
+    "repro_torch.kernels.tbs_step.ref", "repro_torch.kernels.tbs_step.bench",
+    "repro_torch.kernels._bench",
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.flash_attention.kernel", "repro_torch.kernels.flash_attention.ref",
     "repro_torch.config", "repro_torch.configs", "repro_torch.configs.stablelm_12b",

@@ -211,3 +211,93 @@ def test_step_valid_region_holds_distinct_streamed_items():
     assert all(1000 <= g < 1000 * (len(batch_sizes) + 1) for g in got)
     assert len(set(got)) == len(got)
     assert trace["C"].shape == (len(batch_sizes),) and float(trace["C"].max()) <= n
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' leaf tables (B1 and B3 launch once for every leaf)
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("row_bytes,ptrs,vec", [
+    (8, (0, 4096, 8192), 8),          # x f32[., 2]
+    (4, (0, 16, 32), 4),              # y f32[.]
+    (400, (0, 16, 32), 16),           # naive Bayes' f32[., 100]
+    (12, (0, 16, 32), 4),
+    (6, (0, 16, 32), 2),              # bf16[., 3]
+    (3, (0, 16, 32), 1),
+    (1, (0, 16, 32), 1),              # int8 / bool
+    (8, (4, 16, 32), 4),              # an offset view rules out 8 and 16
+    (16, (0, 8, 32), 8),
+    (32, (0, 16, 2), 2),
+    (8, (), 8),                       # no pointer (the CPU path): the row alone
+])
+def test_plan_copy_width(row_bytes, ptrs, vec):
+    """Exact: the widest of 16, 8, 4, 2, 1 bytes dividing the row and every
+    pointer of the leaf."""
+    assert ts_ops.plan([row_bytes], [ptrs]) == [[(0, vec)]]
+
+
+def test_plan_groups_mixed_widths_past_the_table():
+    """Exact: leaves in order, at most the kernel's table a launch; rows of
+    0 bytes are left out; each leaf keeps its own width."""
+    from repro_torch.kernels.tbs_step import kernel as ts_kernel
+
+    widths = [1, 4, 8, 12, 400, 0, 6, 3, 16, 2, 8, 4]
+    ptrs = [(0, 1024, 2048)] * len(widths)
+    groups = ts_ops.plan(widths, ptrs, max_leaves=4)
+    assert [[i for i, _ in g] for g in groups] == [[0, 1, 2, 3], [4, 6, 7, 8], [9, 10, 11]]
+    assert dict(v for g in groups for v in g) == {0: 1, 1: 4, 2: 8, 3: 4, 4: 16, 6: 2,
+                                                  7: 1, 8: 16, 9: 2, 10: 8, 11: 4}
+    n = ts_kernel.MAX_LEAVES
+    assert [len(g) for g in ts_ops.plan([4] * (2 * n + 1), [()] * (2 * n + 1))] == [n, n, 1]
+    assert ts_ops.plan([0, 0], [(), ()]) == []
+
+
+def test_check_leaves_row_bytes_of_mixed_pytrees():
+    """Exact: each leaf's row bytes after its tail and dtype agree."""
+    leaves = [_meta((2, 9)), _meta((2, 9, 2)), _meta((2, 9, 3)), _meta((2, 9, 100)),
+              _meta((2, 9), torch.int8), _meta((2, 9, 3), torch.bfloat16),
+              _meta((2, 9, 0))]
+    others = [_meta((2, 5) + tuple(x.shape[2:]), x.dtype) for x in leaves]
+    assert ts_ops.check_leaves("f", leaves, others, (2, 9), (2, 5)) == [4, 8, 12, 400, 1,
+                                                                       6, 0]
+    bank = [_meta((7, 65)), _meta((7, 65, 2))]
+    pay = [_meta((11,)), _meta((11, 2))]
+    assert ts_ops.check_leaves("g", bank, pay, (7, 65), (11,)) == [4, 8]
+
+
+@pytest.mark.parametrize("leaf,other,lead,other_lead,err", [
+    (((2, 9, 3), torch.float32), ((2, 5, 2), torch.float32), (2, 9), (2, 5), ValueError),
+    (((2, 9, 3), torch.float32), ((2, 5, 3), torch.int32), (2, 9), (2, 5), TypeError),
+    (((3, 9, 3), torch.float32), ((3, 5, 3), torch.float32), (2, 9), (2, 5), ValueError),
+    (((2, 8), torch.float32), ((2, 5), torch.float32), (2, 9), (2, 5), ValueError),
+    (((7, 65, 2), torch.float32), ((12, 2), torch.float32), (7, 65), (11,), ValueError),
+    (((6, 65), torch.float32), ((11,), torch.float32), (7, 65), (11,), ValueError),
+])
+def test_check_leaves_refuses_leaves_that_do_not_agree(leaf, other, lead, other_lead, err):
+    """A leaf whose lead dims, tail or dtype disagree with its partner's (or
+    with the table's, e.g. another cap or K) is refused on the host."""
+    ok = (_meta((2, 9)), _meta((2, 5))) if len(lead) == 2 and lead[0] == 2 else \
+        (_meta(lead), _meta(other_lead))
+    with pytest.raises(err, match="leaf 1"):
+        ts_ops.check_leaves("f", [ok[0], _meta(*leaf)], [ok[1], _meta(*other)], lead,
+                            other_lead)
+
+
+def test_apply_refuses_pytrees_that_do_not_agree():
+    """B1's wrapper refuses, before any work, batch leaves of another tail,
+    dtype or pytree structure, and leaves of another cap than the first."""
+    cap, bcap = 8, 3
+    src = torch.arange(cap)
+    with pytest.raises(ValueError, match="tbs_step_apply"):
+        ts_ops.tbs_step_apply({"x": torch.zeros(cap, 2)}, {"x": torch.zeros(bcap, 3)}, src)
+    with pytest.raises(TypeError, match="tbs_step_apply"):
+        ts_ops.tbs_step_apply({"x": torch.zeros(cap)},
+                              {"x": torch.zeros(bcap, dtype=torch.int32)}, src)
+    with pytest.raises(ValueError, match="differ"):
+        ts_ops.tbs_step_apply({"x": torch.zeros(cap)}, {"z": torch.zeros(bcap)}, src)
+    with pytest.raises(ValueError, match="leaf 1"):
+        ts_ops.tbs_step_apply([torch.zeros(cap), torch.zeros(cap + 1)],
+                              [torch.zeros(bcap), torch.zeros(bcap)], src)
