@@ -17,7 +17,9 @@ the JAX package. Every check raises on failure; no phase catches its own.
   2. kernels B1 (tbs_step_apply), B2 (reservoir_compact) and H1
      (swap_delete) against their plain versions at the main path's shapes,
      with CUDA-event times, the memory bound and, for B1, one
-     ``torch.index_select`` as the library yardstick; B1 per dtype, every
+     ``torch.index_select`` as the library yardstick (for B2, ``items[mask]``);
+     B2 on the main path's x + y leaves in one launch on a uniform, a
+     prefix and a block-sparse mask; B1 per dtype, every
      dtype as one pytree in one launch, and the main tick's x + y leaves in
      one launch, timed beside the single-launch bound and a ``copy_`` of
      the same bytes; H1 at L = 2^20 with
@@ -25,7 +27,7 @@ the JAX package. Every check raises on failure; no phase catches its own.
      65,536 rows of L = 65 and 97 (its rows route), with launches by route;
   3. the main path at cap = 2^20: branch schedule, W recurrence, launch
      counts (B1 once a tick), a tick under ``set_sync_debug_mode("error")``, B2 through
-     ``materialize_view``, ticks per second and a profiled tick;
+     ``materialize_view`` (one launch), ticks per second and a profiled tick;
   4. the same path at cap = 4096 on the card and on the CPU: bit for bit;
   5. naive_bayes on a 100-word bag-of-words stream;
   6. the keyed bank (``make_bank`` / ``make_bank_run_loop``) at K = 2^20
@@ -93,9 +95,9 @@ _HBM = [("H200", 4.8e12, "H200 SXM spec sheet, 4.8 TB/s"),
 N_MAIN, BCAP_MAIN, LAM = 1_048_575, 65_536, 0.03
 RETRAIN_EVERY = 4
 
-# B1 and B3 on x + y before their one-launch designs (a launch per leaf):
-# this script's phases 2 and 6 on an NVIDIA H100 80GB HBM3 at 700 W
-B1_BEFORE_MS, B3_BEFORE_MS = 0.0351, 0.0506
+# B1, B3 and B2 on x + y before their one-launch designs (a launch per
+# leaf): this script's phases 2 and 6 on an NVIDIA H100 80GB HBM3 at 700 W
+B1_BEFORE_MS, B3_BEFORE_MS, B2_BEFORE_MS = 0.0351, 0.0506, 0.0482
 
 
 def check(cond, msg: str) -> None:
@@ -221,27 +223,58 @@ def phase_kernels(torch, timer, bw, reps):
               copy_ms=copy_ms)
     del got, want, cats, yard_a, yard_b
 
-    # B2 at the same cap, scattered mask; the main path's two leaves
-    mask = torch.rand((cap,), generator=g, device="cuda") < 0.6
-    b2 = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0, err=0.0)
-    for name, tail in (("f32[.,2]", (2,)), ("f32[.]", ())):
-        items = torch.randn((cap,) + tail, generator=g, device="cuda")
+    # B2 on the main path's x + y leaves in one call (one launch): on a
+    # uniform mask, on a realized sample's prefix (materialize_view's mask on
+    # the main path) and on a block-sparse mask of 8 shard prefixes (the
+    # distributed global view's)
+    from repro_torch.kernels.reservoir_compact.bench import bound_bytes, case_mask
+
+    items = {"x": torch.randn((cap, 2), generator=g, device="cuda"),
+             "y": torch.randn((cap,), generator=g, device="cuda")}
+    once = (2 * 12 * cap + cap) / bw * 1e3        # every row read, the mask once
+    per_leaf = sum((2 * rb * cap + cap) / bw * 1e3 for rb in (8, 4))
+    b2 = None
+    for kind in ("uniform", "prefix", "block"):
+        mask = (torch.rand((cap,), generator=g, device="cuda") < 0.6 if kind == "uniform"
+                else case_mask(kind, cap, g))
+        n0 = rc_ops.reservoir_compact.launches
         got, cnt = rc_ops.reservoir_compact(items, mask)
-        want, wcnt = rc_ref.compact_ref(items.reshape(cap, -1), mask)
         torch.cuda.synchronize()
-        check(int(cnt) == int(wcnt) == int(mask.sum()), "B2 count differs")
-        check(torch.equal(got, want.reshape(items.shape)), f"B2 {name} items differ")
-        check(torch.equal(got[: int(cnt)], items[mask]), f"B2 {name} != items[mask]")
-        b2["err"] = max(b2["err"], max_abs_err(torch, got, want.reshape(items.shape)))
-        row_b = items[0].numel() * 4
-        nbytes = 2 * cap * row_b + cap + 4
+        check(rc_ops.reservoir_compact.launches == n0 + 1, f"B2 x + y ({kind}) not in one launch")
+        kept = int(mask.sum())
+        check(cnt.dtype == torch.int32 and int(cnt) == kept, f"B2 count differs ({kind})")
+        err = 0.0
+        for f in items:
+            want, wcnt = rc_ref.compact_ref(items[f].reshape(cap, -1), mask)
+            want = want.reshape(items[f].shape)
+            check(int(wcnt) == kept and torch.equal(got[f], want),
+                  f"B2 {f} ({kind}) differs from compact_ref")
+            check(torch.equal(got[f][:kept], items[f][mask]), f"B2 {f} ({kind}) != items[mask]")
+            err = max(err, max_abs_err(torch, got[f], want))
         ms = timer(lambda: rc_ops.reservoir_compact(items, mask), reps)
-        plain = timer(lambda: rc_ref.compact_ref(items.reshape(cap, -1), mask), reps)
-        b2["ms"] += ms
-        b2["plain_ms"] += plain
-        b2["bound_ms"] += nbytes / bw * 1e3
-        print(f"[2] B2 reservoir_compact {name:10s} items and count exact  kernel "
-              f"{ms:.4f} ms  plain {plain:.4f} ms  bound {nbytes / bw * 1e3:.4f} ms")
+        plain = timer(lambda: [rc_ref.compact_ref(items[f].reshape(cap, -1), mask)
+                               for f in items], reps)
+        lib = timer(lambda: (items["x"][mask], items["y"][mask]), reps)
+        nbytes = bound_bytes([8, 4], mask)
+        bound = nbytes / bw * 1e3
+        yard_a = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+        yard_b = torch.empty_like(yard_a)
+        copy_ms = timer(lambda: yard_b.copy_(yard_a), reps)
+        del yard_a, yard_b
+        print(f"[2] B2 reservoir_compact x + y in one launch, {kind} mask ({kept} of {cap} "
+              f"kept): exact vs compact_ref and items[mask]  kernel {ms:.4f} ms "
+              f"({B2_BEFORE_MS} before, a launch per leaf)  bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.2f} MB: mask once, sectors of kept rows, whole output; "
+              f"every row read {once:.4f}, the per-leaf bounds summed {per_leaf:.4f})  "
+              f"plain {plain:.4f} ms  items[mask] x + y {lib:.4f} ms (packed rows only, "
+              f"with its host sync)  copy_ of the bound's bytes {copy_ms:.4f} ms "
+              f"(yardstick); kernel = {ms / bound:.2f}x its bound")
+        if kind == "uniform":
+            b2 = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, err=err,
+                      copy_ms=copy_ms,
+                      bound_counts="the mask once; per leaf the 32-byte sectors that hold a "
+                                   "kept row, and the whole output")
+    del items, got
 
     # H1 on the main path's maps (L = cap, D = bcap words: the forest route)
     # at 4,096 to 65,536 trips, and at the bank's shape (the rows route)
@@ -372,7 +405,8 @@ def phase_main(torch, np, kernels, timer, bw, reps):
     check(launches["swap_delete"] >= T, "H1 not launched on every tick")
     check(sd_ops.swap_delete.forest_launches == launches["swap_delete"],
           "H1 left its forest route on the main path")
-    check(launches["reservoir_compact"] == 2, "B2 not launched by materialize_view")
+    check(launches["reservoir_compact"] == 1,
+          "B2 not launched once (x + y in one launch) by materialize_view")
     print(f"[3] H1 launches by route: forest {sd_ops.swap_delete.forest_launches}, "
           f"rows {launches['swap_delete'] - sd_ops.swap_delete.forest_launches}")
 
@@ -1640,6 +1674,8 @@ def main() -> int:
                      "library_ms": r["library_ms"]})
         if "shapes" in r:
             rows[-1]["shapes"] = r["shapes"]
+        if "bound_counts" in r:         # B2's row: what its byte bound counts
+            rows[-1]["bound_counts"] = r["bound_counts"]
         if "main_tick_map_ms" in r:     # B1's row: ms is phase 2's uniform map
             rows[-1]["main_tick_map_ms"] = r["main_tick_map_ms"]
     # B4's f32 calls build from their own source; the row's numbers are the

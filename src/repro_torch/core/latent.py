@@ -118,8 +118,9 @@ def realize(u: torch.Tensor, lat: Latent):
 
 def compact_items(items: Any, mask: torch.Tensor) -> Any:
     """Tree-wide stable pack of the masked rows to the buffer head through
-    the reservoir_compact kernel (B2); rows past ``mask.sum()`` are zero."""
-    return pytree.tree_map(lambda a: rc_ops.reservoir_compact(a, mask)[0], items)
+    the reservoir_compact kernel (B2), one launch for every leaf; rows past
+    ``mask.sum()`` are zero."""
+    return rc_ops.reservoir_compact(items, mask)[0]
 
 
 def realize_compact(u: torch.Tensor, lat: Latent):

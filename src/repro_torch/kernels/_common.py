@@ -1,7 +1,16 @@
-"""Checks and views shared by the kernel wrappers."""
+"""Checks and views shared by the kernel wrappers, and the leaf tables of
+the payload kernels (B1, B2, B3): :func:`check_leaves` and :func:`plan`
+are the wrappers' host-side decisions as pure functions, which leaves
+agree and how they are grouped into tables with which copy widths."""
 from __future__ import annotations
 
+import math
+
 import torch
+
+# the leaf table the payload kernels take by value (csrc/tbs_step*.cu's and
+# csrc/reservoir_compact.cu's MAX_LEAVES): past it, one launch a group
+MAX_LEAVES = 8
 
 
 def check_cuda(what: str, *tensors: torch.Tensor) -> None:
@@ -31,6 +40,39 @@ def vector_width_of(row_bytes: int, addrs) -> int:
         if row_bytes % v == 0 and all(a % v == 0 for a in addrs):
             return v
     return 1
+
+
+def check_leaves(what: str, leaves, others, lead: tuple, other_lead: tuple) -> list[int]:
+    """Each leaf's row bytes, after checking every pair agrees: ``leaves[l]``
+    is ``lead + tail``, ``others[l]`` is ``other_lead + tail`` with the same
+    tail, and both have one dtype. Raises ValueError (shapes) or TypeError
+    (dtypes) naming ``what`` and the leaf."""
+    if len(leaves) != len(others):
+        raise ValueError(f"{what}: {len(leaves)} leaves against {len(others)}")
+    out = []
+    for i, (a, b) in enumerate(zip(leaves, others)):
+        n, m = len(lead), len(other_lead)
+        if (tuple(a.shape[:n]) != tuple(lead) or tuple(b.shape[:m]) != tuple(other_lead)
+                or a.shape[n:] != b.shape[m:]):
+            raise ValueError(f"{what}: leaf {i} of shape {tuple(a.shape)} and its "
+                             f"partner {tuple(b.shape)} do not agree (want "
+                             f"{list(lead)} + tail and {list(other_lead)} + tail)")
+        if a.dtype != b.dtype:
+            raise TypeError(f"{what}: leaf {i} is {a.dtype}, its partner {b.dtype}")
+        out.append(math.prod(a.shape[n:]) * a.element_size())
+    return out
+
+
+def plan(row_bytes: list[int], ptrs: list[tuple[int, ...]],
+         max_leaves: int = MAX_LEAVES) -> list[list[tuple[int, int]]]:
+    """The leaf tables of the launches: groups of at most ``max_leaves``
+    ``(leaf index, copy width)`` in leaf order, the width the widest of 16,
+    8, 4, 2 and 1 bytes dividing the leaf's row bytes and each of its
+    pointers (``ptrs[l]``, addresses). Leaves of 0 bytes a row move
+    nothing and are left out."""
+    table = [(i, vector_width_of(rb, p))
+             for i, (rb, p) in enumerate(zip(row_bytes, ptrs)) if rb > 0]
+    return [table[k:k + max_leaves] for k in range(0, len(table), max_leaves)]
 
 
 # TMA's rules for a tensor map: a 16-byte-aligned base, and every stride a

@@ -39,7 +39,7 @@
 
 namespace {
 
-constexpr int MAX_LEAVES = 8;        // kernel.MAX_LEAVES
+constexpr int MAX_LEAVES = 8;        // _common.MAX_LEAVES
 constexpr int ROWS = 4;              // rows a lane, for one-word rows of <= 8 bytes
 constexpr int WORDS = 4;             // words a thread, for every other row
 constexpr int THREADS = 256;

@@ -60,7 +60,7 @@
 
 namespace {
 
-constexpr int MAX_LEAVES = 8;        // kernel.MAX_LEAVES
+constexpr int MAX_LEAVES = 8;        // _common.MAX_LEAVES
 constexpr int WARP_CAP = 128;        // kernel.WARP_CAP: 16 lanes x 8 slots
 constexpr int G = 16;                // lanes a touched row
 constexpr int MAX_DEVICES = 64;

@@ -1,37 +1,74 @@
 """Wrapper of reservoir compaction (B2): stable pack of the masked rows to the
 buffer head, zeros past the count, the count left on the device.
 
-On a CUDA tensor it launches the hand-written kernels
+On a CUDA tensor it launches the hand-written kernel
 (``csrc/reservoir_compact.cu``) or raises; the plain version in :mod:`.ref`
-runs only for CPU tensors. ``reservoir_compact.launches`` counts launches.
+runs only for CPU tensors. Every item leaf of a sample moves in one launch
+against the one mask (one for each group of
+:data:`~.._common.MAX_LEAVES` leaves past that), so a materialization is
+one launch. ``reservoir_compact.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import _common
 from . import kernel, ref
 
 
-def reservoir_compact(items: torch.Tensor, mask: torch.Tensor):
-    """items [cap, ...]; mask [cap] bool -> (compacted [cap, ...], count
-    int32 0-d tensor). Any dtype and trailing shape; bit-exact."""
-    cap = items.shape[0]
-    flat = items.reshape(cap, -1)
-    if items.device.type == "cpu":
-        out, cnt = ref.compact_ref(flat, mask)
-        return out.reshape(items.shape), cnt
-    _common.check_cuda("reservoir_compact", items, mask)
-    if mask.dtype != torch.bool or mask.shape != (cap,):
-        raise ValueError(f"reservoir_compact: mask must be bool [{cap}], "
+def reservoir_compact(items, mask: torch.Tensor):
+    """items: a tensor [cap, ...] or a pytree of them (any dtypes and
+    trailing shapes); mask [cap] bool -> (the same structure compacted:
+    each leaf's kept rows packed in order to [0, count), zeros after;
+    count, an int32 0-d tensor on the mask's device). Bit-exact; the count
+    is never read on the host."""
+    if mask.dtype != torch.bool or mask.dim() != 1:
+        raise ValueError(f"reservoir_compact: mask must be bool [cap], "
                          f"got {mask.dtype} {tuple(mask.shape)}")
-    items_b = _common.as_bytes(flat)
-    out = torch.empty_like(items_b)
-    count = torch.empty((), dtype=torch.int32, device=items.device)
-    vec = _common.vector_width(items_b.shape[1], items_b, out)
-    kernel.compact(items_b, mask.contiguous(), out, count, vec)
-    reservoir_compact.launches += 1
-    return out.view(items.dtype).reshape(items.shape), count
+    cap = mask.shape[0]
+    leaves, spec = pytree.tree_flatten(items)
+    row_bytes = _common.check_leaves("reservoir_compact", leaves, leaves, (cap,), (cap,))
+    if all(t.device.type == "cpu" for t in (mask, *leaves)):
+        outs = [ref.compact_ref(x.reshape(cap, rb // x.element_size()), mask)[0]
+                .reshape(x.shape) for x, rb in zip(leaves, row_bytes)]
+        return pytree.tree_unflatten(outs, spec), mask.sum(dtype=torch.int32)
+    _common.check_cuda("reservoir_compact", mask, *leaves)
+    if cap >= 2**31:
+        raise ValueError(f"reservoir_compact: cap = {cap} must be below 2^31 "
+                         f"(the count is an int32)")
+    # the kernel reads and writes raw bytes: contiguous leaves, the outputs
+    # made in the leaves' own dtypes and shapes
+    xs = [x.contiguous() for x in leaves]
+    outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in xs]
+    if cap == 0:
+        return pytree.tree_unflatten(outs, spec), torch.zeros((), dtype=torch.int32,
+                                                              device=mask.device)
+    count = torch.empty((), dtype=torch.int32, device=mask.device)
+    m = mask.contiguous()
+    # leaves of 0 bytes a row move nothing; with none left, one launch
+    # still writes the count
+    groups = plan(row_bytes, [(x.data_ptr(), o.data_ptr()) for x, o in zip(xs, outs)]) or [[]]
+    for g in groups:
+        kernel.compact([xs[i] for i, _ in g], [outs[i] for i, _ in g],
+                       [row_bytes[i] for i, _ in g], [v for _, v in g], m, count)
+        reservoir_compact.launches += 1
+    return pytree.tree_unflatten(outs, spec), count
 
 
 reservoir_compact.launches = 0
+
+
+def plan(row_bytes: list[int], ptrs: list[tuple[int, ...]]) -> list[list[tuple[int, int]]]:
+    """The launches' leaf tables (:func:`.._common.plan`), after refusing
+    a leaf of :data:`.kernel.MAX_ROW_WORDS` copy words a row or more, which
+    the kernel cannot index (a row of 512 KiB at 1-byte words, 8 MiB at
+    16-byte words), with a ValueError."""
+    groups = _common.plan(row_bytes, ptrs)
+    for g in groups:
+        for i, v in g:
+            if row_bytes[i] // v >= kernel.MAX_ROW_WORDS:
+                raise ValueError(f"reservoir_compact: leaf {i} has {row_bytes[i]} bytes a row "
+                                 f"in {row_bytes[i] // v} words of {v}; the kernel takes "
+                                 f"below {kernel.MAX_ROW_WORDS} words a row")
+    return groups

@@ -10,14 +10,13 @@ import functools
 import torch
 
 from .. import _build
+from .._common import MAX_LEAVES  # noqa: F401  (the leaf table, shared with B2)
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _PVP, _PLL, _PINT = (ctypes.POINTER(t) for t in (_VP, _LL, _INT))
 
-# the leaf table of both kernels (csrc/tbs_step*.cu's MAX_LEAVES), and the
-# largest cap B3 gives to a group of 16 lanes (its WARP_CAP; larger caps take
-# a CTA a key, staged in shared memory)
-MAX_LEAVES = 8
+# the largest cap B3 gives to a group of 16 lanes (its WARP_CAP; larger caps
+# take a CTA a key, staged in shared memory)
 WARP_CAP = 128
 
 

@@ -6,56 +6,23 @@ On a CUDA tensor each launches its hand-written kernel
 (``csrc/tbs_step.cu``, ``csrc/tbs_step_banked.cu``) or raises; there is no
 fallback. The plain versions in :mod:`.ref` run only for CPU tensors. Each
 call is one launch for every item leaf of the pytree (one for each group
-of :data:`~.kernel.MAX_LEAVES` leaves past that): one a tick on the main
+of :data:`~.._common.MAX_LEAVES` leaves past that): one a tick on the main
 path and one a bank tick. ``tbs_step_apply.launches`` and
 ``tbs_step_apply_banked.launches`` count kernel launches.
 
-:func:`check_leaves` and :func:`plan` are the wrappers' host-side
-decisions as pure functions: which leaves agree, and how they are grouped
-into leaf tables with which copy widths.
+:func:`check_leaves` and :func:`plan` (from :mod:`.._common`, shared with
+B2's wrapper) are the wrappers' host-side decisions as pure functions:
+which leaves agree, and how they are grouped into leaf tables with which
+copy widths.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 from torch.utils import _pytree as pytree
 
 from .. import _common
+from .._common import check_leaves, plan
 from . import kernel, ref
-
-
-def check_leaves(what: str, leaves, others, lead: tuple, other_lead: tuple) -> list[int]:
-    """Each leaf's row bytes, after checking every pair agrees: ``leaves[l]``
-    is ``lead + tail``, ``others[l]`` is ``other_lead + tail`` with the same
-    tail, and both have one dtype. Raises ValueError (shapes) or TypeError
-    (dtypes) naming ``what`` and the leaf."""
-    if len(leaves) != len(others):
-        raise ValueError(f"{what}: {len(leaves)} leaves against {len(others)}")
-    out = []
-    for i, (a, b) in enumerate(zip(leaves, others)):
-        n, m = len(lead), len(other_lead)
-        if (tuple(a.shape[:n]) != tuple(lead) or tuple(b.shape[:m]) != tuple(other_lead)
-                or a.shape[n:] != b.shape[m:]):
-            raise ValueError(f"{what}: leaf {i} of shape {tuple(a.shape)} and its "
-                             f"partner {tuple(b.shape)} do not agree (want "
-                             f"{list(lead)} + tail and {list(other_lead)} + tail)")
-        if a.dtype != b.dtype:
-            raise TypeError(f"{what}: leaf {i} is {a.dtype}, its partner {b.dtype}")
-        out.append(math.prod(a.shape[n:]) * a.element_size())
-    return out
-
-
-def plan(row_bytes: list[int], ptrs: list[tuple[int, ...]],
-         max_leaves: int = kernel.MAX_LEAVES) -> list[list[tuple[int, int]]]:
-    """The leaf tables of the launches: groups of at most ``max_leaves``
-    ``(leaf index, copy width)`` in leaf order, the width the widest of 16,
-    8, 4, 2 and 1 bytes dividing the leaf's row bytes and each of its
-    pointers (``ptrs[l]``, addresses). Leaves of 0 bytes a row move
-    nothing and are left out."""
-    table = [(i, _common.vector_width_of(rb, p))
-             for i, (rb, p) in enumerate(zip(row_bytes, ptrs)) if rb > 0]
-    return [table[k:k + max_leaves] for k in range(0, len(table), max_leaves)]
 
 
 def tbs_step_apply(items, batch_items, src: torch.Tensor):

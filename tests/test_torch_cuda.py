@@ -59,20 +59,146 @@ def test_tbs_step_kernel_equals_plain(dev, T, cap, bcap, tail, dtype):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("cap,tail,dtype,p", [
-    (1, (2,), torch.float32, 1.0), (1023, (), torch.float32, 0.5),
-    (1025, (3,), torch.int8, 0.3), (5000, (2,), torch.bfloat16, 0.9),
-    (70_000, (), torch.int32, 0.01), (4096, (100,), torch.float32, 0.0),
-])
-def test_reservoir_compact_kernel_equals_plain(dev, cap, tail, dtype, p):
-    g = torch.Generator(device=dev).manual_seed(cap)
-    items = _payload((cap,) + tail, dtype, g, dev)
-    mask = torch.rand((cap,), generator=g, device=dev) < p
+# the leaves of one call: the main path's x + y, then every row kind at once
+# (1, 2, 3, 4, 8, 40 and 400 bytes; one-word rows and groups of threads)
+RC_LEAVES = {
+    "xy": {"x": ((2,), torch.float32), "y": ((), torch.float32)},
+    "mixed": {"x": ((2,), torch.float32), "y": ((), torch.float32), "i8": ((3,), torch.int8),
+              "bf16": ((), torch.bfloat16), "bool": ((), torch.bool),
+              "i64": ((5,), torch.int64), "wide": ((100,), torch.float32)},
+}
+
+
+def _check_compact(items, mask, launches=1):
+    """One wrapper call on a pytree against ``compact_ref`` leaf by leaf and
+    ``items[mask]``, bit for bit, with its count of launches."""
+    n0 = rc_ops.reservoir_compact.launches
     got, cnt = rc_ops.reservoir_compact(items, mask)
-    want, wcnt = rc_ref.compact_ref(items.reshape(cap, -1), mask)
     torch.cuda.synchronize()
-    assert cnt.dtype == torch.int32 and int(cnt) == int(wcnt) == int(mask.sum())
-    assert torch.equal(got, want.reshape(items.shape))
+    assert rc_ops.reservoir_compact.launches == n0 + launches
+    kept = int(mask.sum())
+    assert cnt.dtype == torch.int32 and cnt.device == mask.device and int(cnt) == kept
+    for k in items:
+        want, wcnt = rc_ref.compact_ref(items[k].reshape(mask.shape[0], -1), mask)
+        assert int(wcnt) == kept
+        assert torch.equal(got[k], want.reshape(items[k].shape)), k
+        assert torch.equal(got[k][:kept], items[k][mask]), k
+
+
+@pytest.mark.parametrize("kind", ["uniform", "prefix", "block", "none", "all"])
+@pytest.mark.parametrize("cap,leaves", [
+    (1, "mixed"), (1023, "mixed"), (1025, "mixed"),
+    (70_001, "mixed"),                     # not a multiple of a CTA's span
+    (2**20 + 1, "xy"),                     # the main path's sample
+    (2**21 + 3, "mixed"),                  # spans of two chunks, the last one partial
+])
+def test_reservoir_compact_kernel_equals_plain(dev, cap, leaves, kind):
+    """Every leaf of the sample in one launch, on the callers' masks and the
+    edges p = 0 and p = 1."""
+    from repro_torch.kernels.reservoir_compact.bench import case_mask
+
+    g = torch.Generator(device=dev).manual_seed(cap)
+    items = {k: _payload((cap,) + tail, dt, g, dev) for k, (tail, dt) in RC_LEAVES[leaves].items()}
+    _check_compact(items, case_mask(kind, cap, g))
+
+
+def test_reservoir_compact_wide_rows_at_full_size(dev):
+    """Naive Bayes' 400-byte rows, f32[2^20, 100] alone, on a uniform mask:
+    25 16-byte words a row, a thread a word."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    cap = 1 << 20
+    x = torch.randn(cap, 100, generator=g, device=dev)
+    mask = torch.rand(cap, generator=g, device=dev) < 0.6
+    n0 = rc_ops.reservoir_compact.launches
+    got, cnt = rc_ops.reservoir_compact(x, mask)
+    torch.cuda.synchronize()
+    assert rc_ops.reservoir_compact.launches == n0 + 1
+    kept = int(mask.sum())
+    assert int(cnt) == kept
+    assert torch.equal(got[:kept], x[mask]) and not got[kept:].any()
+
+
+def test_reservoir_compact_widest_rows_and_the_refusal_past_them(dev):
+    """Rows of just under kernel.MAX_ROW_WORDS copy words (1-byte words)
+    move bit for bit; a row of as many words as the limit raises before
+    any launch."""
+    from repro_torch.kernels.reservoir_compact import kernel as rc_kernel
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    n = rc_kernel.MAX_ROW_WORDS
+    items = {"x": torch.randint(0, 255, (3, n - 1), generator=g, device=dev, dtype=torch.uint8),
+             "y": torch.randn(3, generator=g, device=dev)}
+    _check_compact(items, torch.tensor([True, False, True], device=dev))
+    n0 = rc_ops.reservoir_compact.launches
+    with pytest.raises(ValueError, match="words a row"):
+        rc_ops.reservoir_compact(torch.zeros(2, 4 * n, device=dev),
+                                 torch.ones(2, dtype=torch.bool, device=dev))
+    assert rc_ops.reservoir_compact.launches == n0
+
+
+def test_reservoir_compact_groups_leaves_past_the_table(dev):
+    """More leaves than the kernel's table, of mixed widths: one launch per
+    group of them, each leaf bit for bit."""
+    from repro_torch.kernels import _common
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    cap, n = 4099, _common.MAX_LEAVES + 3
+    items = {f"l{i}": _payload((cap,) + ((), (2,), (3,), (100,))[i % 4],
+                               (torch.float32, torch.int8, torch.bfloat16)[i % 3], g, dev)
+             for i in range(n)}
+    _check_compact(items, torch.rand(cap, generator=g, device=dev) < 0.3, launches=2)
+
+
+def test_reservoir_compact_offset_views_and_strided_leaves(dev):
+    """Leaves at offsets that rule out wide copy words, and a transposed
+    (non-contiguous) leaf, against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    cap = 3001
+    base = torch.randn(cap * 4 + 3, generator=g, device=dev)
+    items = {"odd": base[1:1 + cap * 2].view(cap, 2), "off4": base[3:3 + cap],
+             "t": torch.randn(2, cap, generator=g, device=dev).t(),
+             "u8": torch.randint(0, 255, (cap + 1, 5), generator=g, device=dev,
+                                 dtype=torch.uint8)[1:]}
+    _check_compact(items, torch.rand(cap, generator=g, device=dev) < 0.5)
+
+
+def test_reservoir_compact_count_alone_and_side_stream(dev):
+    """With no bytes to move (an empty tree, rows of 0 bytes) one launch
+    still writes the count; a call on another stream is right too (its own
+    scratch)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    mask = torch.rand(5000, generator=g, device=dev) < 0.4
+    for items in ({}, {"empty": torch.zeros(5000, 0, device=dev)}):
+        n0 = rc_ops.reservoir_compact.launches
+        out, cnt = rc_ops.reservoir_compact(items, mask)
+        torch.cuda.synchronize()
+        assert rc_ops.reservoir_compact.launches == n0 + 1 and int(cnt) == int(mask.sum())
+    side = torch.cuda.Stream()
+    items = {"x": torch.randn(5000, 2, generator=g, device=dev)}
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        _check_compact(items, mask)
+
+
+def test_reservoir_compact_without_host_sync(dev):
+    """A materialization of the main path's x + y makes no host sync."""
+    from repro_torch.core import latent
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    cap = 2**20 + 1
+    items = {"x": torch.randn(cap, 2, generator=g, device=dev),
+             "y": torch.randn(cap, generator=g, device=dev)}
+    mask = torch.rand(cap, generator=g, device=dev) < 0.6
+    latent.compact_items(items, mask)          # built and scratch made outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = latent.compact_items(items, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for k in items:
+        want, _ = rc_ref.compact_ref(items[k].reshape(cap, -1), mask)
+        assert torch.equal(got[k], want.reshape(items[k].shape)), k
 
 
 # (L, D, trips, k): the rows route (L <= 256, D <= 64) and the forest route

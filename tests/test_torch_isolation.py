@@ -18,6 +18,8 @@ MODULES = [
     "repro_torch.kernels.tbs_step.ops", "repro_torch.kernels.tbs_step.kernel",
     "repro_torch.kernels.reservoir_compact.ops",
     "repro_torch.kernels.reservoir_compact.kernel",
+    "repro_torch.kernels.reservoir_compact.ref", "repro_torch.kernels.reservoir_compact.bench",
+    "repro_torch.kernels._common",
     "repro_torch.kernels.swap_delete.ops", "repro_torch.kernels.swap_delete.kernel",
     "repro_torch.kernels.swap_delete.ref", "repro_torch.kernels.swap_delete.bench",
     "repro_torch.decay", "repro_torch.decay.schedules", "repro_torch.data.streams",
