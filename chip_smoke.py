@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py            # all phases, one card, exits 0 on success
 
-Drives the port's main paths (``repro_torch``: R-TBS sampler + linreg retrain
-+ prequential eval through ``make_sampler`` / ``make_model`` /
-``materialize_stream`` / ``make_run_loop``, the keyed sampler bank
-through ``make_bank`` / ``make_bank_run_loop``, and batched LM serving of
-the dense transformer and of Mamba2 through
+Drives the port's main paths (``repro_torch``: R-TBS and the paper's other
+schemes + linreg retrain + prequential eval through ``make_sampler`` /
+``make_model`` / ``materialize_stream`` / ``make_run_loop``, the keyed
+sampler bank through ``make_bank`` / ``make_bank_run_loop``, and batched
+LM serving of the dense transformer and of Mamba2 through
 ``repro_torch.launch.serve.serve_batch``) at full state and model size, after
 building every CUDA kernel from ``src/repro_torch/kernels/csrc`` and holding
 each against its plain PyTorch version on the card. Imports neither JAX nor
@@ -67,7 +67,27 @@ the JAX package. Every check raises on failure; no phase catches its own.
      a profiled prefill and decode step by scope; and, at 2 layers of full
      width in f32 (that depth cut is (e)'s only), card == CPU and
      teacher-forced decode == forward;
-  9. the ``kernels`` JSON line, the card line, and the result line.
+  9. the paper's other schemes (``make_sampler("ttbs" | "btbs" | "brs" |
+     "sw")``) through ``make_run_loop`` on phase 3's stream: T-TBS with
+     n = 2^20, lam 0.03, batch_size 65,536 (q = 0.4729), cap 2^22; B-TBS,
+     cap 2^22; B-RS and SW with n = 2^20. For each: ticks per second,
+     B1 exactly once a tick, H2 (binomial) once a tick for T-TBS / B-TBS,
+     H3 (hypergeometric) once a tick for B-RS, nothing else; SW holds the
+     newest min(n, seen) rows in arrival order, B-RS min(n, seen) rows and
+     W = seen, T-TBS / B-TBS W_t = p W_(t-1) + B_t (one rounding) exactly,
+     no overflow and every size within 6 sqrt(E_t) + 1 of its mean;
+     ``materialize_view`` packs the sample (B2, one launch); a tick under
+     ``set_sync_debug_mode("error")``; a profiled retrain tick of T-TBS and
+     of B-RS by scope. (b) each scheme at n = 4,095 on the card and the
+     CPU, bit for bit. (c) H2 and H3 against their plain versions on
+     65,536-row sweeps (both of H2's routes, its edges and counts up to
+     2^22; H3's supports up to 65,537), their sample moments within 5
+     standard errors of the analytic ones (H3 at two main-path triples:
+     of its f32 algorithm's own distribution, the reference being biased
+     there, ROADMAP C.8), and (d) their times at the main path's shapes
+     beside their bounds, their plain versions and, for H2,
+     ``torch.binomial``;
+ 10. the ``kernels`` JSON line, the card line, and the result line.
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -365,13 +385,11 @@ def _check_w(np, Ws, bcounts, lam):
         check(Ws[t] == w, f"tick {t}: W {Ws[t]!r} != d*W + B = {w!r}")
 
 
-def phase_main(torch, np, kernels, timer, bw, reps):
-    """Phase 3: the main path at cap = 2^20 on the card."""
-    from repro_torch.core import prng
-    from repro_torch.core.api import make_sampler, materialize_view
+def _main_stream(torch, tag: str):
+    """The main cell's stream: LinRegStream(seed=0), 24 ticks of 65,536 items
+    then 24 of 8,192 (bcap 65,536), a single shift over ticks 30-39."""
     from repro_torch.data.streams import LinRegStream, mode_schedule
-    from repro_torch.kernels.swap_delete import ops as sd_ops
-    from repro_torch.manage import make_model, make_run_loop, materialize_stream
+    from repro_torch.manage import materialize_stream
 
     T = 48
     sizes = [BCAP_MAIN if t < 24 else 8192 for t in range(T)]
@@ -380,9 +398,21 @@ def phase_main(torch, np, kernels, timer, bw, reps):
         LinRegStream(seed=0), T, batch_size=lambda t: sizes[t], bcap=BCAP_MAIN,
         mode=lambda t: mode_schedule("single", t, start=30, stop=40))
     torch.cuda.synchronize()
-    print(f"[3] stream: {T} ticks, {sum(sizes)} items, "
+    print(f"{tag} stream: {T} ticks, {sum(sizes)} items, "
           f"{sum(v.numel() * v.element_size() for v in batches.values()) / 1e6:.1f} MB "
           f"on the card, made in {time.perf_counter() - t0:.2f} s")
+    return batches, bcounts, sizes
+
+
+def phase_main(torch, np, kernels, timer, bw, reps):
+    """Phase 3: the main path at cap = 2^20 on the card."""
+    from repro_torch.core import prng
+    from repro_torch.core.api import make_sampler, materialize_view
+    from repro_torch.kernels.swap_delete import ops as sd_ops
+    from repro_torch.manage import make_model, make_run_loop
+
+    batches, bcounts, sizes = _main_stream(torch, "[3]")
+    T = len(sizes)
     sampler = make_sampler("rtbs", n=N_MAIN, lam=LAM)
     model = make_model("linreg", dim=2)
     key = prng.key(0)
@@ -1600,6 +1630,335 @@ def phase_serve_ssm(torch, np, kernels, timer, bw):
     return dict(launches=launches, b5=b5)
 
 
+# ---------------------------------------------------------------------------
+# the paper's other schemes at the main cell's size (ROADMAP A.1 + A.3)
+SCHEMES = {"ttbs": dict(n=1 << 20, lam=LAM, batch_size=BCAP_MAIN, cap=1 << 22),
+           "btbs": dict(lam=LAM, cap=1 << 22),
+           "brs": dict(n=1 << 20),
+           "sw": dict(n=1 << 20)}
+_SIMPLE_SCOPES = ("manage.eval", "manage.sampler_step", "simple.tick_map", "simple.payload",
+                  "manage.retrain", "manage.size")
+# 32-bit operations a trip (the operations bound of a serial loop): H2's
+# Philox-4x32-10 block (10 rounds of 2 high and 2 low products, 4 xors and
+# 2 key adds) and BTRS's ~45 f32 operations (4 logarithms); H3's exp, log
+# and ~12 f32 operations
+H2_OPS_PER_TRIP, H3_OPS_PER_TRIP = 150, 14
+
+
+def _fma32(np, a, b, c):
+    """a * b + c rounded once to f32 (to nearest, ties to even), exactly."""
+    from fractions import Fraction
+
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(exact))
+    cands = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+    return min(cands, key=lambda x: (abs(Fraction(float(x)) - exact),
+                                     int(np.float32(x).view(np.uint32)) & 1))
+
+
+def _scheme_ticks(torch, sampler, model, key, batches, bcounts):
+    """The loop's tick body by hand: the final state and per-tick count,
+    W and overflow on the host."""
+    from repro_torch.manage import item_proto, make_manage_step
+
+    tick = make_manage_step(sampler, model, retrain_every=RETRAIN_EVERY)
+    state, params = sampler.init(item_proto(batches)), model.init()
+    rows = []
+    for t in range(bcounts.shape[0]):
+        state, params, _ = tick(key, t, state, params,
+                                {f: v[t] for f, v in batches.items()}, bcounts[t])
+        rows.append(torch.stack([state.count.double(), state.total_weight.double(),
+                                 state.overflow.double()]))
+    return state, params, torch.stack(rows).cpu().numpy()
+
+
+def _check_scheme_trace(torch, np, scheme, sampler, trace, sizes, state, batches):
+    """sw / brs: count == min(n, seen) (sw: the newest rows in arrival order),
+    brs: W == seen; ttbs / btbs: W_t = p W_(t-1) + B_t rounded once, no
+    overflow, |S_t| within 6 sqrt(E_t) + 1 of E_t = p E_(t-1) + q B_t."""
+    counts, Ws, ovs = trace[:, 0], trace[:, 1], trace[:, 2]
+    seen = np.cumsum(sizes)
+    if scheme in ("brs", "sw"):
+        n = sampler.hyper["n"]
+        check((counts == np.minimum(n, seen)).all(), f"{scheme}: count != min(n, seen)")
+        check((Ws == seen).all(), f"{scheme}: W != items seen")
+        if scheme == "sw":
+            c = int(counts[-1])
+            for f in ("x", "y"):
+                rows = torch.cat([batches[f][t, :b] for t, b in enumerate(sizes)])[-c:]
+                check(torch.equal(state.items[f][:c], rows),
+                      f"sw: {f} is not the last {c} stream rows in arrival order")
+        return f"count == min(n, seen){' and W == seen' if scheme == 'brs' else ''} on every tick"
+    if scheme == "ttbs":
+        p, q = sampler.hyper["p"], sampler.hyper["q"]
+    else:
+        p, q = math.exp(-LAM), 1.0
+    p32 = np.float32(p)
+    w, e, worst = np.float32(0.0), 0.0, 0.0
+    for t, b in enumerate(sizes):
+        w = _fma32(np, p32, w, np.float32(b))
+        check(np.float32(Ws[t]) == w, f"{scheme} tick {t}: W {Ws[t]!r} != p W + B = {w!r}")
+        e = p * e + q * b
+        dev = abs(counts[t] - e)
+        check(dev <= 6 * math.sqrt(e) + 1, f"{scheme} tick {t}: |S| {counts[t]} vs E {e:.1f}")
+        worst = max(worst, dev / math.sqrt(max(e, 1.0)))
+    check((ovs == 0).all(), f"{scheme}: overflow")
+    return (f"W_t = p W_(t-1) + B_t (one rounding) exact, overflow 0, |S_t - E_t| <= "
+            f"{worst:.2f} sqrt(E_t) on every tick")
+
+
+def phase_schemes(torch, np, kernels, timer, bw, reps):
+    """Phase 9: T-TBS, B-TBS, B-RS and SW at the main cell's size."""
+    from repro_torch.core import prng
+    from repro_torch.core.api import make_sampler, materialize_view
+    from repro_torch.manage import make_manage_step, make_model, make_run_loop
+
+    batches, bcounts, sizes = _main_stream(torch, "[9]")
+    T = len(sizes)
+    model = make_model("linreg", dim=2)
+    key = prng.key(0)
+    out = {}
+    for scheme, hyper in SCHEMES.items():
+        sampler = make_sampler(scheme, **hyper)
+        run = make_run_loop(sampler, model, retrain_every=RETRAIN_EVERY)
+        run(key, {f: v[:RETRAIN_EVERY] for f, v in batches.items()}, bcounts[:RETRAIN_EVERY])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, params, trace = run(key, batches, bcounts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launches()
+        want = {"tbs_step_apply": T, "binomial": T if scheme in ("ttbs", "btbs") else 0,
+                "hypergeometric": T if scheme == "brs" else 0}
+        print(f"[9] {scheme} ({sampler!r}): {T} ticks in {wall:.3f} s = {T / wall:.2f} "
+              f"ticks/s; launches {launches}")
+        for k, v in want.items():
+            check(launches[k] == v, f"{scheme}: {k} launched {launches[k]} times, not {v}")
+        check(all(v == 0 for k, v in launches.items() if k not in want),
+              f"{scheme}: another kernel launched")
+        check(np.isfinite(trace["metric"].cpu().numpy()).all(), f"{scheme}: non-finite metric")
+        check(torch.isfinite(params).all().item(), f"{scheme}: non-finite params")
+
+        st2, _, rows = _scheme_ticks(torch, sampler, model, key, batches, bcounts)
+        for a, b in ((st2.items["x"], state.items["x"]), (st2.items["y"], state.items["y"]),
+                     (st2.count, state.count), (st2.total_weight, state.total_weight)):
+            check(torch.equal(a, b), f"{scheme}: manage_step by hand != make_run_loop")
+        check((rows[:, 0] == trace["size"].cpu().numpy()).all(), f"{scheme}: size trace")
+        what = _check_scheme_trace(torch, np, scheme, sampler, rows, sizes, state, batches)
+        print(f"[9] {scheme}: {what}; final |S| {int(state.count)}, W "
+              f"{float(state.total_weight):.1f}; metric first/last "
+              f"{float(trace['metric'][0]):.4f}/{float(trace['metric'][-1]):.4f}")
+
+        kernels.reset_launches()
+        view = materialize_view(sampler.extract(prng.key(99), state))
+        size = int(view.size)
+        check(kernels.launches()["reservoir_compact"] == 1, f"{scheme}: B2 not launched once")
+        check(size == int(state.count) == int(view.mask.sum()), f"{scheme}: view size")
+        for f in ("x", "y"):
+            check(torch.equal(view.items[f][:size], state.items[f][:size]),
+                  f"{scheme}: materialized {f} != items[mask]")
+            check(not view.items[f][size:].any(), f"{scheme}: materialized {f} tail")
+
+        tick = make_manage_step(sampler, model, retrain_every=RETRAIN_EVERY)
+        b_t = {f: v[T - 1] for f, v in batches.items()}
+        check((T + 1) % RETRAIN_EVERY != 0, "sync-check tick must not retrain")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = tick(key, T, state, params, b_t, bcounts[T - 1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        check(int(res[0].count) <= res[0].cap, f"{scheme}: sync-check tick")
+        print(f"[9] {scheme}: one non-retrain tick ran under set_sync_debug_mode('error')")
+
+        entry = {"ticks_per_s": T / wall, "launches": launches}
+        if scheme in ("ttbs", "brs"):
+            prof_t = 4 * RETRAIN_EVERY - 1
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tick(key, prof_t, st2, params, b_t, bcounts[T - 1])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            entry["profile"] = _breakdown(
+                torch, prof, wall_ms, tag=f"[9] {scheme}", scopes=_SIMPLE_SCOPES,
+                named=(("B1 kernel", "tbs_step_apply_kernel"), ("H2 kernel", "binomial_kernel"),
+                       ("H3 kernel", "hypergeometric_kernel")))
+        out[scheme] = entry
+    return out
+
+
+def phase_schemes_parity(torch, np):
+    """Phase 9 (b): each scheme at n = 4,095 on the card and on the CPU."""
+    from repro_torch.core import prng
+    from repro_torch.core.api import make_sampler
+    from repro_torch.data.streams import LinRegStream
+    from repro_torch.manage import make_model, make_run_loop, materialize_stream
+
+    n, bcap, T = 4095, 256, 48
+    hypers = {"ttbs": dict(n=n, lam=LAM, batch_size=bcap), "btbs": dict(lam=LAM, cap=4 * n),
+              "brs": dict(n=n), "sw": dict(n=n)}
+    for scheme, hyper in hypers.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            batches, bcounts = materialize_stream(
+                LinRegStream(seed=1), T, batch_size=lambda t: bcap if t < 24 else 32,
+                bcap=bcap, device=dev)
+            run = make_run_loop(make_sampler(scheme, **hyper, device=dev),
+                                make_model("linreg", dim=2, device=dev),
+                                retrain_every=RETRAIN_EVERY)
+            out[dev] = run(prng.key(7), batches, bcounts)
+        (sg, _, tg), (sc, _, tc) = out["cuda"], out["cpu"]
+        for f in ("x", "y"):
+            check(torch.equal(sg.items[f].cpu(), sc.items[f]), f"{scheme}: items[{f}] card != CPU")
+        for name, a, b in (("count", sg.count, sc.count), ("overflow", sg.overflow, sc.overflow),
+                           ("W", sg.total_weight, sc.total_weight),
+                           ("sizes", tg["size"], tc["size"])):
+            check(torch.equal(a.cpu(), b), f"{scheme}: {name} card != CPU")
+        print(f"[9] (b) {scheme} at n = {n}: card == CPU bit for bit (items, count, "
+              f"overflow, W, sizes of {T} ticks); final |S| {int(sc.count)}")
+
+
+def _moments_ok(torch, x, mean, var, what):
+    """Sample mean and variance within 5 standard errors of the analytic
+    ones (the variance's from the sample's fourth central moment)."""
+    x = x.double()
+    N = x.numel()
+    m = float(x.mean())
+    d = x - m
+    s2 = float((d * d).mean())
+    m4 = float((d ** 4).mean())
+    se_m = math.sqrt(max(var, 1e-300) / N)
+    se_v = math.sqrt(max(m4 - s2 * s2, 1e-300) / N)
+    check(abs(m - mean) <= 5 * se_m and abs(s2 - var) <= 5 * se_v,
+          f"{what}: mean {m:.4f} var {s2:.4f} vs {mean:.4f} / {var:.4f} "
+          f"(5 SE: {5 * se_m:.4f} / {5 * se_v:.4f})")
+    return (m - mean) / se_m, (s2 - var) / se_v
+
+
+def phase_variates(torch, np, timer, bw, reps):
+    """Phase 9 (c): H2 and H3 against their plain versions on a sweep,
+    against the analytic moments, and timed at the main path's shapes."""
+    dev, rows, draws = "cuda", 65_536, 1 << 20
+    from repro_torch.core import prng, rng
+    from repro_torch.kernels.variates import cases, ops as va_ops, ref as va_ref
+
+    # (a) H2 on a sweep of 65,536 rows, bit for bit
+    keys, count, p = cases.binomial_rows(rows, dev, seed=1)
+    got = va_ops.binomial(keys, count, p)
+    want, trips = va_ref.binomial_ref(keys, count, p, return_trips=True)
+    torch.cuda.synchronize()
+    bad = (got != want).nonzero().flatten()
+    for i in bad[:20].tolist():
+        print(f"[9] (c) H2 differs: count {int(count[i])} p {float(p[i])!r} key "
+              f"{keys[i].tolist()}: kernel {int(got[i])}, plain {int(want[i])}")
+    check(bad.numel() == 0, f"H2 differs from its plain version on {bad.numel()} rows")
+    check(((got >= 0) & (got <= count)).all().item(), "H2 outside [0, count]")
+    inv = (count.float() * torch.minimum(p, 1 - p) <= 10).sum().item()
+    print(f"[9] (c) H2 == plain bit for bit on {rows} rows ({inv} on inversion, the rest "
+          f"BTRS or edges; counts up to {int(count.max())}; trips up to {int(trips.max())})")
+    # (b) H3 on a sweep of 65,536 rows (supports up to 65,537), bit for bit
+    u, k, a, b = cases.hypergeometric_rows(rows, dev, seed=2)
+    got = va_ops.hypergeometric(u, k, a, b, cases.H3_TRIPS)
+    t0 = time.perf_counter()
+    want = va_ref.hypergeometric_ref(u, k, a, b, cases.H3_TRIPS)
+    torch.cuda.synchronize()
+    bad = (got != want).nonzero().flatten()
+    for i in bad[:20].tolist():
+        print(f"[9] (c) H3 differs: u {float(u[i])!r} k {int(k[i])} a {int(a[i])} b "
+              f"{int(b[i])}: kernel {int(got[i])}, plain {int(want[i])}")
+    check(bad.numel() == 0, f"H3 differs from its plain version on {bad.numel()} rows")
+    width = (torch.minimum(a, k) - torch.clamp(k - b, min=0) + 1).max().item()
+    print(f"[9] (c) H3 == plain bit for bit on {rows} rows (supports up to {width} wide; "
+          f"the plain version took {time.perf_counter() - t0:.1f} s)")
+
+    # (c) moments on the card
+    N = draws
+    for c, pp in ((20, 0.3), (1000, 0.004), (1 << 20, math.exp(-LAM)), (BCAP_MAIN, 0.4729)):
+        x = va_ops.binomial(rng.binomial_keys(prng.key(c), (N,), dev),
+                            torch.full((N,), c, device=dev),
+                            torch.full((N,), pp, device=dev))
+        p32 = float(np.float32(pp))
+        zm, zv = _moments_ok(torch, x, c * p32, c * p32 * (1 - p32), f"H2 Bin({c}, {pp})")
+        print(f"[9] (c) H2 Bin({c}, {pp:.4f}) over {N} draws: mean and variance within "
+              f"{zm:+.2f} / {zv:+.2f} SE")
+    # H3 against the analytic moments where its f32 cdf is accurate (JAX's
+    # pmf-test triple and one more), and at two main-path triples against
+    # the exact distribution of its f32 algorithm (kernels/variates/ref.py
+    # hypergeometric_implied), with the analytic moments beside it: there the
+    # reference algorithm itself is biased (ROADMAP C.8)
+    def hg(kk, aa, bb, M):
+        u = prng.uniform(prng.key(kk + aa), (M,), dev)
+        return va_ops.hypergeometric(u, torch.full((M,), kk, device=dev),
+                                     torch.full((M,), aa, device=dev),
+                                     torch.full((M,), bb, device=dev), cases.H3_TRIPS)
+
+    for kk, aa, bb in ((7, 10, 15), (30, 50, 80)):
+        tot = aa + bb
+        mean = kk * aa / tot
+        var = kk * (aa / tot) * (bb / tot) * (tot - kk) / (tot - 1)
+        zm, zv = _moments_ok(torch, hg(kk, aa, bb, N), mean, var, f"H3 HyperGeo({kk}, {aa}, {bb})")
+        print(f"[9] (c) H3 HyperGeo({kk}, {aa}, {bb}) over {N} draws: mean and variance "
+              f"within {zm:+.2f} / {zv:+.2f} SE of the analytic ones")
+    for kk, aa, bb in ((1 << 20, BCAP_MAIN, 1 << 20), (1 << 20, BCAP_MAIN // 8, 1_638_400)):
+        M = draws >> 4
+        vals, probs = va_ref.hypergeometric_implied(kk, aa, bb, cases.H3_TRIPS)
+        imean = float((vals * probs).sum())
+        ivar = float((vals * vals * probs).sum()) - imean * imean
+        zm, zv = _moments_ok(torch, hg(kk, aa, bb, M), imean, ivar,
+                             f"H3 HyperGeo({kk}, {aa}, {bb}) vs its f32 algorithm")
+        tot = aa + bb
+        mean = kk * aa / tot
+        var = kk * (aa / tot) * (bb / tot) * (tot - kk) / (tot - 1)
+        print(f"[9] (c) H3 HyperGeo({kk}, {aa}, {bb}) over {M} draws: within {zm:+.2f} / "
+              f"{zv:+.2f} SE of the f32 algorithm's mean {imean:.2f} / variance {ivar:.1f} "
+              f"(its cdf reaches {1 - float(probs[-1]):.7f}: {float(probs[-1]):.2e} of the "
+              f"draws take hi by the guard); analytic {mean:.2f} / {var:.1f} (ROADMAP C.8)")
+
+    # (d) times at the main path's shapes: H2 on a T-TBS tick's two rows
+    # (m ~ Bin(|S|, p), k ~ Bin(B, q)), H3 on a saturated B-RS tick
+    # (C = 2^20, B = 65,536, W = 2^20)
+    q = SCHEMES["ttbs"]["n"] * (1 - math.exp(-LAM)) / BCAP_MAIN
+    keys = rng.binomial_keys(prng.key(5), (2,), dev)
+    count = torch.tensor([1 << 20, BCAP_MAIN], device=dev)
+    p = torch.tensor([math.exp(-LAM), q], dtype=torch.float32, device=dev)
+    h2_ms = timer(lambda: va_ops.binomial(keys, count, p), reps)
+    plain2_ms = timer(lambda: va_ref.binomial_ref(keys, count, p), 5)
+    lib2_ms = timer(lambda: torch.binomial(count.float(), p), reps)
+    _, tr2 = va_ref.binomial_ref(keys, count, p, return_trips=True)
+    ops2 = int(tr2.sum()) * H2_OPS_PER_TRIP
+    b2 = {"bytes": 2 * (16 + 8 + 4 + 8) / bw * 1e3, "operations": ops2 / PEAK["float32"] * 1e3}
+    u = torch.full((1,), 0.5, device=dev)
+    k1, a1, b1 = (torch.tensor([v], device=dev) for v in (1 << 20, BCAP_MAIN, 1 << 20))
+    h3_ms = timer(lambda: va_ops.hypergeometric(u, k1, a1, b1, cases.H3_TRIPS), reps)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    m_plain = va_ref.hypergeometric_ref(u, k1, a1, b1, cases.H3_TRIPS)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain3_ms = ev[0].elapsed_time(ev[1])
+    trips3 = int(m_plain) + 1                    # lo = 0: trips 0..M
+    b3 = {"bytes": (4 + 3 * 8 + 8) / bw * 1e3,
+          "operations": trips3 * H3_OPS_PER_TRIP / PEAK["float32"] * 1e3}
+    print(f"[9] (d) H2, a T-TBS tick's 2 rows (Bin(2^20, {math.exp(-LAM):.4f}), Bin(65536, "
+          f"{q:.4f}); {int(tr2.sum())} trips): kernel {h2_ms:.4f} ms; plain {plain2_ms:.4f} ms; "
+          f"torch.binomial {lib2_ms:.4f} ms; bound {max(b2.values()):.2e} ms "
+          f"(bytes {b2['bytes']:.2e}, operations {b2['operations']:.2e})")
+    print(f"[9] (d) H3, a saturated B-RS tick (HyperGeo(2^20, 65536, 2^20), u = 0.5: "
+          f"{trips3} trips in one thread): kernel {h3_ms:.4f} ms = "
+          f"{1e6 * h3_ms / trips3:.2f} ns a trip; plain {plain3_ms:.1f} ms (one call); "
+          f"bound {max(b3.values()):.2e} ms (bytes {b3['bytes']:.2e}, operations "
+          f"{b3['operations']:.2e})")
+    return {"binomial": dict(err=0.0, ms=h2_ms, plain_ms=plain2_ms, library_ms=lib2_ms,
+                             bound_ms=max(b2.values()), bound_by=max(b2, key=b2.get)),
+            "hypergeometric": dict(err=0.0, ms=h3_ms, plain_ms=plain3_ms, library_ms=None,
+                                   bound_ms=max(b3.values()), bound_by=max(b3, key=b3.get),
+                                   trips=trips3)}
+
+
 def main() -> int:
     import torch
 
@@ -1644,6 +2003,9 @@ def main() -> int:
     phase_bank_parity(torch, np)
     serve_res = phase_serve(torch, np, kernels, timer, bw)
     ssm_res = phase_serve_ssm(torch, np, kernels, timer, bw)
+    schemes_res = phase_schemes(torch, np, kernels, timer, bw, reps=20)
+    phase_schemes_parity(torch, np)
+    var_res = phase_variates(torch, np, timer, bw, reps=20)
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -1656,15 +2018,22 @@ def main() -> int:
              "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                                  "src/repro/kernels/flash_attention/kernel.py:73"),
              "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
-                          "src/repro/kernels/ssd_scan/kernel.py:66")}
+                          "src/repro/kernels/ssd_scan/kernel.py:66"),
+             "binomial": ("src/repro_torch/kernels/csrc/variates.cu",
+                          "src/repro/core/rng.py:20"),
+             "hypergeometric": ("src/repro_torch/kernels/csrc/variates.cu",
+                                "src/repro/core/rng.py:42")}
     kres["tbs_step_apply"]["main_tick_map_ms"] = main_res["b1_tick_ms"]
     kres["tbs_step_apply_banked"] = bank_res["b3"]
     kres["flash_attention"] = serve_res["b4"]
     kres["ssd_scan"] = ssm_res["b5"]
+    kres.update(var_res)
     # each kernel's launches from the run of the path it carries
     runs = dict(main_res["launches"], tbs_step_apply_banked=bank_res["launches"][
         "tbs_step_apply_banked"], flash_attention=serve_res["launches"]["flash_attention"],
-        ssd_scan=ssm_res["launches"]["ssd_scan"])
+        ssd_scan=ssm_res["launches"]["ssd_scan"],
+        binomial=schemes_res["ttbs"]["launches"]["binomial"],
+        hypergeometric=schemes_res["brs"]["launches"]["hypergeometric"])
     rows = []
     for k, r in kres.items():
         rows.append({"name": k, "route": "cuda", "source": where[k][0],

@@ -134,7 +134,7 @@ class SamplerBank:
 _REGISTRY: dict[str, Callable[..., SamplerBank]] = {}
 
 # bank schemes of the JAX package that later slices port, by ROADMAP item
-_NOT_PORTED = {"ttbs": "A.6 (the ttbs bank, which needs rng.binomial, A.1)"}
+_NOT_PORTED = {"ttbs": "A.6 (the ttbs bank)"}
 
 
 def register_bank(name: str):

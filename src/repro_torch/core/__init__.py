@@ -1,9 +1,11 @@
-"""repro_torch.core -- temporally-biased sampling (R-TBS) in PyTorch.
+"""repro_torch.core -- temporally-biased sampling (the TBS family) in PyTorch.
 
   * :mod:`.prng`   -- counter-based keys and draws (Philox-4x32-10)
-  * :mod:`.rng`    -- stochastic rounding and the swap-or-not permutation
+  * :mod:`.rng`    -- stochastic rounding, the swap-or-not and argsort
+                      permutations, binomial and hypergeometric draws
   * :mod:`.latent` -- latent fractional samples and the Alg. 3 maps
   * :mod:`.rtbs`   -- R-TBS (Algorithm 2), fused into one payload pass
-  * :mod:`.api`    -- the Sampler protocol and registry (R-TBS only so far)
+  * :mod:`.simple` -- T-TBS, B-TBS, B-RS and the sliding window
+  * :mod:`.api`    -- the Sampler protocol and registry
 """
-from . import latent, prng, rng, rtbs  # noqa: F401
+from . import latent, prng, rng, rtbs, simple  # noqa: F401

@@ -2,8 +2,10 @@
 ``init / step / extract / size`` interface (the JAX package's
 ``repro.core.api``).
 
-Only R-TBS (``"rtbs"``) is ported so far; the other scheme names raise
-``ValueError`` naming the ROADMAP queue that ports them.
+Registered: R-TBS (``"rtbs"``, paper Alg. 2), T-TBS (``"ttbs"``, Alg. 1),
+B-TBS (``"btbs"``, Alg. 4), B-RS (``"brs"``, Alg. 5, the paper's "Unif")
+and the sliding window (``"sw"``). The distributed schemes ``"dttbs"`` and
+``"drtbs"`` raise ``ValueError`` naming the ROADMAP queue that ports them.
 
 Conventions:
   * ``init(item_proto)`` takes a pytree of tensors shaped like ONE item, on
@@ -17,6 +19,7 @@ Conventions:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Mapping
 
 import torch
@@ -27,7 +30,7 @@ from repro_torch.decay import DecayedState, DecaySchedule
 from repro_torch.decay import resolve as _resolve_schedule
 
 from . import latent as lt
-from . import prng, rtbs
+from . import prng, rtbs, simple
 
 
 @dataclasses.dataclass
@@ -73,10 +76,7 @@ def materialize_view(view: SampleView) -> SampleView:
 _REGISTRY: dict[str, Callable[..., Sampler]] = {}
 
 # schemes of the JAX package that later slices port, by ROADMAP queue item
-_NOT_PORTED = {
-    "ttbs": "A.3", "btbs": "A.3", "brs": "A.3", "sw": "A.3",
-    "dttbs": "A.7", "drtbs": "A.7",
-}
+_NOT_PORTED = {"dttbs": "A.7", "drtbs": "A.7"}
 
 
 def register(name: str):
@@ -172,3 +172,106 @@ def _make_rtbs(*, n: int, lam: float | None = None,
                            init=lambda proto: rtbs.init(proto, n),
                            step_d=step_d, extract=extract, size=size),
     )
+
+
+def _ttbs_rates(n: int, p: float, batch_size: float) -> tuple[float, float]:
+    """Alg. 1's rates from the retention probability p = e^{-lam}:
+    q = n (1 - p) / b, which must lie in (0, 1]."""
+    q = n * (1.0 - p) / batch_size
+    if not 0.0 < q <= 1.0:
+        raise ValueError(
+            f"T-TBS needs q = n(1-e^-lam)/b in (0, 1]; got q={q:.4f} "
+            f"(n={n}, lam={-math.log(p):.4f}, batch_size={batch_size})")
+    return p, q
+
+
+def _ttbs_step_d(n: int, batch_size: float, device: torch.device):
+    """Alg. 1 with the decay factor as an operand: p_t = d_t and
+    q_t = n (1 - p_t) / b clipped into [0, 1] (a time-varying schedule may
+    ask for q > 1; the clip under-fills instead of failing)."""
+    b = torch.full((), float(batch_size), dtype=torch.float32, device=device)
+
+    def step_d(key, state, batch_items, bcount, d):
+        d = d.to(torch.float32)
+        q = torch.clamp(n * (1.0 - d) / b, 0.0, 1.0)
+        return simple.ttbs_step(key, state, batch_items, bcount, p=d, q=q)
+
+    return step_d
+
+
+def _buffer_extract(key, state: simple.BufferState) -> SampleView:
+    del key        # membership is deterministic: the sample is the buffer
+    mask, size = simple.realize_all(state)
+    return SampleView(items=state.items, mask=mask, size=size)
+
+
+def _buffer_size(key, state: simple.BufferState) -> torch.Tensor:
+    del key
+    return state.count
+
+
+@register("ttbs")
+def _make_ttbs(*, n: int, lam: float | None = None, batch_size: float,
+               cap: int | None = None, decay: DecaySchedule | None = None,
+               device: torch.device) -> Sampler:
+    """T-TBS (paper Alg. 1): exact eq. (1), size controlled only in mean."""
+    sched = _resolve_schedule(lam, decay)
+    cap = 4 * n if cap is None else cap
+    hyper = {"n": n, **_decay_hyper(sched, lam), "batch_size": batch_size, "cap": cap}
+    fields = _thread_schedule(sched, device,
+                              init=lambda proto: simple.init(proto, cap),
+                              step_d=_ttbs_step_d(n, batch_size, device),
+                              extract=_buffer_extract, size=_buffer_size)
+    if sched.static_rate is not None:
+        # validate eagerly, and apply exactly these f64-derived rates,
+        # rounded once to f32 (not a per-tick f32 recomputation)
+        p, q = _ttbs_rates(n, sched.static_rate, batch_size)
+        hyper.update(p=p, q=q)
+        pt, qt = (torch.full((), v, dtype=torch.float32, device=device) for v in (p, q))
+
+        def step(key, state, batch_items, bcount):
+            return simple.ttbs_step(key, state, batch_items, bcount, p=pt, q=qt)
+
+        fields["step"] = step
+    return Sampler(scheme="ttbs", hyper=hyper, device=device, **fields)
+
+
+@register("btbs")
+def _make_btbs(*, lam: float | None = None, cap: int,
+               decay: DecaySchedule | None = None, device: torch.device) -> Sampler:
+    """B-TBS (paper Alg. 4): Bernoulli TBS, T-TBS with q = 1."""
+    sched = _resolve_schedule(lam, decay)
+
+    def step_d(key, state, batch_items, bcount, d):
+        return simple.btbs_step(key, state, batch_items, bcount, p=d)
+
+    return Sampler(scheme="btbs", hyper={**_decay_hyper(sched, lam), "cap": cap},
+                   device=device,
+                   **_thread_schedule(sched, device,
+                                      init=lambda proto: simple.init(proto, cap),
+                                      step_d=step_d, extract=_buffer_extract,
+                                      size=_buffer_size))
+
+
+@register("brs")
+def _make_brs(*, n: int, device: torch.device) -> Sampler:
+    """B-RS (paper Alg. 5): batched uniform reservoir sampling, "Unif"."""
+
+    def step(key, state, batch_items, bcount):
+        return simple.brs_step(key, state, batch_items, bcount, n=n)
+
+    return Sampler(scheme="brs", init=lambda proto: simple.init(proto, n), step=step,
+                   extract=_buffer_extract, size=_buffer_size, hyper={"n": n},
+                   device=device)
+
+
+@register("sw")
+def _make_sw(*, n: int, device: torch.device) -> Sampler:
+    """SW: a sliding window over the last n items (the paper's baseline)."""
+
+    def step(key, state, batch_items, bcount):
+        return simple.sw_step(key, state, batch_items, bcount, n=n)
+
+    return Sampler(scheme="sw", init=lambda proto: simple.init(proto, n), step=step,
+                   extract=_buffer_extract, size=_buffer_size, hyper={"n": n},
+                   device=device)

@@ -13,8 +13,10 @@ Port conventions:
   * every function broadcasts over leading batch dimensions (the trial
     dimension of the statistical tests): scalars ``[...]``, maps
     ``[..., cap]``, item leaves ``[..., cap, ...]``;
-  * random draws are operands (:class:`DownsampleDraws`, uniforms), made by
-    the ``draw_*`` helpers from a key, so tests can feed JAX's draws;
+  * random draws are operands (:class:`DownsampleDraws`, or
+    :class:`ExactDownsampleDraws` for the exact argsort map of the
+    reference step; uniforms), made by the ``draw_*`` helpers from a key,
+    so tests can feed JAX's draws;
   * maps are int64. JAX's silent index semantics are kept explicitly:
     gathers clamp (:func:`_take`), single-slot scatters drop an index out of
     range (:func:`_set1`), and chained sets keep their order.
@@ -48,6 +50,15 @@ def partial_draw(u: torch.Tensor, weight: torch.Tensor):
     False when frac == 0."""
     k, f = floor_frac(weight)
     return k, (u < f) & (f > 0), f
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 tensors, rounded once to f32 as a fused
+    multiply-add rounds it. The product is exact in f64, and so is the sum
+    wherever |a b| >= |c| / 32 for an integer c below 2^24 (the schemes'
+    p W + B); elsewhere the sum is rounded to f64 first, which differs from
+    one rounding only where it lands exactly on an f32 tie."""
+    return (a.double() * b.double() + c.double()).to(_F32)
 
 
 @dataclasses.dataclass
@@ -158,6 +169,25 @@ def draw_downsample(key, cap: int, device, *,
                            rb_small=small)
 
 
+@dataclasses.dataclass
+class ExactDownsampleDraws:
+    """The draws of one Alg. 3 map with the exact argsort permutation (JAX's
+    ``downsample_map(..., exact=True)``): ``kperm, ku = split(key)`` gives
+    ``u = uniform(ku)`` and ``u_perm = uniform(kperm, (cap,))``, the
+    argsort keys of :func:`repro_torch.core.rng.prefix_permutation`."""
+
+    u: torch.Tensor          # f32 [...]
+    u_perm: torch.Tensor     # f32 [..., cap]
+
+
+def draw_downsample_exact(key, cap: int, device, *, batch=()) -> ExactDownsampleDraws:
+    """:class:`ExactDownsampleDraws` with leading dimensions ``batch``."""
+    kperm, ku = prng.split(key)
+    batch = tuple(batch)
+    return ExactDownsampleDraws(u=prng.uniform(ku, batch, device),
+                                u_perm=rng.draw_prefix_permutation(kperm, cap, batch, device))
+
+
 def _downsample_map_small(u, rb, cap: int, k, f, kp, fp, nw, cw, D: int,
                           gate):
     """Delete-complement construction of the Alg. 3 slot map (O(D) random
@@ -212,7 +242,14 @@ def _downsample_map_small(u, rb, cap: int, k, f, kp, fp, nw, cw, D: int,
 def _downsample_map_full(u, rb, cap: int, k, f, kp, fp, nw, cw):
     """The full-domain construction: one length-``cap`` swap-or-not prefix
     permutation, branch maps selected with torch.where."""
-    perm = rng.prefix_permutation_fast(rb, cap, k)       # [..., cap]
+    return _downsample_map_perm(u, rng.prefix_permutation_fast(rb, cap, k), cap, k, f, kp,
+                                fp, nw, cw)
+
+
+def _downsample_map_perm(u, perm, cap: int, k, f, kp, fp, nw, cw):
+    """The full-domain construction from a prefix permutation ``perm``
+    ``[..., cap]`` of the ``k`` full slots (swap-or-not, or the exact
+    argsort one)."""
     slot = torch.arange(cap, dtype=_I64, device=u.device)
     identity = slot.expand(k.shape + (cap,))
     safe_c = torch.clamp(cw, min=1e-30)
@@ -242,11 +279,15 @@ def _downsample_map_full(u, rb, cap: int, k, f, kp, fp, nw, cw):
     return torch.where((nw >= cw).unsqueeze(-1), identity, src)
 
 
-def downsample_map(draws: DownsampleDraws, cap: int, weight, new_weight, *,
+def downsample_map(draws, cap: int, weight, new_weight, *,
                    max_deleted: int | None = None,
                    gate: torch.Tensor | None = None) -> torch.Tensor:
     """Slot-index map of paper Algorithm 3: ``src[..., cap]`` (new slot ->
     old slot) realizing the C -> C' downsample (Theorem 4.1).
+
+    :class:`ExactDownsampleDraws` give the exact argsort construction (JAX's
+    ``exact=True``; ``max_deleted`` and ``gate`` do not apply), and
+    :class:`DownsampleDraws` the swap-or-not ones.
 
     With ``max_deleted`` (and ``draws.rb_small``) both constructions are
     computed and the delete-complement one is selected whenever at most
@@ -257,8 +298,10 @@ def downsample_map(draws: DownsampleDraws, cap: int, weight, new_weight, *,
     nw = torch.minimum(new_weight.to(_F32), cw)
     k, f = floor_frac(cw)
     kp, fp = floor_frac(nw)
-    full = _downsample_map_full(draws.u, draws.rb_full, cap, k, f, kp, fp,
-                                nw, cw)
+    if isinstance(draws, ExactDownsampleDraws):
+        perm = rng.prefix_permutation(draws.u_perm, cap, k)
+        return _downsample_map_perm(draws.u, perm, cap, k, f, kp, fp, nw, cw)
+    full = _downsample_map_full(draws.u, draws.rb_full, cap, k, f, kp, fp, nw, cw)
     if max_deleted is None or max_deleted <= 0:
         return full
     D = min(int(max_deleted), cap)
@@ -271,10 +314,10 @@ def downsample_map(draws: DownsampleDraws, cap: int, weight, new_weight, *,
     return torch.where(can_fast.unsqueeze(-1), small, full)
 
 
-def downsample(draws: DownsampleDraws, lat: Latent, new_weight, *,
+def downsample(draws, lat: Latent, new_weight, *,
                max_deleted: int | None = None) -> Latent:
     """Paper Algorithm 3: rescale inclusion probabilities by C'/C. One map,
-    one gather, whatever the branch."""
+    one gather, whatever the branch; ``draws`` of either type."""
     cw = lat.weight.to(_F32)
     nw = torch.minimum(new_weight.to(_F32), cw)
     kp, _ = floor_frac(nw)

@@ -16,8 +16,10 @@ host which branch it is in. The scalars (``nfull``, ``weight``,
 ``total_weight``, ``bcount``, the decay factor) stay device tensors in f32
 or int64; the C_t/W_t arithmetic repeats the JAX op order exactly.
 
-The argsort reference step (``step_ref``) is not ported yet (ROADMAP queue
-A).
+:func:`step_ref` is the pre-fused reference step: per-stage buffer
+rewrites with exact argsort permutations, one reservoir, its Alg. 2
+branch chosen on the host. It is the parity oracle of the fused step and
+is not on the card's path.
 """
 from __future__ import annotations
 
@@ -205,6 +207,117 @@ def step(key: prng.Key, state: RTBSState, batch_items: Any, bcount, *, n: int,
     return step_with(draws, state, batch_items, bcount, n=n, decay=decay)
 
 
+# ---------------------------------------------------------------------------
+# the reference step: per-stage buffer rewrites, exact argsort permutations
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class RefDraws:
+    """Every draw :func:`step_ref` may use. JAX splits the tick key two
+    ways for the unsaturated path (``k_ds, k_over``: the decay and
+    overshoot downsamples) and four ways for the saturated one (``k_m,
+    k_vic, k_pick, k_ds``: the victim count, the victim and pick
+    permutations, the undershoot downsample)."""
+
+    ds: lt.ExactDownsampleDraws       # unsaturated decay downsample, cap
+    over: lt.ExactDownsampleDraws     # overshoot downsample, cap + bcap
+    u_m: torch.Tensor                 # f32 []
+    u_vic: torch.Tensor               # f32 [cap]
+    u_pick: torch.Tensor              # f32 [bcap]
+    sat_ds: lt.ExactDownsampleDraws   # undershoot downsample, cap
+
+
+def draw_ref(key, *, cap: int, bcap: int, device) -> RefDraws:
+    """Both paths' draws from one tick key, as JAX splits it."""
+    k_ds, k_over = prng.split(key)
+    k_m, k_vic, k_pick, k_sds = prng.split(key, 4)
+    return RefDraws(
+        ds=lt.draw_downsample_exact(k_ds, cap, device),
+        over=lt.draw_downsample_exact(k_over, cap + bcap, device),
+        u_m=prng.uniform(k_m, (), device),
+        u_vic=rng.draw_prefix_permutation(k_vic, cap, (), device),
+        u_pick=rng.draw_prefix_permutation(k_pick, bcap, (), device),
+        sat_ds=lt.draw_downsample_exact(k_sds, cap, device))
+
+
+def _unsaturated_path(draws: RefDraws, lat: lt.Latent, w_prev, batch_items, bcount,
+                      n: int, decay):
+    """Paper Alg. 2 lines 5-12 (previously unsaturated: C == W < n)."""
+    w_dec = decay * w_prev
+    # lines 6-8: decay the weight, downsample the latent to it
+    if bool((w_dec > 0) & (w_dec < lat.weight)):
+        lat = lt.downsample(draws.ds, lat, w_dec)
+    else:
+        lat = lt.Latent(items=lat.items, nfull=lat.nfull,
+                        weight=torch.minimum(lat.weight, torch.clamp(w_dec, min=0.0)))
+    # lines 9-10: accept ALL batch items, on a widened buffer
+    cap = lat.cap
+    wide = lt.Latent(items=lt.concat_items(lat.items, pytree.tree_map(torch.zeros_like,
+                                                                      batch_items)),
+                     nfull=lat.nfull, weight=lat.weight)
+    wide = lt.insert_full(wide, batch_items, bcount)
+    w_new = w_dec + bcount.to(_F32)
+    # lines 11-12: overshoot -> downsample to n
+    if bool(wide.weight > n):
+        wide = lt.downsample(draws.over, wide, torch.full_like(wide.weight, float(n)))
+    return lt.Latent(items=lt.truncate_items(wide.items, cap), nfull=wide.nfull,
+                     weight=wide.weight), w_new
+
+
+def _saturated_path(draws: RefDraws, lat: lt.Latent, w_prev, batch_items, bcount,
+                    n: int, decay):
+    """Paper Alg. 2 lines 14-20 (previously saturated: C == n <= W). W is
+    rounded once here (:func:`latent.fma_f32`): XLA contracts the jitted JAX
+    reference's ``decay * w_prev + bf``, whose product has no other use."""
+    bf = bcount.to(_F32)
+    w_new = lt.fma_f32(decay, w_prev, bf)
+    if not bool(w_new >= n):
+        # lines 19-20: downsample to W - B, then accept all batch items
+        l2 = lt.downsample(draws.sat_ds, lat, w_new - bf)
+        return lt.insert_full(l2, batch_items, bcount), w_new
+    # lines 16-17: replace m = StochRound(B n / W) victims with batch items
+    cap = lat.cap
+    bcap = pytree.tree_leaves(batch_items)[0].shape[0]
+    m = rng.stochastic_round(draws.u_m, bf * n / torch.clamp(w_new, min=1e-30))
+    victims = rng.prefix_permutation(draws.u_vic, cap, lat.nfull)
+    picks = rng.prefix_permutation(draws.u_pick, bcap, bcount)
+    i = torch.arange(bcap, dtype=_I64, device=m.device)
+    dest = torch.where(i < m, victims[torch.clamp(i, max=cap - 1)], cap)   # cap: dropped
+    payload = lt.gather(batch_items, picks)
+
+    def put(a, b):
+        buf = torch.cat([a, torch.zeros_like(a[:1])])
+        buf.index_copy_(0, dest, b)
+        return buf[:cap]
+
+    items = pytree.tree_map(put, lat.items, payload)
+    return lt.Latent(items=items, nfull=lat.nfull,
+                     weight=torch.full_like(lat.weight, float(n))), w_new
+
+
+def step_ref_with(draws: RefDraws, state: RTBSState, batch_items: Any,
+                  bcount: torch.Tensor, *, n: int, decay: torch.Tensor) -> RTBSState:
+    """The reference step from given draws (one reservoir)."""
+    bcount = bcount.to(_I64)
+    path = _unsaturated_path if bool(state.total_weight < n) else _saturated_path
+    lat, w_new = path(draws, state.lat, state.total_weight, batch_items, bcount, n, decay)
+    return RTBSState(lat=lat, total_weight=w_new)
+
+
+def step_ref(key: prng.Key, state: RTBSState, batch_items: Any, bcount, *, n: int,
+             lam: float | None = None, decay=None) -> RTBSState:
+    """The pre-fused R-TBS step (JAX's ``rtbs.step_ref``): per-stage buffer
+    rewrites with exact argsort permutations, 2-4 sorts and several gathers
+    a tick, its branch read on the host. The parity oracle of :func:`step`;
+    same C_t / W_t trajectories, another RNG stream."""
+    dev = state.total_weight.device
+    decay = _resolve_decay(lam, decay, dev)
+    if not isinstance(bcount, torch.Tensor):
+        bcount = torch.full((), int(bcount), dtype=_I64, device=dev)
+    bcap = pytree.tree_leaves(batch_items)[0].shape[0]
+    draws = draw_ref(key, cap=state.lat.cap, bcap=bcap, device=dev)
+    return step_ref_with(draws, state, batch_items, bcount, n=n, decay=decay)
+
+
 def realize(key: prng.Key, state: RTBSState):
     """Draw the actual sample S_t: (mask over the n+1 slots, |S_t|)."""
     u = prng.uniform(key, state.lat.weight.shape, state.lat.weight.device)
@@ -213,16 +326,18 @@ def realize(key: prng.Key, state: RTBSState):
 
 def run_stream(key: prng.Key, state: RTBSState, batches: Any,
                bcounts: torch.Tensor, *, n: int, lam: float | None = None,
-               decay=None):
+               decay=None, use_ref: bool = False):
     """Step over a stream of T batches (tick t uses ``split(key, T)[t]``);
-    returns the final state and the per-tick trace {"C": [T], "W": [T]}."""
+    returns the final state and the per-tick trace {"C": [T], "W": [T]}.
+    ``use_ref`` steps with :func:`step_ref` instead."""
     T = bcounts.shape[0]
     keys = prng.split(key, T)
+    stepper = step_ref if use_ref else step
     Cs, Ws = [], []
     for t in range(T):
         batch_t = pytree.tree_map(lambda a: a[t], batches)
-        state = step(keys[t], state, batch_t, bcounts[t], n=n, lam=lam,
-                     decay=decay)
+        state = stepper(keys[t], state, batch_t, bcounts[t], n=n, lam=lam,
+                        decay=decay)
         Cs.append(state.lat.weight)
         Ws.append(state.total_weight)
     return state, {"C": torch.stack(Cs), "W": torch.stack(Ws)}

@@ -12,6 +12,10 @@ PyTorch version of the same function.
                          whose trip count lives on the device: a parallel
                          last-writer forest for long rows, one thread a
                          row for the bank's short ones.
+  * variates          -- H2, the binomial draws of T-TBS and B-TBS, and H3,
+                         the hypergeometric draw of B-RS: one thread a row
+                         runs the draw's loop to its end, so no trip count
+                         reaches the host.
   * flash_attention   -- B4, online-softmax GQA attention with causal and
                          sliding-window masks (replaces the Pallas
                          ``flash_attention_bhsd``): the LM prefill. bf16
@@ -35,12 +39,15 @@ from .reservoir_compact import ops as _rc
 from .ssd_scan import ops as _ss
 from .swap_delete import ops as _sd
 from .tbs_step import ops as _ts
+from .variates import ops as _va
 
 WRAPPERS = {
     "tbs_step_apply": _ts.tbs_step_apply,
     "tbs_step_apply_banked": _ts.tbs_step_apply_banked,
     "reservoir_compact": _rc.reservoir_compact,
     "swap_delete": _sd.swap_delete,
+    "binomial": _va.binomial,
+    "hypergeometric": _va.hypergeometric,
     "flash_attention": _fa.flash_attention,
     "ssd_scan": _ss.ssd_scan,
 }

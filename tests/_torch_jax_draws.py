@@ -81,3 +81,20 @@ def bank_tick_draws(tkeys, cap, bcap):
     return trt.TickDraws(ds=tl.DownsampleDraws(*map(t, a)),
                          over=tl.DownsampleDraws(*map(t, o)), u_m=t(u_m),
                          rb_vic=t(vic), rb_pick=t(pick))
+
+
+def exact_ds_draws(key, cap):
+    """``latent.downsample_map(..., exact=True)``'s draws: kperm, ku = split(key)."""
+    kperm, ku = jax.random.split(key)
+    return tl.ExactDownsampleDraws(u=uniform(ku), u_perm=uniform(kperm, (cap,)))
+
+
+def ref_draws(key, cap, bcap):
+    """``rtbs.step_ref``'s draws: k_ds, k_over = split(key) for the
+    unsaturated path, k_m, k_vic, k_pick, k_ds = split(key, 4) for the
+    saturated one."""
+    k_ds, k_over = jax.random.split(key)
+    k_m, k_vic, k_pick, k_sds = jax.random.split(key, 4)
+    return trt.RefDraws(ds=exact_ds_draws(k_ds, cap), over=exact_ds_draws(k_over, cap + bcap),
+                        u_m=uniform(k_m), u_vic=uniform(k_vic, (cap,)),
+                        u_pick=uniform(k_pick, (bcap,)), sat_ds=exact_ds_draws(k_sds, cap))

@@ -960,3 +960,79 @@ def test_serve_mamba2_two_layers_full_width_on_card_equals_cpu(dev):
     assert out["cuda"][1].prefill_launches["ssd_scan"] == 2
     assert out["cuda"][1].decode_launches["ssd_scan"] == 0
     np.testing.assert_array_equal(out["cuda"][1].tokens, out["cpu"][1].tokens)
+
+
+# ---------------------------------------------------------------------------
+# H2 (binomial) and H3 (hypergeometric)
+# ---------------------------------------------------------------------------
+def test_binomial_kernel_equals_plain(dev):
+    """H2 on 16,384 rows of both routes, the route boundary, counts up to
+    2^22 and the edges: bit for bit its plain version on the card, in one
+    launch."""
+    from repro_torch.kernels.variates import cases, ops as va_ops, ref as va_ref
+
+    keys, count, p = cases.binomial_rows(16_384, dev, seed=3)
+    n0 = va_ops.binomial.launches
+    got = va_ops.binomial(keys, count, p)
+    want = va_ref.binomial_ref(keys, count, p)
+    torch.cuda.synchronize()
+    assert va_ops.binomial.launches == n0 + 1
+    assert torch.equal(got, want)
+    assert ((got >= 0) & (got <= count)).all()
+
+
+def test_hypergeometric_kernel_equals_plain(dev):
+    """H3 on 4,096 rows (B-RS-like supports up to 65,537, small and edge
+    populations): bit for bit its plain version on the card."""
+    from repro_torch.kernels.variates import cases, ops as va_ops, ref as va_ref
+
+    u, k, a, b = cases.hypergeometric_rows(4096, dev, seed=4)
+    n0 = va_ops.hypergeometric.launches
+    got = va_ops.hypergeometric(u, k, a, b, cases.H3_TRIPS)
+    want = va_ref.hypergeometric_ref(u, k, a, b, cases.H3_TRIPS)
+    torch.cuda.synchronize()
+    assert va_ops.hypergeometric.launches == n0 + 1
+    assert torch.equal(got, want)
+    assert ((got >= torch.clamp(k - b, min=0)) & (got <= torch.minimum(a, k))).all()
+
+
+def test_variates_without_host_sync(dev):
+    from repro_torch.kernels.variates import cases, ops as va_ops
+
+    keys, count, p = cases.binomial_rows(1024, dev)
+    u, k, a, b = cases.hypergeometric_rows(1024, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x = va_ops.binomial(keys, count, p)
+        y = va_ops.hypergeometric(u, k, a, b, cases.H3_TRIPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert x.shape == (1024,) and y.shape == (1024,)
+
+
+@pytest.mark.parametrize("scheme,hyper", [
+    ("ttbs", dict(n=255, lam=0.05, batch_size=32)), ("btbs", dict(lam=0.05, cap=1024)),
+    ("brs", dict(n=255)), ("sw", dict(n=255))])
+def test_simple_schemes_card_equal_cpu(dev, scheme, hyper):
+    """Each scheme's loop over 16 ticks on the card (B1, H2, H3) equals the
+    CPU's (their plain versions) bit for bit: items, count, overflow, W."""
+    from repro_torch.core.api import make_sampler
+    from repro_torch.data.streams import LinRegStream
+    from repro_torch.manage import make_model, make_run_loop, materialize_stream
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        batches, bcounts = materialize_stream(LinRegStream(seed=4), 16,
+                                              batch_size=lambda t: 32 if t < 8 else 5,
+                                              bcap=32, device=d)
+        run = make_run_loop(make_sampler(scheme, **hyper, device=d),
+                            make_model("linreg", dim=2, device=d), retrain_every=4)
+        out[d.type] = run(prng.key(2), batches, bcounts)
+    (sg, _, tg), (sc, _, tc) = out["cuda"], out["cpu"]
+    for f in ("x", "y"):
+        assert torch.equal(sg.items[f].cpu(), sc.items[f])
+    for a, b in ((sg.count, sc.count), (sg.overflow, sc.overflow),
+                 (sg.total_weight, sc.total_weight), (tg["size"], tc["size"])):
+        assert torch.equal(a.cpu(), b)

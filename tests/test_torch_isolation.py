@@ -14,6 +14,9 @@ MODULES = [
     "repro_torch", "repro_torch._device", "repro_torch.convert",
     "repro_torch.core", "repro_torch.core.prng", "repro_torch.core.rng",
     "repro_torch.core.latent", "repro_torch.core.rtbs", "repro_torch.core.api",
+    "repro_torch.core.simple", "repro_torch.kernels.variates",
+    "repro_torch.kernels.variates.ops", "repro_torch.kernels.variates.kernel",
+    "repro_torch.kernels.variates.ref", "repro_torch.kernels.variates.cases",
     "repro_torch.kernels", "repro_torch.kernels._build",
     "repro_torch.kernels.tbs_step.ops", "repro_torch.kernels.tbs_step.kernel",
     "repro_torch.kernels.reservoir_compact.ops",
@@ -130,6 +133,12 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     y, _ = ssd_scan(x, torch.rand(1, 4, 2), -torch.ones(2), x[:, :, :1], x[:, :, 1:],
                     chunk=2)
     assert y.shape == x.shape
+    from repro_torch.kernels.variates.ops import binomial, hypergeometric
+
+    assert binomial(torch.tensor([[1, 2]]), torch.tensor([5]), torch.tensor([1.0])).tolist() == [5]
+    assert hypergeometric(torch.tensor([0.5]), torch.tensor([3]), torch.tensor([3]),
+                          torch.tensor([0]), 4).tolist() == [3]
     assert kernels.launches() == {"tbs_step_apply": 0, "tbs_step_apply_banked": 0,
                                   "reservoir_compact": 0, "swap_delete": 0,
+                                  "binomial": 0, "hypergeometric": 0,
                                   "flash_attention": 0, "ssd_scan": 0}
