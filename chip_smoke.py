@@ -81,12 +81,16 @@ the JAX package. Every check raises on failure; no phase catches its own.
      of B-RS by scope. (b) each scheme at n = 4,095 on the card and the
      CPU, bit for bit. (c) H2 and H3 against their plain versions on
      65,536-row sweeps (both of H2's routes, its edges and counts up to
-     2^22; H3's supports up to 65,537), their sample moments within 5
-     standard errors of the analytic ones (H3 at two main-path triples:
-     of its f32 algorithm's own distribution, the reference being biased
-     there, ROADMAP C.8), and (d) their times at the main path's shapes
-     beside their bounds, their plain versions and, for H2,
-     ``torch.binomial``;
+     2^22; H3's supports up to 65,537) and H3 on its block-edge rows
+     (hits on the first and last trip of its blocks, hi mid-block,
+     supports of one block and one more trip, the guard) under five trips
+     caps, their sample moments within 5 standard errors of the analytic
+     ones (H3 at two main-path triples: of its f32 algorithm's own
+     distribution, the reference being biased there, ROADMAP C.8), and
+     (d) their times at the main path's shapes beside their bounds, their
+     plain versions and, for H2, ``torch.binomial``; H3 at a saturated, a
+     late and a first B-RS tick and on the 65,536-row sweep, each beside
+     its chain floor (trips x 4 cycles at the top SM clock);
  10. the ``kernels`` JSON line, the card line, and the result line.
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
@@ -1643,6 +1647,9 @@ _SIMPLE_SCOPES = ("manage.eval", "manage.sampler_step", "simple.tick_map", "simp
 # 2 key adds) and BTRS's ~45 f32 operations (4 logarithms); H3's exp, log
 # and ~12 f32 operations
 H2_OPS_PER_TRIP, H3_OPS_PER_TRIP = 150, 14
+# H3 at a saturated B-RS tick before its CTA-a-row design, one thread a
+# row: this script's phase 9 (d) on an NVIDIA H100 80GB HBM3 at 700 W
+H3_BEFORE_MS = 10.163
 
 
 def _fma32(np, a, b, c):
@@ -1844,7 +1851,9 @@ def phase_variates(torch, np, timer, bw, reps):
     against the analytic moments, and timed at the main path's shapes."""
     dev, rows, draws = "cuda", 65_536, 1 << 20
     from repro_torch.core import prng, rng
-    from repro_torch.kernels.variates import cases, ops as va_ops, ref as va_ref
+    from repro_torch.kernels import _bench
+    from repro_torch.kernels.variates import bench as va_bench, cases, kernel as va_kernel
+    from repro_torch.kernels.variates import ops as va_ops, ref as va_ref
 
     # (a) H2 on a sweep of 65,536 rows, bit for bit
     keys, count, p = cases.binomial_rows(rows, dev, seed=1)
@@ -1874,6 +1883,22 @@ def phase_variates(torch, np, timer, bw, reps):
     width = (torch.minimum(a, k) - torch.clamp(k - b, min=0) + 1).max().item()
     print(f"[9] (c) H3 == plain bit for bit on {rows} rows (supports up to {width} wide; "
           f"the plain version took {time.perf_counter() - t0:.1f} s)")
+    # H3's block-edge rows: hits on the first and last trip of its blocks,
+    # hi mid-block, supports of one block and one more trip, the guard;
+    # under the full trips bound and caps inside and at its first block
+    eu, ek, ea, eb, aim = cases.hypergeometric_edge_rows(dev)
+    B = va_kernel.H3_BLOCK
+    for trips in (cases.H3_TRIPS, cases.H3_CAP_MID_BLOCK, 1, B, B + 1):
+        got = va_ops.hypergeometric(eu, ek, ea, eb, trips)
+        want = va_ref.hypergeometric_ref(eu, ek, ea, eb, trips)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"H3 differs from its plain version on its block-edge "
+              f"rows at trips {trips}: {got.tolist()} vs {want.tolist()}")
+        if trips == cases.H3_TRIPS:
+            ends = (got - torch.clamp(ek - eb, min=0)).tolist()
+    print(f"[9] (c) H3 == plain bit for bit on {ek.numel()} block-edge rows (blocks of {B} "
+          f"trips; draws end on trips {ends} of the full bound) at trips {cases.H3_TRIPS}, "
+          f"{cases.H3_CAP_MID_BLOCK}, 1, {B}, {B + 1}")
 
     # (c) moments on the card
     N = draws
@@ -1931,32 +1956,45 @@ def phase_variates(torch, np, timer, bw, reps):
     _, tr2 = va_ref.binomial_ref(keys, count, p, return_trips=True)
     ops2 = int(tr2.sum()) * H2_OPS_PER_TRIP
     b2 = {"bytes": 2 * (16 + 8 + 4 + 8) / bw * 1e3, "operations": ops2 / PEAK["float32"] * 1e3}
-    u = torch.full((1,), 0.5, device=dev)
-    k1, a1, b1 = (torch.tensor([v], device=dev) for v in (1 << 20, BCAP_MAIN, 1 << 20))
-    h3_ms = timer(lambda: va_ops.hypergeometric(u, k1, a1, b1, cases.H3_TRIPS), reps)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    m_plain = va_ref.hypergeometric_ref(u, k1, a1, b1, cases.H3_TRIPS)
-    ev[1].record()
-    torch.cuda.synchronize()
-    plain3_ms = ev[0].elapsed_time(ev[1])
-    trips3 = int(m_plain) + 1                    # lo = 0: trips 0..M
-    b3 = {"bytes": (4 + 3 * 8 + 8) / bw * 1e3,
-          "operations": trips3 * H3_OPS_PER_TRIP / PEAK["float32"] * 1e3}
     print(f"[9] (d) H2, a T-TBS tick's 2 rows (Bin(2^20, {math.exp(-LAM):.4f}), Bin(65536, "
           f"{q:.4f}); {int(tr2.sum())} trips): kernel {h2_ms:.4f} ms; plain {plain2_ms:.4f} ms; "
           f"torch.binomial {lib2_ms:.4f} ms; bound {max(b2.values()):.2e} ms "
           f"(bytes {b2['bytes']:.2e}, operations {b2['operations']:.2e})")
-    print(f"[9] (d) H3, a saturated B-RS tick (HyperGeo(2^20, 65536, 2^20), u = 0.5: "
-          f"{trips3} trips in one thread): kernel {h3_ms:.4f} ms = "
-          f"{1e6 * h3_ms / trips3:.2f} ns a trip; plain {plain3_ms:.1f} ms (one call); "
-          f"bound {max(b3.values()):.2e} ms (bytes {b3['bytes']:.2e}, operations "
-          f"{b3['operations']:.2e})")
+    # H3 on B-RS's rows M ~ HyperGeo(C, B, W) at the main cell, u = 0.5: a
+    # saturated tick (C = W = 2^20), a late one (W = 47 B), the first (W =
+    # 0: one trip), and the 65,536-row sweep; beside each the chain floor
+    # (its longest row's trips x 4 cycles at the top SM clock)
+    mhz = _bench.max_sm_clock_mhz()
+    h3 = {}
+    for name, (u, k1, a1, b1) in va_bench.shapes(dev).items():
+        ms = timer(lambda: va_ops.hypergeometric(u, k1, a1, b1, cases.H3_TRIPS), reps)
+        tr = va_ops.hypergeometric(u, k1, a1, b1, cases.H3_TRIPS) - torch.clamp(k1 - b1, min=0) + 1
+        trips3, longest = int(tr.sum()), int(tr.max())
+        bnd = {"bytes": u.numel() * (4 + 3 * 8 + 8) / bw * 1e3,
+               "operations": trips3 * H3_OPS_PER_TRIP / PEAK["float32"] * 1e3}
+        h3[name] = dict(ms=ms, trips=trips3, longest_trips=longest, bound_ms=max(bnd.values()),
+                        bound_by=max(bnd, key=bnd.get),
+                        chain_floor_ms=va_bench.chain_floor_ms(longest, mhz))
+        print(f"[9] (d) H3 {name} ({u.numel()} rows, {trips3} trips, the longest {longest}): "
+              f"kernel {ms:.4f} ms = {1e6 * ms / longest:.2f} ns a trip of the longest row; "
+              f"chain floor {h3[name]['chain_floor_ms']:.4f} ms (x 4 cycles at {mhz:.0f} MHz); "
+              f"bound {h3[name]['bound_ms']:.2e} ms ({h3[name]['bound_by']})"
+              + (f"; a thread a row before: {H3_BEFORE_MS} ms" if name == "saturated" else ""))
+    u, k1, a1, b1 = va_bench.shapes(dev)["saturated"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    va_ref.hypergeometric_ref(u, k1, a1, b1, cases.H3_TRIPS)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain3_ms = ev[0].elapsed_time(ev[1])
+    print(f"[9] (d) H3 saturated: plain version {plain3_ms:.1f} ms (one call)")
+    sat = h3.pop("saturated")
     return {"binomial": dict(err=0.0, ms=h2_ms, plain_ms=plain2_ms, library_ms=lib2_ms,
                              bound_ms=max(b2.values()), bound_by=max(b2, key=b2.get)),
-            "hypergeometric": dict(err=0.0, ms=h3_ms, plain_ms=plain3_ms, library_ms=None,
-                                   bound_ms=max(b3.values()), bound_by=max(b3, key=b3.get),
-                                   trips=trips3)}
+            "hypergeometric": dict(err=0.0, ms=sat["ms"], plain_ms=plain3_ms, library_ms=None,
+                                   bound_ms=sat["bound_ms"], bound_by=sat["bound_by"],
+                                   trips=sat["trips"], chain_floor_ms=sat["chain_floor_ms"],
+                                   shapes=h3)}
 
 
 def main() -> int:
@@ -2047,6 +2085,8 @@ def main() -> int:
             rows[-1]["bound_counts"] = r["bound_counts"]
         if "main_tick_map_ms" in r:     # B1's row: ms is phase 2's uniform map
             rows[-1]["main_tick_map_ms"] = r["main_tick_map_ms"]
+        if "chain_floor_ms" in r:       # H3's row: computed, as bound_ms is, from this
+            rows[-1]["chain_floor_ms"] = r["chain_floor_ms"]   # run's trips and top SM clock
     # B4's f32 calls build from their own source; the row's numbers are the
     # bf16 route's, the one the served prefill runs
     rows[list(kres).index("flash_attention")]["f32_route"] = {

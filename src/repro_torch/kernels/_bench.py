@@ -4,7 +4,7 @@
 events), the host's wall time to make it (the wrapper's Python and its
 launches), and the device time of each kernel it launches (the profiler).
 :func:`card` is the card's name and power limit as ``nvidia-smi`` gives
-them. CUDA only; nothing here runs at import.
+them, :func:`max_sm_clock_mhz` its top SM clock. CUDA only; nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -22,6 +22,15 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_mhz() -> float:
+    """``nvidia-smi --query-gpu=clocks.max.sm``, first card, in MHz: the
+    clock a chain floor of cycles is converted at."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 class Timer:

@@ -8,11 +8,11 @@
 // src/repro/core/rng.py:42 `hypergeometric` (B-RS's M ~ HyperGeo(C, B, W),
 // Alg. 5 line 5). Run eagerly in PyTorch each is a loop of small launches
 // steered by the host, which would have to read a value back every trip.
-// Here each row is one thread that runs its loop to the end on the device,
-// so a tick never syncs to the host.
+// Here each row runs its loop to the end on the device, so a tick never
+// syncs to the host.
 //
-//   H2 binomial_kernel: row t draws Bin(count[t], p[t]) from its key
-//     keys[t] = (k0, k1), with JAX's algorithm: q = min(p, 1 - p), inversion
+//   H2 binomial_kernel, one thread a row: row t draws Bin(count[t], p[t])
+//     from its key keys[t] = (k0, k1), with JAX's algorithm: q = min(p, 1 - p), inversion
 //     (a sum of geometric gaps, one uniform a trip) where count * q <= 10,
 //     BTRS (transformed rejection with squeeze, two uniforms a trip) where
 //     not, the result reflected to count - x where p >= 0.5. Trip i takes
@@ -21,12 +21,12 @@
 //     explicitly (0, count, 0; JAX's results), so a lost sign of zero can
 //     never turn p = 1's inversion, which JAX ends only through
 //     log1p(-0.0) = -0.0, into an endless loop. A NaN p gives -1.
-//   H3 hypergeometric_kernel: row t draws HyperGeo(k, a, b) by inverse
-//     transform from its operand uniform u[t]: a sequential f32 cdf over
-//     the pmf-ratio recurrence from lo = max(0, k - b), stopping at the
-//     first trip whose cdf reaches u (JAX's loop never changes its value
-//     after that trip) or past hi = min(a, k), and at most `trips` trips
-//     (JAX's max_support + 1); hi where the cdf never reached u.
+//   H3 hypergeometric_kernel, one CTA a row: row t draws HyperGeo(k, a, b)
+//     by inverse transform from its operand uniform u[t]: a sequential f32
+//     cdf over the pmf-ratio recurrence from lo = max(0, k - b), stopping
+//     at the first trip whose cdf reaches u (JAX's loop never changes its
+//     value after that trip) or past hi = min(a, k), and at most `trips`
+//     trips (JAX's max_support + 1); hi where the cdf never reached u.
 //
 // The plain versions (kernels/variates/ref.py) repeat every f32 operation
 // in the same order. The kernels' own arithmetic is written with the _rn
@@ -38,13 +38,38 @@
 // and, inside log Gamma (XLA's Lanczos formula), log and log1p in f64. So
 // on the card a kernel and its plain version agree bit for bit.
 //
-// Bound: each is a serial loop in one thread a row, so neither bytes nor
-// operations bound it on this card: its time is the dependent chain of one
-// row's trips. The byte bound (the operands read once and the result
-// written once) is what chip_smoke.py reports beside it. H3 at the main
-// B-RS tick runs ~61,700 trips in one thread; a parallel design (lanes
-// that evaluate the pmf terms ahead of one serial accumulation) is later
-// work.
+// Bound. Neither bytes nor operations bound either kernel on this card
+// (chip_smoke.py reports the byte and operation bounds beside them):
+//   H2 is a serial loop in one thread a row, and at a T-TBS tick's two rows
+//     of one or two trips its time is the launch.
+//   H3 at a saturated B-RS tick runs ~61,700 trips of one row. Of a trip's
+//     work only two f32 adds depend on the trip before: logp += log(ratio)
+//     and cdf += exp(logp). The ratio depends only on the trip's s, and
+//     exp(logp) only on that trip's logp. So the bound is the ordered
+//     chain of dependent adds, about 4 cycles a trip (PERF.md calls it the
+//     chain floor), not the ~300-cycle trip of a thread that does it all.
+//     The design, one CTA a row: trips go in blocks of kBlock. Six
+//     producer warps evaluate, 32 trips to an instruction, the log-ratios
+//     of block j + 1 and the exps of block j - 1. Warp 0 runs the logp
+//     chain of block j and warp 1 the cdf chain of block j - 2, so the
+//     two chains run side by side on two schedulers. Each stage ends in one
+//     __syncthreads_or() of the cdf warp's stop, so every warp leaves after
+//     the same barrier and an exit can never strand a warp at one. Why two chain warps: a warp
+//     issues shared-memory accesses far more slowly than dependent adds,
+//     and one warp that read both chains' terms and wrote both chains'
+//     values a trip at a time ran well above the chain floor. Here every
+//     lane of a chain warp carries the same sum from broadcast float4
+//     reads (one read per 4 trips), and lane i keeps the chain's value at
+//     trip i of each 32 with a bitwise select (one LOP3 a trip, no
+//     predicate). The logp warp then writes 32 values in one warp-wide
+//     store, and each lane of the cdf warp tests its own trip for the
+//     serial loop's stop; one warp reduction a block finds the first.
+//     Those stores and tests run inside the next chunk's loop body, where
+//     the adds hide them. The start value's nine log Gamma calls run on
+//     nine lanes at once. Every add keeps the serial loop's order and
+//     every libm call is the same, so the draw is the serial loop's bit
+//     for bit; terms evaluated past the exit are thrown away. Rows of many
+//     trips fill the card with CTAs.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,7 +78,19 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;     // H2: a thread a row
+
+// H3: a CTA a row. Warp 0 runs the logp chain, warp 1 the cdf chain, and
+// the other warps are producers (the block size and the producers were
+// chosen by timing 256 to 1024 trips and 2 to 6 producer warps).
+constexpr int kProducerWarps = 6;
+constexpr int kRowThreads = 32 * (2 + kProducerWarps);
+constexpr int kProducers = 32 * kProducerWarps;
+constexpr int kBlock = 1024;      // trips a block (kernels/variates/kernel.py H3_BLOCK)
+constexpr int kChunk = 32;        // a chain warp's unit: one trip a lane
+constexpr int kRatioSlots = 2;    // log-ratios: written at stage j - 1, read at j
+constexpr int kProbSlots = 4;     // logp, then exp in place: written at j, read at j + 2
+constexpr int kAhead = 3;         // float4 reads in flight on a chain
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -172,38 +209,185 @@ __device__ float lgamma_xla(float x) {
   return add(w, (float)log((double)a));
 }
 
-__device__ __forceinline__ float log_comb(float n, float k) {
-  return sub(sub(lgamma_xla(add(n, 1.0f)), lgamma_xla(add(k, 1.0f))),
-             lgamma_xla(add(sub(n, k), 1.0f)));
+// the trips of block j that the stages evaluate: those below n, rounded
+// up to a whole chunk (the terms past n are evaluated and never read)
+__device__ __forceinline__ int block_len(long long n, long long j) {
+  const long long r = j < 0 ? 0 : n - j * kBlock;
+  if (r <= 0) return 0;
+  return r >= kBlock ? kBlock : (int)((r + kChunk - 1) / kChunk * kChunk);
 }
 
-__global__ void hypergeometric_kernel(long long* __restrict__ out, const float* __restrict__ u,
-                                      const long long* __restrict__ kk,
-                                      const long long* __restrict__ aa,
-                                      const long long* __restrict__ bb, long long trips,
-                                      long long T) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const float k = (float)kk[t], a = (float)aa[t], b = (float)bb[t], ut = u[t];
+// log of the pmf ratio p(s + 1) / p(s) at trip g, s = lo + g, formed as
+// the serial loop forms it (log 1 where num or den is not positive)
+__device__ __forceinline__ float log_ratio(float lo, float a, float k, float bk, long long g) {
+  const float s = add(lo, (float)g);
+  const float num = mul(sub(a, s), sub(k, s));
+  const float den = mul(add(s, 1.0f), add(add(bk, s), 1.0f));
+  return logf((num > 0.0f && den > 0.0f) ? dvd(num, den) : 1.0f);
+}
+
+// An ordered chain over the first `len` trips of a slot (len a
+// multiple of kChunk): run += slot[i] in order, every lane of the warp
+// carrying the same sum from broadcast float4 reads, which run kAhead
+// float4s ahead of the adds and never past `len`. Lane i keeps the
+// chain's value at trip i of each chunk of 32 (before its add where
+// `before`, after it where not) and hands it to done(valid, c, value)
+// for the chunk at trip c. A lane keeps its value with its one-hot masks own[i]
+// (all ones at its own trip i, else zero): value |= bits(run) & own[i],
+// one LOP3 a trip over four accumulators. The masks come from shared
+// memory, so the compiler cannot turn them back into a compare and a
+// predicated select at every trip. done runs for each chunk inside the
+// next chunk's loop body, with `valid` false on the first, so that its
+// work (a store, a stop test) is scheduled among that chunk's adds and
+// the chain never waits for it; the last chunk's runs after the loop.
+template <bool before, class Done>
+__device__ __forceinline__ void chain(const float* slot, int len, const unsigned (&own)[kChunk],
+                                      float& run, Done&& done) {
+  if (len <= 0) return;
+  const float4* in = reinterpret_cast<const float4*>(slot);
+  const int nv = len / 4;
+  float4 x[kAhead];
+#pragma unroll
+  for (int r = 0; r < kAhead; ++r) x[r] = in[min(r, nv - 1)];
+  unsigned last = 0u;                 // the value of the chunk before
+  for (int v = 0; v < nv; v += kChunk / 4) {
+    done(v > 0, 4 * v - kChunk, __uint_as_float(last));
+    unsigned mine[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int q = 0; q < kChunk / 4; ++q) {
+      const float4 xn = in[min(v + q + kAhead, nv - 1)];
+      const float y[4] = {x[0].x, x[0].y, x[0].z, x[0].w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (before) mine[r] |= __float_as_uint(run) & own[4 * q + r];
+        run = add(run, y[r]);
+        if (!before) mine[r] |= __float_as_uint(run) & own[4 * q + r];
+      }
+#pragma unroll
+      for (int r = 0; r + 1 < kAhead; ++r) x[r] = x[r + 1];
+      x[kAhead - 1] = xn;
+    }
+    last = (mine[0] | mine[1]) | (mine[2] | mine[3]);
+  }
+  done(true, len - kChunk, __uint_as_float(last));
+}
+
+// Stage t (t = -1, 0, 1, ...) of a row. Block j's log-ratios live in slot
+// j % kRatioSlots of `ratio`, its logps and then their exps in slot
+// j % kProbSlots of `prob`:
+//   warp 0     the logp chain over block t: reads its log-ratios, writes
+//              the logp each trip starts from (one warp-wide store a
+//              chunk); at t = -1 the start value's log Gamma terms;
+//   warp 1     the cdf chain over block t - 2: reads its exps; each lane
+//              tests its own trip of each chunk for the serial loop's stop
+//              (past n, past hi, or a cdf that reached u), and the block's
+//              first stop, by one warp reduction, writes the draw and ends
+//              the row at the stage's closing __syncthreads_or();
+//   producers  the log-ratios of block t + 1 and the exps of block t - 1
+//              (its logps, in place).
+// The slots a stage touches are distinct, and no warp writes what another
+// reads in the same stage.
+__global__ void __launch_bounds__(kRowThreads)
+hypergeometric_kernel(long long* __restrict__ out, const float* __restrict__ u,
+                      const long long* __restrict__ kk, const long long* __restrict__ aa,
+                      const long long* __restrict__ bb, long long trips) {
+  __shared__ __align__(16) float ratio[kRatioSlots][kBlock];
+  __shared__ __align__(16) float prob[kProbSlots][kBlock];
+  __shared__ float lg[9];
+  __shared__ unsigned eye[2 * kChunk];   // lane l's mask for trip i: eye[kChunk + i - l]
+  const long long row = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float k = (float)kk[row], a = (float)aa[row], b = (float)bb[row], ut = u[row];
   const float lo = fmaxf(0.0f, sub(k, b));
   const float hi = fminf(a, k);
-  float logp = sub(add(log_comb(a, lo), log_comb(b, sub(k, lo))), log_comb(add(a, b), k));
-  float cdf = 0.0f, val = -1.0f;
   const float bk = sub(b, k);
-  for (long long i = 0; i < trips; ++i) {
-    const float s = add(lo, (float)i);
-    if (!(s <= hi)) break;            // past the support: nothing changes any more
-    cdf = add(cdf, expf(logp));
-    if (cdf >= ut) {
-      val = s;
-      break;
-    }
-    const float num = mul(sub(a, s), sub(k, s));
-    const float den = mul(add(s, 1.0f), add(add(bk, s), 1.0f));
-    const float ratio = (num > 0.0f && den > 0.0f) ? dvd(num, den) : 1.0f;
-    logp = add(logp, logf(ratio));
+  // n: the trips that can matter, at most `trips` and, where lo + g is
+  // exact (hi below 2^24), none past hi. The stop test still checks
+  // s <= hi itself, as the serial loop does.
+  long long n = trips;
+  if (hi < 16777216.0f) n = min(n, (long long)sub(hi, lo) + 1);
+  if (n <= 0) {                       // the first trip is already past hi
+    if (tid == 0) out[row] = (long long)hi;
+    return;
   }
-  out[t] = (long long)(val < 0.0f ? hi : val);
+  const long long nb = (n + kBlock - 1) / kBlock;
+  if (tid < 2 * kChunk) eye[tid] = tid == kChunk ? ~0u : 0u;
+  __syncthreads();
+  unsigned own[kChunk];               // the chain warps' one-hot masks
+  if (warp < 2) {
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) own[i] = eye[kChunk + i - lane];
+  }
+
+  float run = 0.0f;                   // warp 0: logp; warp 1: cdf
+  for (long long t = -1;; ++t) {
+    int stop = 0;                     // warp 1 lane 0: this stage wrote the draw
+    if (warp == 0) {
+      if (t < 0) {
+        // the start value log C(a, lo) + log C(b, k - lo) - log C(a + b, k),
+        // log C(n, m) = lgamma(n + 1) - lgamma(m + 1) - lgamma(n - m + 1)
+        // (ref.py log_comb): its nine log Gamma terms, one a lane
+        const float x = sub(k, lo), ab = add(a, b);
+        const float arg[9] = {a, lo, sub(a, lo), b, x, sub(b, x), ab, k, sub(ab, k)};
+        float v = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) v = lane == i ? arg[i] : v;
+        if (lane < 9) lg[lane] = lgamma_xla(add(v, 1.0f));
+      } else {
+        if (t == 0) {
+          float lc[3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) lc[i] = sub(sub(lg[3 * i], lg[3 * i + 1]), lg[3 * i + 2]);
+          run = sub(add(lc[0], lc[1]), lc[2]);
+        }
+        float* lp = prob[t & (kProbSlots - 1)];
+        chain<true>(ratio[t & (kRatioSlots - 1)], block_len(n, t), own, run,
+                    [&](bool valid, int c, float logp) {
+          if (valid) lp[c + lane] = logp;   // the logp trip c + lane starts from
+        });
+      }
+    } else if (warp == 1) {
+      const long long j = t - 2;
+      if (j >= 0 && j < nb) {
+        // the serial loop's stop at trip g: past n, past hi, or a cdf that
+        // reached u. The chain runs the whole block; each lane notes the
+        // first chunk where its own trip stops, and the least such trip,
+        // one warp reduction a block, ends the row.
+        // The test is written without short-circuits, so that it compiles
+        // to predicated code the chain's adds can hide.
+        int first = -1;
+        const long long g0 = j * kBlock + lane;
+        chain<false>(prob[j & (kProbSlots - 1)], block_len(n, j), own, run,
+                     [&](bool valid, int c, float cdf) {
+          const long long g = g0 + c;
+          const bool st = (g >= n) | !(add(lo, (float)g) <= hi) | (cdf >= ut);
+          first = (first < 0) & valid & st ? c : first;
+        });
+        const int f = __reduce_min_sync(0xffffffffu, first < 0 ? kBlock : first + lane);
+        if (f < kBlock || j == nb - 1) {   // block nb - 1 ends at trip n: hi
+          if (lane == 0) {
+            const long long g = j * kBlock + f;
+            const float s = add(lo, (float)g);
+            out[row] = (long long)(f < kBlock && g < n && s <= hi ? s : hi);
+            stop = 1;
+          }
+        }
+      }
+    } else {
+      const int p = tid - 64;
+      const int nl = block_len(n, t + 1), ne = block_len(n, t - 1);
+      float* lr = ratio[(t + 1) & (kRatioSlots - 1)];
+      float* ex = prob[(t - 1) & (kProbSlots - 1)];
+      const long long g0 = (t + 1) * kBlock;
+#pragma unroll
+      for (int m = 0; m < (kBlock + kProducers - 1) / kProducers; ++m) {
+        const int i = p + m * kProducers;
+        if (i < nl) lr[i] = log_ratio(lo, a, k, bk, g0 + i);
+        if (i < ne) ex[i] = expf(ex[i]);
+      }
+    }
+    if (__syncthreads_or(stop)) break;   // every warp leaves after the same barrier
+  }
 }
 
 unsigned blocks(long long T) { return (unsigned)((T + kThreads - 1) / kThreads); }
@@ -221,9 +405,10 @@ extern "C" int variates_binomial(void* out, const void* keys, const void* count,
 extern "C" int variates_hypergeometric(void* out, const void* u, const void* k, const void* a,
                                        const void* b, long long trips, long long T,
                                        void* stream) {
+  if (T > 0x7fffffffLL) return (int)cudaErrorInvalidValue;   // a CTA a row
   if (T > 0)
-    hypergeometric_kernel<<<blocks(T), kThreads, 0, (cudaStream_t)stream>>>(
+    hypergeometric_kernel<<<(unsigned)T, kRowThreads, 0, (cudaStream_t)stream>>>(
         (long long*)out, (const float*)u, (const long long*)k, (const long long*)a,
-        (const long long*)b, trips, T);
+        (const long long*)b, trips);
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,13 @@ import torch
 
 from repro_torch.core import prng, rng
 
+from . import ref
+from .kernel import H3_BLOCK
+
 # H3's support bound on the main B-RS tick: max_support = bcap = 65,536
 H3_TRIPS = 65_537
+# a trips cap inside H3's second block
+H3_CAP_MID_BLOCK = H3_BLOCK + 44
 
 
 def binomial_rows(N: int, device, seed: int = 0):
@@ -78,3 +83,63 @@ def hypergeometric_rows(N: int, device, seed: int = 0):
     k, a, b = torch.cat([k1, k2, k3]), torch.cat([a1, a2, a3]), torch.cat([b1, b2, b3])
     u = prng.uniform(prng.key(seed + 1), (N,), device)
     return u, k, a, b
+
+
+def _h3_edges():
+    """``((k, a, b), trip)`` rows whose stop falls where H3's blocks of
+    B = H3_BLOCK trips meet: ``trip`` is the trip the draw ends on, "mode"
+    for the most likely trip, or None where the f32 cdf never reaches u
+    (the guard returns hi)."""
+    B = H3_BLOCK
+    rows = [((3, 100, 100), 0)]                        # the first trip of block 0
+    # lo = 0 and the mass at k / 5: the last and the first trip of blocks
+    # 0 | 1 and 1 | 2
+    for trip in (B - 1, B, 2 * B - 1, 2 * B):
+        rows.append(((5 * trip, 4 * B, 16 * B), trip))
+    # hi ends mid-block 1: B + 32 trips from lo = 16, the mass near trip
+    # B + 16 (a b / (a - lo - trip) = a (B + 16) / 15 puts the mean there)
+    a = B + 47
+    b = a * (B + 16) // 15
+    rows.append(((b + 16, a, b), "mode"))
+    # supports of m + 1 trips from lo = a - m to hi = a whose mass sits at
+    # hi: all but m of a items of type a and a (m - 1) of type b drawn.
+    # hi ends mid-block 1; a support of exactly B trips; one of B + 1
+    a = B + 44
+    for m in (a, B - 1, B):
+        b = a * (m - 1)
+        rows.append(((a + b - m, a, b), m))
+    rows += [((1000, 3000, 7000), None),               # 1,001 trips; the cdf never reaches u
+             ((100, 300, 700), None)]
+    return rows
+
+
+def h3_edge_windows():
+    """``[((k, a, b), trip, lo, hi)]``: H3's block-edge rows
+    (:func:`_h3_edges`) with the window of uniforms ``lo < u <= hi`` that
+    ends each draw on its trip (-1 for the guard: a u above the f32 cdf's
+    last value). The cdf is the plain version's, on the CPU, clipped at 1."""
+    import numpy as np
+
+    out = []
+    for (k, a, b), trip in _h3_edges():
+        _, cs = ref.hypergeometric_cdf(k, a, b, H3_TRIPS)
+        cs = np.minimum(cs, 1.0)
+        if trip == "mode":
+            trip = int(np.argmax(np.diff(np.concatenate([[0.0], cs]))))
+        lo, hi = (cs[-1], 1.0) if trip is None else (cs[trip - 1] if trip else 0.0, cs[trip])
+        assert hi - lo > 1e-4, ((k, a, b), trip, lo, hi)
+        out.append(((k, a, b), -1 if trip is None else trip, float(lo), float(hi)))
+    return out
+
+
+def hypergeometric_edge_rows(device):
+    """``(u, k, a, b, trip)`` [R]: the rows of :func:`h3_edge_windows`, u
+    halfway through each window, so that a last-bit difference of a
+    transcendental moves no draw; ``trip`` int64 is the trip each draw
+    ends on (-1: the guard returns hi)."""
+    import numpy as np
+
+    rows = h3_edge_windows()
+    k, a, b = torch.tensor([r[0] for r in rows], dtype=torch.int64, device=device).unbind(1)
+    u = torch.tensor(np.asarray([(r[2] + r[3]) / 2 for r in rows], np.float32), device=device)
+    return u, k, a, b, torch.tensor([r[1] for r in rows], dtype=torch.int64, device=device)

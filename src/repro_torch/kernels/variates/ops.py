@@ -4,9 +4,10 @@ draws of T-TBS / B-TBS and B-RS.
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/variates.cu``) or raises; there is no fallback. The plain versions
 in :mod:`.ref` run only for CPU tensors. Either way a row's loop runs to
-its end without the host: on the card one thread a row, so neither trip
-counts nor results are read back. ``binomial.launches`` and
-``hypergeometric.launches`` count kernel launches.
+its end without the host: on the card H2 takes one thread a row and H3
+one CTA a row, so neither trip counts nor results are read back.
+``binomial.launches`` and ``hypergeometric.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 

@@ -195,13 +195,55 @@ def hypergeometric_ref(u: torch.Tensor, k: torch.Tensor, a: torch.Tensor, b: tor
     return torch.where(val < 0, hi, val).to(torch.int64)
 
 
-def hypergeometric_implied(k: int, a: int, b: int, trips: int):
-    """The exact distribution of :func:`hypergeometric_ref` for one
-    (k, a, b) over a uniform ``u``: value s takes the increment of the f32
-    cdf at s (the cdf clipped at 1), and hi takes as well the mass of every
-    ``u`` the cdf never reaches (the guard). Returns ``(values, probs)`` as
-    f64 numpy arrays: what the draws of the reference algorithm follow,
-    to set beside the analytic pmf."""
+def hypergeometric_blocked_ref(u: torch.Tensor, k: torch.Tensor, a: torch.Tensor,
+                               b: torch.Tensor, trips: int, block: int) -> torch.Tensor:
+    """:func:`hypergeometric_ref` in H3's order of work: ``block`` trips
+    at a time, each block's log-ratios and exps one vector op each, and
+    only the two running sums, logp and cdf, a trip at a time, one f32 add
+    each, in the serial loop's order (never ``torch.cumsum``, whose order
+    and accumulator are not f32 left to right). A row ends at the first
+    trip of a block that is past hi or whose cdf reaches ``u``, and takes
+    hi where no trip below ``trips`` did. Bit-equal to
+    :func:`hypergeometric_ref`."""
+    shape = u.shape
+    k, a, b = (x.to(_F32).reshape(-1, 1) for x in (k, a, b))
+    u = u.to(_F32).reshape(-1, 1)
+    lo = torch.clamp(k - b, min=0.0)
+    hi = torch.minimum(a, k)
+    bk = b - k
+    logp = (log_comb(a, lo) + log_comb(b, k - lo) - log_comb(a + b, k))[:, 0]
+    cdf = torch.zeros_like(logp)
+    val = torch.full_like(logp, -1.0)
+    done = torch.zeros_like(logp, dtype=torch.bool)
+    for g0 in range(0, trips, block):
+        if bool(done.all()):
+            break
+        s = lo + torch.arange(g0, min(g0 + block, trips), device=u.device).to(_F32)
+        num = (a - s) * (k - s)
+        den = (s + 1.0) * (bk + s + 1.0)
+        lr = torch.log(torch.where((num > 0) & (den > 0), num / den, 1.0))
+        lp = torch.empty_like(lr)
+        for i in range(lr.shape[1]):
+            lp[:, i] = logp
+            logp = logp + lr[:, i]
+        e = torch.exp(lp)
+        c = torch.empty_like(e)
+        for i in range(e.shape[1]):
+            cdf = cdf + e[:, i]
+            c[:, i] = cdf
+        stop = ~(s <= hi) | (c >= u)
+        first = stop.to(torch.int8).argmax(1, keepdim=True)    # the first stop, if any
+        sf, cf = s.gather(1, first)[:, 0], c.gather(1, first)[:, 0]
+        ends = stop.any(1) & ~done
+        val = torch.where(ends & (sf <= hi[:, 0]) & (cf >= u[:, 0]), sf, val)
+        done = done | ends
+    return torch.where(val < 0, hi[:, 0], val).to(torch.int64).reshape(shape)
+
+
+def hypergeometric_cdf(k: int, a: int, b: int, trips: int):
+    """The f32 cdf of :func:`hypergeometric_ref` for one (k, a, b), trip by
+    trip while the trip is inside the support: ``(values, cdf)`` as f64
+    numpy arrays, cdf[i] the cdf after trip i, whose value is values[i]."""
     import numpy as np
 
     kf, af, bf = (torch.tensor(float(v)) for v in (k, a, b))
@@ -220,8 +262,20 @@ def hypergeometric_implied(k: int, a: int, b: int, trips: int):
         num = (af - s) * (kf - s)
         den = (s + 1.0) * (bf - kf + s + 1.0)
         logp = logp + torch.log(torch.where((num > 0) & (den > 0), num / den, 1.0))
-    cs = np.minimum(np.asarray(cs, np.float64), 1.0)
+    return np.asarray(vals, np.float64), np.asarray(cs, np.float64)
+
+
+def hypergeometric_implied(k: int, a: int, b: int, trips: int):
+    """The exact distribution of :func:`hypergeometric_ref` for one
+    (k, a, b) over a uniform ``u``: value s takes the increment of the f32
+    cdf at s (the cdf clipped at 1), and hi takes as well the mass of every
+    ``u`` the cdf never reaches (the guard). Returns ``(values, probs)`` as
+    f64 numpy arrays: what the draws of the reference algorithm follow,
+    to set beside the analytic pmf."""
+    import numpy as np
+
+    vals, cs = hypergeometric_cdf(k, a, b, trips)
+    cs = np.minimum(cs, 1.0)
     probs = np.diff(np.concatenate([[0.0], cs]))
-    vals = np.asarray(vals, np.float64)
     guard = 1.0 - cs[-1] if cs.size else 1.0
-    return np.append(vals, float(hi)), np.append(probs, guard)
+    return np.append(vals, float(min(a, k))), np.append(probs, guard)

@@ -983,17 +983,26 @@ def test_binomial_kernel_equals_plain(dev):
 
 def test_hypergeometric_kernel_equals_plain(dev):
     """H3 on 4,096 rows (B-RS-like supports up to 65,537, small and edge
-    populations): bit for bit its plain version on the card."""
-    from repro_torch.kernels.variates import cases, ops as va_ops, ref as va_ref
+    populations) and on its block-edge rows (``cases.hypergeometric_edge_rows``:
+    hits on the first and last trip of a block, hi mid-block, supports of
+    exactly one block and one more trip, the guard), the latter also under
+    trips caps inside and at the end of the first block: bit for bit its
+    plain version on the card, one launch a call."""
+    from repro_torch.kernels.variates import cases, kernel, ops as va_ops, ref as va_ref
 
     u, k, a, b = cases.hypergeometric_rows(4096, dev, seed=4)
-    n0 = va_ops.hypergeometric.launches
-    got = va_ops.hypergeometric(u, k, a, b, cases.H3_TRIPS)
-    want = va_ref.hypergeometric_ref(u, k, a, b, cases.H3_TRIPS)
-    torch.cuda.synchronize()
-    assert va_ops.hypergeometric.launches == n0 + 1
-    assert torch.equal(got, want)
-    assert ((got >= torch.clamp(k - b, min=0)) & (got <= torch.minimum(a, k))).all()
+    eu, ek, ea, eb, _ = cases.hypergeometric_edge_rows(dev)
+    calls = [(u, k, a, b, cases.H3_TRIPS)] + [
+        (eu, ek, ea, eb, trips) for trips in (cases.H3_TRIPS, cases.H3_CAP_MID_BLOCK, 1, 31,
+                                              kernel.H3_BLOCK, kernel.H3_BLOCK + 1)]
+    for cu, ck, ca, cb, trips in calls:
+        n0 = va_ops.hypergeometric.launches
+        got = va_ops.hypergeometric(cu, ck, ca, cb, trips)
+        want = va_ref.hypergeometric_ref(cu, ck, ca, cb, trips)
+        torch.cuda.synchronize()
+        assert va_ops.hypergeometric.launches == n0 + 1
+        assert torch.equal(got, want), trips
+        assert ((got >= torch.clamp(ck - cb, min=0)) & (got <= torch.minimum(ca, ck))).all()
 
 
 def test_variates_without_host_sync(dev):

@@ -246,6 +246,125 @@ def test_mvhg_partition(total, counts, seed):
 
 
 # --------------------------------------------------------------------------
+# H3's blocked order of work (``ref.hypergeometric_blocked_ref``: the
+# kernel's block logic, vector log-ratios and exps, two ordered f32 sums)
+# --------------------------------------------------------------------------
+def _jax_hg(keys, k, a, b, trips):
+    """JAX's draws for ``keys`` [N] (max_support = trips - 1) and the port's
+    uniforms for them."""
+    f = jax.jit(jax.vmap(lambda kk, K, A, B: jrng.hypergeometric(kk, K, A, B,
+                                                                max_support=trips - 1)))
+    want = np.asarray(f(keys, *(jnp.asarray(np.asarray(x)) for x in (k, a, b))))
+    u = t(jax.vmap(lambda kk: jax.random.uniform(kk, dtype=jnp.float32))(keys))
+    return want, u
+
+
+def test_hypergeometric_blocked_equals_plain_and_jax_on_the_sweep():
+    """256 rows of ``cases.hypergeometric_rows`` (B-RS-like supports up to
+    65,537 trips, small and edge populations) with JAX's uniforms: the
+    blocked plain version, the plain version and JAX's draw agree bit for
+    bit."""
+    from repro_torch.kernels.variates import cases, kernel
+
+    _, k, a, b = cases.hypergeometric_rows(256, "cpu", seed=2)
+    want, u = _jax_hg(jax.random.split(jax.random.key(7), 256), k, a, b, cases.H3_TRIPS)
+    plain = va_ref.hypergeometric_ref(u, k, a, b, cases.H3_TRIPS)
+    blocked = va_ref.hypergeometric_blocked_ref(u, k, a, b, cases.H3_TRIPS, kernel.H3_BLOCK)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(blocked.numpy(), want)
+
+
+def _keys_in_windows(windows, seed):
+    """A JAX key for each ``(lo, hi)`` window whose f32 uniform falls in the
+    window's middle half."""
+    keys = jax.random.split(jax.random.key(seed), 1 << 16)
+    us = np.asarray(jax.vmap(lambda kk: jax.random.uniform(kk, dtype=jnp.float32))(keys))
+    idx = []
+    for lo, hi in windows:
+        q = (hi - lo) / 4
+        idx.append(int(np.nonzero((us > lo + q) & (us < hi - q))[0][0]))
+    return keys[np.asarray(idx)]
+
+
+@pytest.mark.parametrize("cap", ["support", "mid_block"])
+def test_hypergeometric_blocked_on_block_edges_equals_plain_and_jax(cap):
+    """H3's block-edge rows (``cases.h3_edge_windows``, B = H3_BLOCK:
+    hits on the first trip of block 0 and on the last and the first trip
+    of blocks 0 | 1 and 1 | 2, hi ending mid-block, supports of exactly B
+    and B + 1 trips, rows whose cdf never reaches u), each with
+    a JAX key whose uniform ends the draw on that trip, under the full
+    trips bound and under a cap inside the second block: blocked == plain
+    == JAX, and under the full bound each draw ends where it was aimed."""
+    from repro_torch.kernels.variates import cases, kernel
+
+    rows = cases.h3_edge_windows()
+    k, a, b = (torch.tensor([r[0][i] for r in rows]) for i in range(3))
+    trips = cases.H3_TRIPS if cap == "support" else cases.H3_CAP_MID_BLOCK
+    want, u = _jax_hg(_keys_in_windows([r[2:] for r in rows], 11), k, a, b, trips)
+    plain = va_ref.hypergeometric_ref(u, k, a, b, trips)
+    blocked = va_ref.hypergeometric_blocked_ref(u, k, a, b, trips, kernel.H3_BLOCK)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(blocked.numpy(), want)
+    lo, hi = torch.clamp(k - b, min=0), torch.minimum(a, k)
+    aim = torch.tensor([r[1] for r in rows])
+    if cap == "support":
+        assert torch.equal(blocked, torch.where(aim < 0, hi, lo + aim))
+    else:       # the cap ends every draw aimed past it at hi
+        past = aim >= trips
+        assert past.any() and torch.equal(blocked[past], hi[past])
+
+
+def test_hypergeometric_edge_rows_end_where_aimed():
+    """``cases.hypergeometric_edge_rows`` (the card's block-edge rows, u
+    halfway through each window): the plain and blocked versions end each
+    draw on its trip, or at hi by the guard."""
+    from repro_torch.kernels.variates import cases, kernel
+
+    u, k, a, b, aim = cases.hypergeometric_edge_rows("cpu")
+    lo, hi = torch.clamp(k - b, min=0), torch.minimum(a, k)
+    want = torch.where(aim < 0, hi, lo + aim)
+    assert torch.equal(va_ref.hypergeometric_ref(u, k, a, b, cases.H3_TRIPS), want)
+    for trips in (cases.H3_TRIPS, cases.H3_CAP_MID_BLOCK, kernel.H3_BLOCK,
+                  kernel.H3_BLOCK + 1):
+        assert torch.equal(va_ref.hypergeometric_blocked_ref(u, k, a, b, trips, kernel.H3_BLOCK),
+                           va_ref.hypergeometric_ref(u, k, a, b, trips))
+
+
+@pytest.mark.parametrize("block", [1, 7, 32, 256, 1000])
+def test_hypergeometric_blocked_any_block_size(block):
+    """The blocked version's result does not depend on its block size: 200
+    B-RS-like rows (``_hg_cases``), 256 small-population and edge rows of
+    ``cases.hypergeometric_rows``, at trips bounds on both sides of the
+    block, against the plain version."""
+    from repro_torch.kernels.variates import cases
+
+    C, bcount, W = _hg_cases(64, 200, block)
+    _, k2, a2, b2 = (x[256:] for x in cases.hypergeometric_rows(512, "cpu", seed=3))
+    k = torch.cat([torch.from_numpy(C), k2])
+    a = torch.cat([torch.from_numpy(bcount), a2])
+    b = torch.cat([torch.from_numpy(W), b2])
+    u = torch.rand(k.shape, generator=torch.Generator().manual_seed(block))
+    for trips in (65, block, block + 1, 3 * block + 2):
+        np.testing.assert_array_equal(
+            va_ref.hypergeometric_blocked_ref(u, k, a, b, trips, block).numpy(),
+            va_ref.hypergeometric_ref(u, k, a, b, trips).numpy())
+
+
+def test_h3_block_is_the_kernels():
+    """``kernel.H3_BLOCK``, which the block-edge rows and the mid-block cap
+    aim at, is the block size the CUDA source compiles (its kBlock)."""
+    import pathlib
+    import re
+
+    from repro_torch.kernels.variates import cases, kernel
+
+    src = pathlib.Path(kernel.__file__).parents[1] / "csrc" / "variates.cu"
+    found = re.findall(r"constexpr int kBlock = (\d+);", src.read_text())
+    assert found == [str(kernel.H3_BLOCK)]
+    assert kernel.H3_BLOCK < cases.H3_CAP_MID_BLOCK < 2 * kernel.H3_BLOCK
+
+
+# --------------------------------------------------------------------------
 # the wrappers as pure functions
 # --------------------------------------------------------------------------
 def test_wrappers_route_cpu_tensors_to_the_plain_versions():
