@@ -5,8 +5,10 @@
 
 Drives the port's main paths (``repro_torch``: R-TBS and the paper's other
 schemes + linreg retrain + prequential eval through ``make_sampler`` /
-``make_model`` / ``materialize_stream`` / ``make_run_loop``, the keyed
-sampler bank through ``make_bank`` / ``make_bank_run_loop``, and batched
+``make_model`` / ``materialize_stream`` / ``make_run_loop``, with and
+without the adaptive decay controller, Monte-Carlo farms through
+``make_run_farm``, the keyed R-TBS and T-TBS sampler banks through
+``make_bank`` / ``make_bank_run_loop``, and batched
 LM serving of the dense transformer and of Mamba2 through
 ``repro_torch.launch.serve.serve_batch``) at full state and model size, after
 building every CUDA kernel from ``src/repro_torch/kernels/csrc`` and holding
@@ -91,7 +93,33 @@ the JAX package. Every check raises on failure; no phase catches its own.
      plain versions and, for H2, ``torch.binomial``; H3 at a saturated, a
      late and a first B-RS tick and on the 65,536-row sweep, each beside
      its chain floor (trips x 4 cycles at the top SM clock);
- 10. the ``kernels`` JSON line, the card line, and the result line.
+ 10. closed-loop adaptive decay on the main cell: ``make_run_loop(...,
+     controller=loss_ratio(lam0=0.03, lam_min=0.003, lam_max=0.5))`` over
+     phase 3's stream with its coefficients flipped at tick 24, for R-TBS
+     (n = 2^20 - 1) and for T-TBS and B-TBS at phase 9's sizes: lambda's
+     path printed, below lam0 in the four ticks before the flip and past
+     0.4 within two retrains after it; B1 once a tick (and H2 for T-TBS /
+     B-TBS); the controlled ticks driven by hand equal the run bit for bit;
+     a controlled tick under ``set_sync_debug_mode("error")``;
+ 11. a Monte-Carlo farm (``make_run_farm``) of 8 trials of the controlled
+     main cell over 24 of phase 10's ticks (12-35, the flip at its tick 12;
+     a depth cut), its trials a leading dimension of the sampler's state
+     (B1 once a tick for all trials): bit for bit the 8 single runs
+     stacked, every trial's lambda past 0.4 after the flip;
+ 12. the keyed T-TBS bank (``make_bank("ttbs", ...)``) at K = 2^20, n = 64,
+     cap 256, bcap 32, lam 0.05, batch_size the stream's mean arrivals per
+     touched key, on phase 6's Zipf(1.1) stream through
+     ``make_bank_run_loop`` with per-key models and a per-key controller
+     on the 64 train keys: ticks and keyed items per second, B3 and H2
+     (the two binomials of all 65,536 routed rows) exactly once a tick and
+     nothing else, W and pending of all K keys exact on every tick, the
+     ticks by hand equal to the run, a tick under
+     ``set_sync_debug_mode("error")``, a profiled retrain tick; H2 on a
+     tick's 131,072 rows equal to its plain version and timed beside its
+     bound, its plain version, ``torch.binomial`` and a one-row launch; B3
+     at cap 256 equal to its plain version and timed beside its bound;
+     and (d) card == CPU at K = 4096;
+ 13. the ``kernels`` JSON line, the card line, and the result line.
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -696,7 +724,7 @@ def _b3_bytes(torch, src, r, row_bytes, cap, bcap):
     return nbytes, n_wr, n_take, n_pay
 
 
-def _b3_equal(torch, leaf, pleaf, src, r, bcap, what):
+def _b3_equal(torch, leaf, pleaf, src, r, bcap, what, tag="[6]"):
     """B3 on a copy of ``leaf`` against its plain version on another copy."""
     from repro_torch.kernels.tbs_step import ops as ts_ops, ref as ts_ref
 
@@ -710,7 +738,7 @@ def _b3_equal(torch, leaf, pleaf, src, r, bcap, what):
     torch.cuda.synchronize()
     check(ts_ops.tbs_step_apply_banked.launches == n0 + 1, f"B3 {what} not launched")
     check(torch.equal(got, want), f"B3 {what} differs from its plain version")
-    print(f"[6] (a) B3 {what}: equal to its plain version bit for bit")
+    print(f"{tag} (a) B3 {what}: equal to its plain version bit for bit")
     return max_abs_err(torch, got, want)
 
 
@@ -1647,6 +1675,16 @@ _SIMPLE_SCOPES = ("manage.eval", "manage.sampler_step", "simple.tick_map", "simp
 # 2 key adds) and BTRS's ~45 f32 operations (4 logarithms); H3's exp, log
 # and ~12 f32 operations
 H2_OPS_PER_TRIP, H3_OPS_PER_TRIP = 150, 14
+
+
+def _h2_bound(count, p, trips, bw) -> dict:
+    """H2's bound on these rows, in ms: bytes, each row's count (8), p (4)
+    and result (8) once and its key (16) only where the result depends on
+    it (count > 0 and 0 < p < 1), over the card's memory rate; operations,
+    this run's trips times H2_OPS_PER_TRIP at the f32 peak."""
+    keyed = int(((count > 0) & (p > 0) & (p < 1)).sum())
+    return {"bytes": (count.numel() * (8 + 4 + 8) + 16 * keyed) / bw * 1e3,
+            "operations": int(trips.sum()) * H2_OPS_PER_TRIP / PEAK["float32"] * 1e3}
 # H3 at a saturated B-RS tick before its CTA-a-row design, one thread a
 # row: this script's phase 9 (d) on an NVIDIA H100 80GB HBM3 at 700 W
 H3_BEFORE_MS = 10.163
@@ -1954,8 +1992,7 @@ def phase_variates(torch, np, timer, bw, reps):
     plain2_ms = timer(lambda: va_ref.binomial_ref(keys, count, p), 5)
     lib2_ms = timer(lambda: torch.binomial(count.float(), p), reps)
     _, tr2 = va_ref.binomial_ref(keys, count, p, return_trips=True)
-    ops2 = int(tr2.sum()) * H2_OPS_PER_TRIP
-    b2 = {"bytes": 2 * (16 + 8 + 4 + 8) / bw * 1e3, "operations": ops2 / PEAK["float32"] * 1e3}
+    b2 = _h2_bound(count, p, tr2, bw)
     print(f"[9] (d) H2, a T-TBS tick's 2 rows (Bin(2^20, {math.exp(-LAM):.4f}), Bin(65536, "
           f"{q:.4f}); {int(tr2.sum())} trips): kernel {h2_ms:.4f} ms; plain {plain2_ms:.4f} ms; "
           f"torch.binomial {lib2_ms:.4f} ms; bound {max(b2.values()):.2e} ms "
@@ -1995,6 +2032,515 @@ def phase_variates(torch, np, timer, bw, reps):
                                    bound_ms=sat["bound_ms"], bound_by=sat["bound_by"],
                                    trips=sat["trips"], chain_floor_ms=sat["chain_floor_ms"],
                                    shapes=h3)}
+
+
+# ---------------------------------------------------------------------------
+# closed-loop adaptive decay (ROADMAP A.5) and the T-TBS bank (A.6)
+ADAPT = dict(lam0=0.03, lam_min=0.003, lam_max=0.5)
+FLIP, FARM_TRIALS, FARM_FROM, FARM_TICKS = 24, 8, 12, 24
+ADAPT_BANK = dict(lam0=LAM_BANK, lam_min=0.005, lam_max=0.5)
+N_TTBS_BANK = N_BANK          # cap 4 n = 256
+
+
+def _adaptive_stream(torch, tag: str):
+    """The main cell's stream with its coefficients flipped to mode 1 from
+    tick FLIP on: LinRegStream(seed=0), 24 ticks of 65,536 items then 24 of
+    8,192 (bcap 65,536)."""
+    from repro_torch.data.streams import LinRegStream
+    from repro_torch.manage import materialize_stream
+
+    T = 48
+    sizes = [BCAP_MAIN if t < 24 else 8192 for t in range(T)]
+    batches, bcounts = materialize_stream(
+        LinRegStream(seed=0), T, batch_size=lambda t: sizes[t], bcap=BCAP_MAIN,
+        mode=lambda t: 0 if t < FLIP else 1)
+    torch.cuda.synchronize()
+    print(f"{tag} stream: {T} ticks, {sum(sizes)} items, coefficients flipped to mode 1 "
+          f"at tick {FLIP}")
+    return batches, bcounts, sizes
+
+
+def _leaves_equal(torch, a, b) -> bool:
+    """Bit for bit over two pytrees, NaNs included."""
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.dtype != y.dtype:
+            return False
+        if x.dtype.is_floating_point:
+            as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+            x, y = x.view(as_int), y.view(as_int)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def _controller_on_cpu(torch, ctrl, trace, c_card, what: str, tag: str) -> None:
+    """The card's controller against the CPU's on the same losses: replay
+    ``ctrl`` on the CPU over the run's metric trace ([T], or [T, Q] for Q
+    per-key controllers; retrain ticks adjust), and hold every tick's rate
+    to the run's ``decay`` trace and the final state to the card's
+    ``c_card``, bit for bit (the f64 exp and log of the card against the
+    CPU's)."""
+    from torch.utils import _pytree as pytree
+
+    metric, decay = trace["metric"].cpu(), trace["decay"].cpu()
+    c = ctrl.init("cpu")
+    if metric.dim() == 2:
+        c = pytree.tree_map(lambda a: a.expand(metric.shape[1]).clone(), c)
+    for t in range(metric.shape[0]):
+        check(_leaves_equal(torch, ctrl.rate(c), decay[t]),
+              f"{tag} {what}: tick {t}'s rate on the card != the CPU controller's")
+        c = ctrl.observe(c, metric[t], (t + 1) % RETRAIN_EVERY == 0)
+    check(_leaves_equal(torch, pytree.tree_map(lambda a: a.cpu(), c_card), c),
+          f"{tag} {what}: the card's final controller state != the CPU controller's")
+    print(f"{tag} {what}: the CPU controller fed the run's losses gives its rate on all "
+          f"{metric.shape[0]} ticks and its final state (loglam, fast, slow, seen, hold) "
+          f"bit for bit")
+
+
+def phase_adaptive(torch, np, kernels):
+    """Phase 10: the main cell with the loss-ratio controller, for R-TBS
+    (n = 2^20 - 1) and for T-TBS and B-TBS at phase 9's sizes. R-TBS is
+    also timed without the controller, in turns, and a retrain tick of
+    each is profiled."""
+    from repro_torch.core import prng
+    from repro_torch.core.api import make_sampler
+    from repro_torch.decay import loss_ratio
+    from repro_torch.manage import item_proto, make_manage_step, make_model, make_run_loop
+
+    batches, bcounts, sizes = _adaptive_stream(torch, "[10]")
+    T = len(sizes)
+    model = make_model("linreg", dim=2)
+    ctrl = loss_ratio(**ADAPT)
+    key = prng.key(0)
+    out = {}
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(key, batches, bcounts)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    for scheme, hyper in (("rtbs", dict(n=N_MAIN, lam=LAM)), ("ttbs", SCHEMES["ttbs"]),
+                          ("btbs", SCHEMES["btbs"])):
+        sampler = make_sampler(scheme, **hyper)
+        run = make_run_loop(sampler, model, retrain_every=RETRAIN_EVERY, controller=ctrl)
+        run(key, {f: v[:RETRAIN_EVERY] for f, v in batches.items()}, bcounts[:RETRAIN_EVERY])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        (state, params, trace), wall = timed(run)
+        launches = kernels.launches()
+        want = {"tbs_step_apply": T, "binomial": T if scheme != "rtbs" else 0,
+                "hypergeometric": 0, "tbs_step_apply_banked": 0}
+        for k, v in want.items():
+            check(launches[k] == v, f"[10] {scheme}: {k} launched {launches[k]} times, not {v}")
+        if scheme == "rtbs":
+            check(launches["swap_delete"] >= T, "[10] rtbs: H1 not launched on every tick")
+        lam = (-torch.log(trace["decay"].double())).cpu().numpy()
+        print(f"[10] {scheme} with {ctrl!r}: {T} ticks in {wall:.3f} s = {T / wall:.2f} "
+              f"ticks/s; launches {launches}")
+        print(f"[10] {scheme} lambda by tick: {' '.join(f'{v:.4g}' for v in lam)}")
+        check(np.isfinite(trace["metric"].cpu().numpy()).all(), f"[10] {scheme}: metric")
+        check(lam[FLIP - 4:FLIP].max() < ADAPT["lam0"],
+              f"[10] {scheme}: lambda not below lam0 in the four ticks before the flip")
+        check(lam[FLIP:FLIP + 2 * RETRAIN_EVERY + 1].max() > 0.4,
+              f"[10] {scheme}: lambda did not pulse above 0.4 within two retrains of the flip")
+        rates = {"controlled": [T / wall]}
+        if scheme == "rtbs":
+            # the same stream without the controller, timed in turns with it
+            # (controlled, uncontrolled, controlled, uncontrolled)
+            plain_run = make_run_loop(sampler, model, retrain_every=RETRAIN_EVERY)
+            rates["uncontrolled"] = []
+            for turn in range(3):
+                which = "uncontrolled" if turn % 2 == 0 else "controlled"
+                res, w = timed(plain_run if which == "uncontrolled" else run)
+                rates[which].append(T / w)
+                if which == "uncontrolled":
+                    plain_state, plain_params = res[0], res[1]
+            print("[10] rtbs in turns on this stream (controlled, uncontrolled, controlled, "
+                  "uncontrolled): " + ", ".join(
+                      f"{rates[w][i]:.2f}" for i in range(2)
+                      for w in ("controlled", "uncontrolled")) + " ticks/s")
+
+        # the same tick body by hand, the controller carried along
+        tick = make_manage_step(sampler, model, retrain_every=RETRAIN_EVERY, controller=ctrl)
+        st, p, c = sampler.init(item_proto(batches)), model.init(), ctrl.init("cuda")
+        ms = []
+        for t in range(T):
+            st, p, c, m = tick(key, t, st, p, c, {f: v[t] for f, v in batches.items()},
+                               bcounts[t])
+            ms.append(m)
+        by_hand = (st, p, {k: torch.stack([m[k] for m in ms]) for k in ms[0]})
+        check(_leaves_equal(torch, (state, params, trace), by_hand),
+              f"[10] {scheme}: the controlled ticks by hand != make_run_loop")
+        _controller_on_cpu(torch, ctrl, trace, c, scheme, "[10]")
+        # one non-retrain controlled tick with every host sync an error
+        check((T + 1) % RETRAIN_EVERY != 0, "sync-check tick must not retrain")
+        b_t = {f: v[T - 1] for f, v in batches.items()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tick(key, T, st, p, c, b_t, bcounts[T - 1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        pulse = int(np.argmax(lam > 0.4))
+        print(f"[10] {scheme}: lambda {lam[FLIP - 1]:.4g} before the flip, {lam[pulse]:.4g} "
+              f"from tick {pulse}, {lam[-1]:.4g} at the end; the ticks by hand equal the run "
+              f"bit for bit (state, params, metric, size, decay); a controlled tick ran "
+              f"under set_sync_debug_mode('error')")
+        out[scheme] = {"ticks_per_s": rates, "launches": launches,
+                       "lam": [float(v) for v in lam]}
+        if scheme == "rtbs":
+            # a retrain tick of each, as phase 3 profiles main's: tick 15 on
+            # the final state, with the last batch
+            prof_t = 4 * RETRAIN_EVERY - 1
+            plain_tick = make_manage_step(sampler, model, retrain_every=RETRAIN_EVERY)
+            profs = {}
+            for which, call in (
+                    ("uncontrolled", lambda: plain_tick(key, prof_t, plain_state, plain_params,
+                                                        b_t, bcounts[T - 1])),
+                    ("controlled", lambda: tick(key, prof_t, st, p, c, b_t, bcounts[T - 1]))):
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                profs[which] = _breakdown(torch, prof, wall_ms, f"[10] rtbs {which}",
+                                          _SCOPES + ("manage.controller",))
+            out[scheme]["profile"] = profs
+    return out
+
+
+def phase_adaptive_parity(torch, np):
+    """Phase 10 (d): the controlled R-TBS loop at cap 4096 on phase 4's
+    stream with its coefficients flipped at tick FLIP, card against CPU."""
+    from repro_torch.core import prng
+    from repro_torch.core.api import make_sampler
+    from repro_torch.data.streams import LinRegStream
+    from repro_torch.decay import loss_ratio
+    from repro_torch.manage import make_model, make_run_loop, materialize_stream
+
+    n, bcap, T = 4095, 256, 48
+    ctrl = loss_ratio(**ADAPT)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        batches, bcounts = materialize_stream(
+            LinRegStream(seed=1), T, batch_size=lambda t: bcap if t < 24 else 32,
+            bcap=bcap, device=dev, mode=lambda t: 0 if t < FLIP else 1)
+        run = make_run_loop(make_sampler("rtbs", n=n, lam=LAM, device=dev),
+                            make_model("linreg", dim=2, device=dev),
+                            retrain_every=RETRAIN_EVERY, controller=ctrl)
+        out[dev] = run(prng.key(7), batches, bcounts)
+    (sg, pg, tg), (sc, pc, tc) = out["cuda"], out["cpu"]
+    check(_leaves_equal(torch, tg["decay"].cpu(), tc["decay"]),
+          "[10] (d) the controlled decay trace card != CPU")
+    for f in ("x", "y"):
+        check(torch.equal(sg.lat.items[f].cpu(), sc.lat.items[f]),
+              f"[10] (d) items[{f}] card != CPU")
+    check(torch.equal(sg.lat.nfull.cpu(), sc.lat.nfull), "[10] (d) nfull card != CPU")
+    check(torch.equal(sg.lat.weight.cpu(), sc.lat.weight), "[10] (d) weight card != CPU")
+    check(torch.equal(sg.total_weight.cpu(), sc.total_weight), "[10] (d) W card != CPU")
+    check(torch.equal(tg["size"].cpu(), tc["size"]), "[10] (d) sizes card != CPU")
+    check(torch.allclose(tg["metric"].cpu(), tc["metric"], rtol=1e-4, atol=1e-5),
+          "[10] (d) metrics card vs CPU beyond rtol 1e-4")
+    dm = float((tg["metric"].cpu() - tc["metric"]).abs().max())
+    lam = (-torch.log(tc["decay"].double())).numpy()
+    print(f"[10] (d) controlled rtbs at cap 4096, {T} ticks, flip at {FLIP}: card == CPU bit "
+          f"for bit (decay trace, items, nfull, weight, W, sizes); metrics max |diff| "
+          f"{dm:.3g} (f32 sums in another order); lambda peak {lam.max():.4g}, end "
+          f"{lam[-1]:.4g}")
+
+
+def phase_farm(torch, np, kernels):
+    """Phase 11: a Monte-Carlo farm of the controlled main cell, its trials
+    a leading dimension of the sampler's state; bit-equal to the stacked
+    single runs."""
+    from repro_torch.core import prng
+    from repro_torch.core.api import make_sampler
+    from repro_torch.decay import loss_ratio
+    from repro_torch.manage import make_model, make_run_farm, make_run_loop
+
+    batches, bcounts, sizes = _adaptive_stream(torch, "[11]")
+    sl = slice(FARM_FROM, FARM_FROM + FARM_TICKS)
+    batches = {f: v[sl].contiguous() for f, v in batches.items()}
+    bcounts = bcounts[sl].contiguous()
+    T = FARM_TICKS
+    sampler = make_sampler("rtbs", n=N_MAIN, lam=LAM)
+    model = make_model("linreg", dim=2)
+    ctrl = loss_ratio(**ADAPT)
+    key = prng.key(1)
+    farm = make_run_farm(sampler, model, retrain_every=RETRAIN_EVERY, controller=ctrl)
+    farm(key, 2, {f: v[:RETRAIN_EVERY] for f, v in batches.items()}, bcounts[:RETRAIN_EVERY])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trace = farm(key, FARM_TRIALS, batches, bcounts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    check(launches["tbs_step_apply"] == T, "[11] B1 not launched once a tick for all trials")
+    check(launches["swap_delete"] >= T, "[11] H1 not launched on every tick")
+    check(trace["metric"].shape == (FARM_TRIALS, T), "[11] farm trace shape")
+    run = make_run_loop(sampler, model, retrain_every=RETRAIN_EVERY, controller=ctrl)
+    t0 = time.perf_counter()
+    singles = [run(k, batches, bcounts)[2] for k in prng.split(key, FARM_TRIALS)]
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    stacked = {k: torch.stack([tr[k] for tr in singles]) for k in singles[0]}
+    check(_leaves_equal(torch, trace, stacked), "[11] the farm != the stacked single runs")
+    lam = (-torch.log(trace["decay"].double())).cpu().numpy()
+    metric = trace["metric"].cpu().numpy()
+    check(len(set(metric[:, -1].tolist())) > 1, "[11] the trials do not differ")
+    check((lam[:, FLIP - FARM_FROM:FLIP - FARM_FROM + 2 * RETRAIN_EVERY + 1].max(1) > 0.4).all(),
+          "[11] a trial's lambda did not pulse above 0.4 within two retrains of the flip")
+    print(f"[11] farm of {FARM_TRIALS} trials x {T} ticks (ticks {FARM_FROM}-"
+          f"{FARM_FROM + T - 1} of phase 10's stream; the flip at its tick {FLIP - FARM_FROM}): "
+          f"{wall:.3f} s = {FARM_TRIALS * T / wall:.2f} trial-ticks/s (the {FARM_TRIALS} "
+          f"single runs one after another: {wall1:.3f} s); launches {launches}; equal to the "
+          f"stacked single runs bit for bit (metric, size, decay)")
+    print(f"[11] peak lambda per trial: {' '.join(f'{v:.3f}' for v in lam.max(1))}; final "
+          f"metric per trial: {' '.join(f'{v:.4f}' for v in metric[:, -1])}")
+    return {"trial_ticks_per_s": FARM_TRIALS * T / wall, "launches": launches,
+            "single_runs_s": wall1, "farm_s": wall}
+
+
+def _bank_batch_size(np, keys_h, bcounts_h) -> float:
+    """A key's mean arrivals per tick it is touched: arrivals over
+    (touched key, tick) pairs, from the stream's key column."""
+    touched = sum(len(np.unique(keys_h[t, :int(c)])) for t, c in enumerate(bcounts_h))
+    return float(sum(int(c) for c in bcounts_h)) / touched
+
+
+def phase_ttbs_bank(torch, np, kernels, timer, bw, reps):
+    """Phase 12: the keyed T-TBS bank at K = 2^20 through the bank loop with
+    a per-key controller; H2 on the bank tick's 2b rows and B3 at cap 256."""
+    from repro_torch.bank import make_bank
+    from repro_torch.core import prng
+    from repro_torch.data.streams import KeyedStream, LinRegStream
+    from repro_torch.decay import loss_ratio
+    from repro_torch.kernels.variates import ops as va_ops, ref as va_ref
+    from repro_torch.manage import (make_bank_manage_step, make_bank_run_loop, make_model,
+                                    materialize_stream)
+
+    K, n, b, bcap, T, Q = K_BANK, N_TTBS_BANK, B_BANK, BCAP_BANK, T_BANK, Q_BANK
+    t0 = time.perf_counter()
+    stream = KeyedStream(LinRegStream(seed=0), num_keys=K, alpha=1.1, flip_every=50)
+    batches, bcounts = materialize_stream(stream, T, batch_size=b, fields=("key", "x", "y"))
+    keys_h, bcounts_h = batches["key"].cpu().numpy(), bcounts.cpu().numpy()
+    bs = _bank_batch_size(np, keys_h, bcounts_h)
+    print(f"[12] keyed stream: {T} ticks x {b} arrivals over K = {K} keys (phase 6's), "
+          f"{bs:.4f} arrivals per touched key a tick, made in {time.perf_counter() - t0:.2f} s")
+    bank = make_bank("ttbs", num_keys=K, n=n, lam=LAM_BANK, bcap=bcap, batch_size=bs)
+    cap = bank.cap
+    model = make_model("linreg", dim=2)
+    ctrl = loss_ratio(**ADAPT_BANK)
+    key = prng.key(0)
+    run = make_bank_run_loop(bank, model, retrain_every=RETRAIN_EVERY, train_keys=range(Q),
+                             per_key=True, controller=ctrl)
+    run(key, {f: v[:2] for f, v in batches.items()}, bcounts[:2])   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, params, trace = run(key, batches, bcounts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    items_gb = sum(v.numel() * v.element_size() for v in state.items.values()) / 1e9
+    print(f"[12] {bank!r}, per-key {ctrl!r} on the {Q} train keys: {T} ticks in "
+          f"{wall:.3f} s = {T / wall:.2f} ticks/s, {T * b / wall:.0f} keyed items/s; bank "
+          f"items {items_gb:.2f} GB on the card; launches {launches}")
+    want = {"tbs_step_apply_banked": T, "binomial": T, "tbs_step_apply": 0,
+            "swap_delete": 0, "hypergeometric": 0}
+    for k, v in want.items():
+        check(launches[k] == v, f"[12] {k} launched {launches[k]} times, not {v}")
+    sizes = trace["size"].cpu().numpy()
+    check(sizes.shape == (T, Q) and (sizes <= cap).all(), "[12] bank size > cap")
+    check(trace["decay"].shape == (T, Q), "[12] decay trace shape")
+    check(torch.isfinite(params).all().item(), "[12] non-finite params")
+    lam = (-torch.log(trace["decay"].double())).cpu().numpy()
+    print(f"[12] sizes of the {Q} train keys at the end: min {sizes[-1].min()} max "
+          f"{sizes[-1].max()} (n = {n}); overflow per tick "
+          f"{trace['overflow'].cpu().numpy().tolist()[:4]}...; the train keys' lambda at "
+          f"the end: min {lam[-1].min():.4g} max {lam[-1].max():.4g}, peak {lam.max():.4g}")
+    del state
+
+    # (b) the tick by hand: W and pending of all K keys on the host
+    tick = make_bank_manage_step(bank, model, retrain_every=RETRAIN_EVERY, train_keys=range(Q),
+                                 per_key=True, controller=ctrl)
+    st = bank.init({"x": torch.zeros(2, device="cuda"), "y": torch.zeros((), device="cuda")})
+    from torch.utils import _pytree as pytree
+
+    p = pytree.tree_map(lambda a: a.expand((Q,) + a.shape).clone(), model.init())
+    c = pytree.tree_map(lambda a: a.expand(Q).clone(), ctrl.init("cuda"))
+    base = np.float32(math.exp(-LAM_BANK))
+    W = np.zeros(K, np.float32)
+    pend = np.ones(K, np.float32)
+    ms = []
+    for t in range(T):
+        bt = {f: v[t] for f, v in batches.items()}
+        st, p, c, m = tick(key, t, st, p, c, bt, bcounts[t])
+        ms.append(m)
+        d = np.full(K, base, np.float32)
+        d[:Q] = m["decay"].cpu().numpy()
+        pend = (pend * d).astype(np.float32)
+        u, cnt = np.unique(keys_h[t, : int(bcounts_h[t])], return_counts=True)
+        W[u] = (pend[u].astype(np.float64) * W[u] + np.minimum(cnt, bcap)).astype(np.float32)
+        pend[u] = 1.0
+        check(np.array_equal(st.total_weight.cpu().numpy(), W), f"[12] tick {t}: W column")
+        check(np.array_equal(st.pending.cpu().numpy(), pend), f"[12] tick {t}: pending column")
+    check(_leaves_equal(torch, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}, trace),
+          "[12] the bank ticks by hand != make_bank_run_loop")
+    _controller_on_cpu(torch, ctrl, trace, c, f"the {Q} per-key controllers", "[12] (b)")
+    nf = st.nfull.cpu().numpy()
+    check(((nf >= 0) & (nf <= cap)).all(), "[12] nfull outside [0, cap]")
+    print(f"[12] (b) the ticks by hand equal the run bit for bit; W = p_eff W + B (one "
+          f"rounding) and pending = the product of each key's factors since its last touch, "
+          f"exact for all {K} keys on all {T} ticks; largest buffer {int(nf.max())} of {cap}")
+
+    # (c) one non-retrain tick under set_sync_debug_mode("error")
+    t_free = T
+    check((t_free + 1) % RETRAIN_EVERY != 0, "sync-check tick must not retrain")
+    bt = {f: v[T - 1] for f, v in batches.items()}
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st2, p2, c2, _ = tick(key, t_free, st, p, c, bt, bcounts[T - 1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(kernels.launches()["tbs_step_apply_banked"] == 1 and kernels.launches()["binomial"] == 1,
+          "[12] sync-check tick: B3 and H2 once")
+    print("[12] (c) one non-retrain bank tick ran under set_sync_debug_mode('error'): no "
+          "host sync; B3 and H2 launched once each")
+
+    # profile one retrain tick
+    prof_t = 4 * RETRAIN_EVERY - 1
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st2, p2, c2, _ = tick(key, prof_t, st2, p2, c2, bt, bcounts[T - 1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile = _breakdown(torch, prof, wall_ms, "[12]", _BANK_SCOPES + ("manage.controller",),
+                         (("B3 kernel", ("tbs_step_banked_kernel",
+                                         "tbs_step_banked_staged_kernel")),
+                          ("H2 kernel", "binomial_kernel")))
+
+    # (a) H2 and B3 on one tick's real operands, made by the bank's own tick
+    # up to its payload pass: the rows of its one binomial launch (both
+    # binomials of all b routed rows) and its slot maps
+    from repro_torch.bank.bank import _ttbs_tick_map
+
+    tk = torch.arange(Q, device="cuda")
+    d = bank.base_rate(st2).expand(K).clone().index_copy_(0, tk, ctrl.rate(c2))
+    r, src, _, _, _, _, (h2_keys, h2_count, h2_p) = _ttbs_tick_map(
+        prng.key(5), st2, bt["key"], bcounts[T - 1], d, n=n,
+        batch_size=bank.hyper["batch_size"], bcap=bcap)
+    rows = h2_count.numel()
+    got = va_ops.binomial(h2_keys, h2_count, h2_p)
+    want, trips = va_ref.binomial_ref(h2_keys, h2_count, h2_p, return_trips=True)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"[12] (a) H2 differs from its plain version on "
+          f"{int((got != want).sum())} of the bank tick's {rows} rows")
+    nt = int(r.ntouched)
+    h2_ms = timer(lambda: va_ops.binomial(h2_keys, h2_count, h2_p), reps)
+    h2_plain = timer(lambda: va_ref.binomial_ref(h2_keys, h2_count, h2_p), 3)
+    h2_lib = timer(lambda: torch.binomial(h2_count.float(), h2_p), reps)
+    h2b = _h2_bound(h2_count, h2_p, trips, bw)
+    # the rows the tick keeps: m's and k's of its nt touched keys
+    live = torch.cat([torch.arange(nt, device="cuda"), rows // 2 + torch.arange(nt, device="cuda")])
+    h2_live = _h2_bound(h2_count[live], h2_p[live], trips[live], bw)
+    keyed = int(((h2_count > 0) & (h2_p > 0) & (h2_p < 1)).sum())
+    one = (h2_keys[:1], torch.zeros(1, dtype=torch.int64, device="cuda"),
+           torch.zeros(1, device="cuda"))
+    empty_ms = timer(lambda: va_ops.binomial(*one), reps)
+    print(f"[12] (a) H2 on a bank tick's {rows} rows ({nt} touched keys: counts <= "
+          f"{int(h2_count[:rows // 2].max())} and <= {int(h2_count[rows // 2:].max())}, "
+          f"{keyed} rows whose draw needs its key, {int(trips.sum())} trips, the longest "
+          f"row {int(trips.max())}): equal to its plain version bit for bit; kernel "
+          f"{h2_ms:.4f} ms; plain {h2_plain:.4f} ms; torch.binomial {h2_lib:.4f} ms; bound "
+          f"{max(h2b.values()):.4f} ms (bytes {h2b['bytes']:.4f}, operations "
+          f"{h2b['operations']:.4f}); bound over the {2 * nt} rows of the touched keys "
+          f"{max(h2_live.values()):.4f} ms (bytes {h2_live['bytes']:.4f}, operations "
+          f"{h2_live['operations']:.4f}); a one-row launch that returns at once "
+          f"{empty_ms:.4f} ms; kernel - bound = {h2_ms - max(h2b.values()):.4f} ms")
+
+    # B3 at cap 256 on the same tick's map (simple.draw_ttbs's permutations)
+    payload = {"x": bt["x"], "y": bt["y"]}
+    err = max(_b3_equal(torch, st2.items["x"], payload["x"], src, r, bcap,
+                        f"x f32[., 2] at K = 2^20, cap {cap}", tag="[12]"),
+              _b3_equal(torch, st2.items["y"], payload["y"], src, r, bcap,
+                        f"y f32[.] at K = 2^20, cap {cap}", tag="[12]"))
+    items = st2.items
+    row_bytes = [leaf[0, 0].numel() * leaf.element_size() for leaf in items.values()]
+    nbytes, n_wr, n_take, npay = _b3_bytes(torch, src, r, row_bytes, cap, bcap)
+
+    def fused():
+        from repro_torch.kernels.tbs_step import ops as ts_ops
+
+        ts_ops.tbs_step_apply_banked(items, payload, src, order=r.order, starts=r.starts,
+                                     touched=r.touched, ntouched=r.ntouched, bcap=bcap)
+
+    b3_ms = timer(fused, reps)
+    b3_bound = nbytes / bw * 1e3
+    print(f"[12] B3 at cap {cap} (ntouched {int(r.ntouched)}, {n_wr} of "
+          f"{int(r.ntouched) * cap} slots written per leaf, {n_take} of them batch rows, x + y "
+          f"in one launch): kernel {b3_ms:.4f} ms, bound {b3_bound:.4f} ms; kernel = "
+          f"{b3_ms / b3_bound:.2f}x its bound")
+    return dict(ticks_per_s=T / wall, items_per_s=T * b / wall, launches=launches,
+                profile=profile, batch_size=bs,
+                h2=dict(rows=rows, ms=h2_ms, plain_ms=h2_plain,
+                        library_ms=h2_lib, bound_ms=max(h2b.values()),
+                        bound_by=max(h2b, key=h2b.get), trips=int(trips.sum()),
+                        live_rows=2 * nt, live_bound_ms=max(h2_live.values()),
+                        empty_launch_ms=empty_ms, err=0.0, launches=launches["binomial"]),
+                b3=dict(cap=cap, ms=b3_ms, bound_ms=b3_bound, err=err))
+
+
+def phase_ttbs_bank_parity(torch, np):
+    """Phase 12 (d): the T-TBS bank loop at K = 4096 with per-key
+    controllers, card against CPU."""
+    from repro_torch.bank import make_bank
+    from repro_torch.core import prng
+    from repro_torch.data.streams import KeyedStream, LinRegStream
+    from repro_torch.decay import loss_ratio
+    from repro_torch.manage import make_bank_run_loop, make_model, materialize_stream
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        batches, bcounts = materialize_stream(
+            KeyedStream(LinRegStream(seed=1), num_keys=4096, alpha=1.1, flip_every=50),
+            8, batch_size=2048, fields=("key", "x", "y"), device=dev)
+        run = make_bank_run_loop(
+            make_bank("ttbs", num_keys=4096, n=N_TTBS_BANK, lam=LAM_BANK, bcap=BCAP_BANK,
+                      batch_size=2.0, device=dev),
+            make_model("linreg", dim=2, device=dev), retrain_every=RETRAIN_EVERY,
+            train_keys=range(Q_BANK), per_key=True, controller=loss_ratio(**ADAPT_BANK))
+        out[dev] = run(prng.key(3), batches, bcounts)
+    (sg, pg, tg), (sc, pc, tc) = out["cuda"], out["cpu"]
+    for f in ("x", "y"):
+        check(torch.equal(sg.items[f].cpu(), sc.items[f]), f"ttbs bank items[{f}] card != CPU")
+    for f in ("nfull", "weight", "total_weight", "pending", "overflow"):
+        check(torch.equal(getattr(sg, f).cpu(), getattr(sc, f)), f"ttbs bank {f} card != CPU")
+    for f in ("size", "overflow", "decay"):
+        check(_leaves_equal(torch, tg[f].cpu(), tc[f]), f"ttbs bank trace {f} card != CPU")
+    check(bool((tc["decay"] != tc["decay"][0]).any()), "[12] (d) the controllers never moved")
+    print(f"[12] (d) ttbs bank at K = 4096, cap {4 * N_TTBS_BANK}, 8 ticks, per-key models and "
+          f"controllers: card == CPU bit for bit (items, nfull, weight, W, pending, overflow, "
+          f"sizes, the {Q_BANK} keys' decay); final buffers {int(sc.nfull.sum())} items")
+
+
 
 
 def main() -> int:
@@ -2044,6 +2590,11 @@ def main() -> int:
     schemes_res = phase_schemes(torch, np, kernels, timer, bw, reps=20)
     phase_schemes_parity(torch, np)
     var_res = phase_variates(torch, np, timer, bw, reps=20)
+    phase_adaptive(torch, np, kernels)
+    phase_adaptive_parity(torch, np)
+    phase_farm(torch, np, kernels)
+    tbank_res = phase_ttbs_bank(torch, np, kernels, timer, bw, reps=20)
+    phase_ttbs_bank_parity(torch, np)
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -2066,6 +2617,16 @@ def main() -> int:
     kres["flash_attention"] = serve_res["b4"]
     kres["ssd_scan"] = ssm_res["b5"]
     kres.update(var_res)
+    # H2 at the T-TBS bank's shape (2b rows a tick) and B3 at its cap 256,
+    # beside the rows' own numbers (a T-TBS tick's 2 rows; the R-TBS bank)
+    h2 = tbank_res["h2"]
+    kres["binomial"]["ttbs_bank"] = {k: h2[k] for k in (
+        "rows", "launches", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "trips", "live_rows", "live_bound_ms", "empty_launch_ms")}
+    kres["tbs_step_apply_banked"]["ttbs_bank"] = {
+        "cap": tbank_res["b3"]["cap"], "launches": tbank_res["launches"]["tbs_step_apply_banked"],
+        "ms": tbank_res["b3"]["ms"], "bound_ms": tbank_res["b3"]["bound_ms"],
+        "max_abs_err": tbank_res["b3"]["err"]}
     # each kernel's launches from the run of the path it carries
     runs = dict(main_res["launches"], tbs_step_apply_banked=bank_res["launches"][
         "tbs_step_apply_banked"], flash_attention=serve_res["launches"]["flash_attention"],
@@ -2087,6 +2648,8 @@ def main() -> int:
             rows[-1]["main_tick_map_ms"] = r["main_tick_map_ms"]
         if "chain_floor_ms" in r:       # H3's row: computed, as bound_ms is, from this
             rows[-1]["chain_floor_ms"] = r["chain_floor_ms"]   # run's trips and top SM clock
+        if "ttbs_bank" in r:            # H2's and B3's rows: the T-TBS bank's shape
+            rows[-1]["ttbs_bank"] = r["ttbs_bank"]
     # B4's f32 calls build from their own source; the row's numbers are the
     # bf16 route's, the one the served prefill runs
     rows[list(kres).index("flash_attention")]["f32_route"] = {

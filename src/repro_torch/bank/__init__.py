@@ -1,5 +1,5 @@
 """repro_torch.bank -- keyed multi-tenant sampler banks: K stacked per-key
-R-TBS reservoirs behind the ``init / step / extract`` protocol
+R-TBS reservoirs or T-TBS buffers behind the ``init / step / extract`` protocol
 (:class:`SamplerBank`, built by :func:`make_bank`), with key-routed
 ingestion (:mod:`.routing`), the banked payload kernel B3 and a lazy
 per-key pending decay for the untouched keys. The bank-level manage loop

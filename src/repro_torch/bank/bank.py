@@ -1,20 +1,22 @@
 """Keyed multi-tenant sampler banks (the JAX package's ``repro.bank.bank``).
 
-K independent R-TBS reservoirs stored as one stacked structure of arrays
-(payload leaves [K, cap, ...] plus per-key [K] columns) behind an
+K independent per-key samples, R-TBS reservoirs (``"rtbs"``) or T-TBS
+buffers (``"ttbs"``), stored as one stacked structure of arrays (payload
+leaves [K, cap, ...] plus per-key [K] columns) behind an
 ``init / step / extract`` protocol, advanced in work proportional to the
 tick's BATCH, not to K:
 
   * **routing** (:mod:`.routing`): one stable argsort buckets the tick's
     ``(keys, payload)`` arrivals into at most b per-key segments with a
     static per-key sub-batch capacity ``bcap``;
-  * **touched keys** are advanced by R-TBS's own fused tick, composed per
-    key: :func:`repro_torch.core.rtbs.tick_map` broadcast over the b routed
-    rows, each row drawing from its own key (the tick key with the key id
-    folded in, on the device), then ONE banked payload pass per item leaf,
-    the B3 kernel (:func:`repro_torch.kernels.tbs_step.ops.
-    tbs_step_apply_banked`), which reads the sub-batches straight from the
-    tick's payload and rewrites the touched reservoirs in place;
+  * **touched keys** are advanced by the scheme's own tick, composed per
+    key: :func:`repro_torch.core.rtbs.tick_map` or T-TBS's slot map
+    broadcast over the b routed rows, each row drawing from its own key
+    (the tick key with the key id folded in, on the device; T-TBS's two
+    binomials of all b rows in one H2 launch), then ONE banked payload pass
+    for every item leaf, the B3 kernel (:func:`repro_torch.kernels.tbs_step.
+    ops.tbs_step_apply_banked`), which reads the sub-batches straight from
+    the tick's payload and rewrites the touched reservoirs in place;
   * **inactive keys** take the pure-decay fast path: every key's
     ``pending`` factor is multiplied by the tick's decay, one [K] op and no
     payload movement. The deferred downsample is composed into the key's
@@ -32,9 +34,6 @@ Nothing in a step is read on the host: the touched count, the scalar
 columns and the decay stay device tensors, and the scalar columns scatter
 through a ``[K + 1]`` buffer whose last row takes the sentinel rows (JAX's
 ``mode="drop"``).
-
-Only the ``rtbs`` bank is ported; ``make_bank("ttbs", ...)`` raises,
-naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -47,7 +46,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch import _device
 from repro_torch.core import latent as lt
-from repro_torch.core import prng, rtbs
+from repro_torch.core import prng, rng, rtbs, simple
 from repro_torch.core.api import SampleView
 from repro_torch.decay import DecaySchedule
 from repro_torch.decay import resolve as _resolve_schedule
@@ -65,11 +64,13 @@ class BankState:
 
     ``items`` leaves are [K, cap, ...]. For ``rtbs``: ``nfull`` = floor(C)
     of the STORED latent, ``weight`` = stored sample weight C,
-    ``total_weight`` = W as of the key's last touch. ``pending`` is the
-    per-key composed decay factor since the key's last touch (1.0 right
-    after a touch); the key's effective totals are
-    ``W_eff = pending * total_weight`` and ``C_eff = min(weight, W_eff)``.
-    ``overflow`` counts per-key items dropped by the routing ``bcap``.
+    ``total_weight`` = W as of the key's last touch; for ``ttbs``:
+    ``nfull`` = the buffer count (``weight`` mirrors it as f32). ``pending``
+    is the per-key composed decay factor since the key's last touch (1.0
+    right after a touch); the key's effective totals are
+    ``W_eff = pending * total_weight`` and, for rtbs,
+    ``C_eff = min(weight, W_eff)``. ``overflow`` counts per-key items
+    dropped by the routing ``bcap`` or the buffer's capacity.
     ``dstate`` is the shared decay-schedule bookkeeping (None for
     constant-rate schedules)."""
 
@@ -133,9 +134,6 @@ class SamplerBank:
 
 _REGISTRY: dict[str, Callable[..., SamplerBank]] = {}
 
-# bank schemes of the JAX package that later slices port, by ROADMAP item
-_NOT_PORTED = {"ttbs": "A.6 (the ttbs bank)"}
-
 
 def register_bank(name: str):
     """Decorator: register a ``(num_keys=..., device=..., **hyper) ->
@@ -158,10 +156,6 @@ def make_bank(scheme: str, *, num_keys: int, device=None, **hyper) -> SamplerBan
     ``device=None`` means the CUDA card (raises without one)."""
     builder = _REGISTRY.get(scheme)
     if builder is None:
-        if scheme in _NOT_PORTED:
-            raise ValueError(f"bank scheme {scheme!r} is not ported to repro_torch "
-                             f"yet (ROADMAP queue {_NOT_PORTED[scheme]}); "
-                             f"available: {available_bank_schemes()}")
         raise ValueError(f"unknown bank scheme {scheme!r}; available: "
                          f"{available_bank_schemes()}")
     if num_keys < 1:
@@ -363,6 +357,132 @@ def _make_rtbs_bank(*, num_keys: int, n: int, lam: float | None = None,
         hyper["lam"] = lam
     return SamplerBank(
         scheme="rtbs", num_keys=K, cap=cap, bcap=bcap, init=init, step=step,
+        step_decayed=step_decayed, step_stats=step_stats,
+        step_decayed_stats=step_decayed_stats, extract=extract, size=size,
+        base_rate=lambda state, dt=None: sched_tick(state.dstate, dt)[0],
+        hyper=hyper, device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# T-TBS bank
+# ---------------------------------------------------------------------------
+def _ttbs_key_map(draws: simple.TTBSDraws, count, bcount, *, cap: int, bcap: int):
+    """Each routed row's T-TBS tick (paper Alg. 1) as a slot map over
+    (buffer, sub-batch), from the row's draws: keep a uniform m-subset of
+    the buffer at its head and append k uniform sub-batch items. Returns
+    ``(src [..., cap] int32, new_count, dropped)``; ``dropped`` counts
+    inserts past the buffer's capacity."""
+    perm = rng.prefix_permutation_fast(draws.rb_perm, cap, count)
+    picks = rng.prefix_permutation_fast(draws.rb_pick, bcap, bcount)
+    src = simple.compose_map(perm, picks, draws.m, draws.k)
+    total = draws.m + draws.k
+    return src, torch.clamp(total, max=cap), torch.clamp(total - cap, min=0)
+
+
+def _ttbs_tick_map(key, state: BankState, keys, bcount, d, *, n: int, batch_size,
+                   bcap: int):
+    """A T-TBS bank tick up to its payload pass: compose the tick's factor
+    ``d`` (0-d or [K]) into every key's ``pending``, set each key's
+    acceptance probability ``q = clip(n (1 - d) / batch_size, 0, 1)``
+    (``batch_size`` an f32 0-d tensor or a float), route the arrivals, then
+    compose each touched key's slot map (:func:`_ttbs_key_map`) from its
+    own draws, :func:`repro_torch.core.simple.draw_ttbs` of the tick key
+    with the key id folded in (both binomials of all b rows in one launch,
+    then the keep and pick permutations), the draws a standalone
+    ``ttbs_step`` of that key makes. Returns ``(routing, src [b, cap],
+    new_count, dropped, w_new, pending, binomial_rows)``: the middle three
+    per routed row, ``pending`` [K], and the operands of the tick's one
+    binomial launch ``(keys [2b, 2], counts [2b], probs [2b])``."""
+    K, cap = state.nfull.shape[0], pytree.tree_leaves(state.items)[0].shape[1]
+    with _scope("bank.decay"):
+        pending = state.pending * d
+        bs = torch.as_tensor(batch_size, dtype=_F32, device=pending.device)
+        q = torch.clamp(n * (1.0 - d.expand(K)) / bs, 0.0, 1.0)
+    with _scope("bank.route"):
+        r = routing.route(keys, bcount, num_keys=K, bcap=bcap)
+        idx = torch.clamp(r.touched, max=K - 1)   # clipped gather; rows drop
+    with _scope("bank.tick_map"):
+        count = state.nfull[idx].to(_I64)
+        p_eff = pending[idx]                      # composed retention since last touch
+        draws, rows = simple.draw_ttbs_rows(prng.fold_in(key, r.touched), count, r.counts,
+                                            p_eff, q[idx])
+        src, new_count, dropped = _ttbs_key_map(draws, count, r.counts, cap=cap,
+                                                bcap=bcap)
+        w_new = lt.fma_f32(p_eff, state.total_weight[idx], r.counts.to(_F32))
+    return r, src, new_count, dropped, w_new, pending, rows
+
+
+@register_bank("ttbs")
+def _make_ttbs_bank(*, num_keys: int, n: int, lam: float | None = None,
+                    decay: DecaySchedule | None = None, batch_size: float,
+                    cap: int | None = None, bcap: int = 64,
+                    device: torch.device) -> SamplerBank:
+    """K independent T-TBS buffers (paper Alg. 1 per key).
+
+    Binomial thinning composes exactly (rate p1 then p2 is one thinning at
+    p1 p2), so a key's ``pending`` factor is its retention probability at
+    its next touch. The acceptance probability is set per tick from the
+    tick's factor, ``q_t = clip(n (1 - d_t) / batch_size, 0, 1)`` per key,
+    ``batch_size`` being a key's mean arrivals per touched tick. A key's W
+    is ``p_eff W + B`` rounded once to f32, as XLA rounds the jitted JAX
+    bank's (:func:`repro_torch.core.latent.fma_f32`)."""
+    sched = _resolve_schedule(lam, decay)
+    cap = 4 * n if cap is None else cap
+    K = num_keys
+    init_dstate, sched_tick = _schedule_fns(sched, device)
+    bs = torch.full((), float(batch_size), dtype=_F32, device=device)
+
+    def init(item_proto: Any) -> BankState:
+        return _init_bank_state(item_proto, K, cap, init_dstate, device)
+
+    def _advance(key, state: BankState, keys, payload, bcount, d, new_dstate):
+        r, src, new_count, dropped_cap, w_new, pending, _ = _ttbs_tick_map(
+            key, state, keys, bcount, d, n=n, batch_size=bs, bcap=bcap)
+        with _scope("bank.payload"):
+            tbs_ops.tbs_step_apply_banked(
+                state.items, payload, src, order=r.order, starts=r.starts,
+                touched=r.touched, ntouched=r.ntouched, bcap=bcap)
+        new_state = BankState(
+            items=state.items,
+            nfull=_scatter(state.nfull, r.touched, new_count),
+            weight=_scatter(state.weight, r.touched, new_count.to(_F32)),
+            total_weight=_scatter(state.total_weight, r.touched, w_new),
+            pending=_scatter(pending, r.touched, torch.ones_like(w_new)),
+            overflow=_scatter_add(state.overflow, r.touched, r.dropped + dropped_cap),
+            dstate=new_dstate,
+        )
+        live = torch.arange(dropped_cap.shape[0], device=device) < r.ntouched
+        stats = _tick_stats(r, d)
+        stats["overflow"] = r.overflow + torch.where(live, dropped_cap, 0).sum()
+        return new_state, stats
+
+    step, step_decayed, step_stats, step_decayed_stats = _make_steps(
+        sched_tick, _advance, device)
+
+    def _keep_mask(key, state: BankState, ids):
+        # the T-TBS sample is the buffer; the pending retention (a composed
+        # Binomial thinning: a Bernoulli at rate ``pending`` per item)
+        # settles in the view
+        pend = state.pending[ids].unsqueeze(-1)
+        keep = prng.uniform(prng.fold_in(key, ids), (cap,)) < pend
+        valid = torch.arange(cap, device=device) < state.nfull[ids].unsqueeze(-1)
+        return valid & (keep | (pend >= 1.0))
+
+    def extract(key, state: BankState, key_ids) -> SampleView:
+        ids = _key_ids(key_ids, K, device)
+        mask = _keep_mask(key, state, ids)
+        return SampleView(items=pytree.tree_map(lambda a: a[ids], state.items),
+                          mask=mask, size=mask.sum(-1))
+
+    def size(key, state: BankState, key_ids) -> torch.Tensor:
+        return _keep_mask(key, state, _key_ids(key_ids, K, device)).sum(-1)
+
+    hyper = {"n": n, "decay": sched, "batch_size": batch_size, "cap": cap, "bcap": bcap}
+    if lam is not None:
+        hyper["lam"] = lam
+    return SamplerBank(
+        scheme="ttbs", num_keys=K, cap=cap, bcap=bcap, init=init, step=step,
         step_decayed=step_decayed, step_stats=step_stats,
         step_decayed_stats=step_decayed_stats, extract=extract, size=size,
         base_rate=lambda state, dt=None: sched_tick(state.dstate, dt)[0],

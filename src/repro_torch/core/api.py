@@ -48,7 +48,15 @@ pytree.register_dataclass(SampleView)
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Sampler:
-    """A sampling scheme bound to its hyperparameters and device."""
+    """A sampling scheme bound to its hyperparameters and device.
+
+    ``step_decayed(key, state, batch, bcount, d)``, set on the time-biased
+    schemes (rtbs, ttbs, btbs) and ``None`` on the decay-free baselines
+    (brs, sw), is ``step`` with the tick's decay factor ``d`` (an f32 0-d
+    device tensor) given from outside: the manage loop's closed-loop
+    controller drives the schemes through it. Under a time-varying
+    schedule the external ``d`` overrides the schedule's factor for that
+    tick, and the schedule's state still advances."""
 
     scheme: str
     init: Callable[[Any], Any]
@@ -57,6 +65,7 @@ class Sampler:
     size: Callable[[prng.Key, Any], torch.Tensor]
     hyper: Mapping[str, Any]
     device: torch.device
+    step_decayed: Callable[..., Any] | None = None
 
     def __repr__(self) -> str:
         hp = ", ".join(f"{k}={v}" for k, v in self.hyper.items())
@@ -113,7 +122,8 @@ def _thread_schedule(sched: DecaySchedule, device: torch.device, *, init,
     """Wire a schedule into a scheme's decay-parametric closures. Constant
     schedules bake the factor in (one f32 device tensor made here, not per
     tick) and keep the bare state; time-varying ones wrap the state in
-    :class:`DecayedState` and pull ``d`` from the schedule each tick."""
+    :class:`DecayedState` and pull ``d`` from the schedule each tick. Either
+    way ``step_decayed`` takes the same state as ``step``."""
     if sched.static_rate is not None:
         d0 = torch.full((), sched.static_rate, dtype=torch.float32,
                         device=device)
@@ -121,7 +131,8 @@ def _thread_schedule(sched: DecaySchedule, device: torch.device, *, init,
         def step(key, state, batch_items, bcount):
             return step_d(key, state, batch_items, bcount, d0)
 
-        return dict(init=init, step=step, extract=extract, size=size)
+        return dict(init=init, step=step, extract=extract, size=size,
+                    step_decayed=step_d)
 
     def init_w(proto):
         return DecayedState(dstate=sched.init(device), inner=init(proto))
@@ -131,11 +142,15 @@ def _thread_schedule(sched: DecaySchedule, device: torch.device, *, init,
         return DecayedState(dstate=dstate,
                             inner=step_d(key, state.inner, batch_items, bcount, d))
 
+    def step_decayed(key, state, batch_items, bcount, d):
+        return DecayedState(dstate=sched.step(state.dstate),
+                            inner=step_d(key, state.inner, batch_items, bcount, d))
+
     def unwrap(fn):
         return lambda key, state: fn(key, state.inner)
 
     return dict(init=init_w, step=step_w, extract=unwrap(extract),
-                size=unwrap(size))
+                size=unwrap(size), step_decayed=step_decayed)
 
 
 def _decay_hyper(sched: DecaySchedule, lam) -> dict:
@@ -160,8 +175,8 @@ def _make_rtbs(*, n: int, lam: float | None = None,
         return SampleView(items=state.lat.items, mask=mask, size=size)
 
     def size(key, state):
-        u = prng.uniform(key, state.lat.weight.shape, state.lat.weight.device)
-        k, take, _ = lt.partial_draw(u, state.lat.weight)
+        k, take, _ = lt.partial_draw(prng.uniform_for(key, state.lat.weight),
+                                     state.lat.weight)
         return k + take.to(torch.int64)
 
     return Sampler(

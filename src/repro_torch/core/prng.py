@@ -173,6 +173,15 @@ def uniform(k, shape, device=None) -> torch.Tensor:
     return uniform_from_bits(bits(k, shape, device))
 
 
+def uniform_for(k, x: torch.Tensor) -> torch.Tensor:
+    """One f32 uniform per element of ``x``: ``x``'s shape from a host key,
+    or one per row of a key tensor whose rows are ``x``'s elements (a
+    Monte-Carlo farm's trials, each drawing from its own key)."""
+    if _is_host(k):
+        return uniform(k, x.shape, x.device)
+    return uniform(k, ())
+
+
 def bernoulli(k: Key, p: torch.Tensor) -> torch.Tensor:
     """``uniform < p`` with one uniform per element of ``p``."""
     return uniform(k, p.shape, p.device) < p

@@ -96,7 +96,11 @@ def binomial(keys: torch.Tensor, count: torch.Tensor, p: torch.Tensor) -> torch.
 
 def binomial_keys(key, batch, device) -> torch.Tensor:
     """Key rows ``[*batch, 2]`` for :func:`binomial`: row j is
-    ``split(key, prod(batch))[j]``, made on ``device``."""
+    ``split(key, prod(batch))[j]``, made on ``device``. For a key tensor
+    ``[T, 2]`` (``batch`` empty) row t is ``split(key[t], 1)[0]``, the row a
+    host key with the same words gives with ``batch`` empty."""
+    if isinstance(key, torch.Tensor):
+        return prng.split(key, 1)[0]
     batch = tuple(batch)
     return prng.key_rows(key, math.prod(batch), device).reshape(batch + (2,))
 

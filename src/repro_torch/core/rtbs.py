@@ -319,9 +319,9 @@ def step_ref(key: prng.Key, state: RTBSState, batch_items: Any, bcount, *, n: in
 
 
 def realize(key: prng.Key, state: RTBSState):
-    """Draw the actual sample S_t: (mask over the n+1 slots, |S_t|)."""
-    u = prng.uniform(key, state.lat.weight.shape, state.lat.weight.device)
-    return lt.realize(u, state.lat)
+    """Draw the actual sample S_t: (mask over the n+1 slots, |S_t|). A key
+    tensor draws each leading row of ``state`` from its own key."""
+    return lt.realize(prng.uniform_for(key, state.lat.weight), state.lat)
 
 
 def run_stream(key: prng.Key, state: RTBSState, batches: Any,

@@ -31,7 +31,8 @@ evaluation (``*_step_with``) that takes them, as ``rtbs.draw_tick`` /
 ``rtbs.step_with`` are, so tests can feed the JAX package's bits, uniforms
 and binomial results. ``count`` and ``overflow`` are int64 and
 ``total_weight`` f32 device tensors; no tick reads any of them on the
-host. Every function broadcasts over leading trial dimensions.
+host. Every function broadcasts over leading trial dimensions, whose
+draws come from one host key or, one key a trial, from a key tensor.
 """
 from __future__ import annotations
 
@@ -117,6 +118,12 @@ def _f32(x, device) -> torch.Tensor:
     return torch.full((), float(x), dtype=_F32, device=device)
 
 
+def _draw_batch(key, batch) -> tuple:
+    """The shape a draw takes besides its key's rows: ``batch`` for a host
+    key, nothing for a key tensor (one key a trial, ``batch`` its rows)."""
+    return () if isinstance(key, torch.Tensor) else tuple(batch)
+
+
 # ---------------------------------------------------------------------------
 # T-TBS / B-TBS (paper Alg. 1 / Alg. 4)
 # ---------------------------------------------------------------------------
@@ -133,27 +140,49 @@ class TTBSDraws:
     rb_pick: torch.Tensor    # int64 [..., rounds, 2]
 
 
-def draw_ttbs(key, count: torch.Tensor, bcount: torch.Tensor, p, q, *,
-              batch=()) -> TTBSDraws:
-    """A tick's draws with leading trial dimensions ``batch``: both
-    binomials of every trial in one launch (H2 on the card), trial j's m
-    from row j of ``split(k_ret, J)`` and its k from row j of
-    ``split(k_acc, J)``, J = prod(batch)."""
-    k_ret, k_perm, k_acc, k_pick = prng.split(key, 4)
-    batch = tuple(batch)
+def _binomial_rows(k_ret, k_acc, count, bcount, p, q, batch, lead):
+    """The one H2 launch of a T-TBS tick: m's rows, then k's."""
     dev = count.device
-    lead = torch.Size(batch)
     keys = torch.cat([rng.binomial_keys(k_ret, batch, dev).reshape(-1, 2),
                       rng.binomial_keys(k_acc, batch, dev).reshape(-1, 2)])
     counts = torch.cat([count.expand(lead).reshape(-1),
                         bcount.to(_I64).expand(lead).reshape(-1)])
     probs = torch.cat([_f32(p, dev).expand(lead).reshape(-1),
                        _f32(q, dev).expand(lead).reshape(-1)])
-    mk = rng.binomial(keys, counts, probs)
-    J = counts.shape[0] // 2
-    return TTBSDraws(m=mk[:J].reshape(lead), k=mk[J:].reshape(lead),
-                     rb_perm=rng.draw_son_bits(k_perm, batch, dev),
-                     rb_pick=rng.draw_son_bits(k_pick, batch, dev))
+    return keys, counts, probs
+
+
+def _lead(key, batch) -> torch.Size:
+    return torch.Size(key.shape[:-1] if isinstance(key, torch.Tensor) else batch)
+
+
+def draw_ttbs_rows(key, count: torch.Tensor, bcount: torch.Tensor, p, q, *,
+                   batch=()) -> tuple[TTBSDraws, tuple]:
+    """:func:`draw_ttbs` and the operands of its one binomial launch,
+    ``(keys [2J, 2], counts [2J], probs [2J])``, m's J rows then k's."""
+    k_ret, k_perm, k_acc, k_pick = prng.split(key, 4)
+    batch = _draw_batch(key, batch)
+    lead = _lead(key, batch)
+    rows = _binomial_rows(k_ret, k_acc, count, bcount, p, q, batch, lead)
+    mk = rng.binomial(*rows)
+    J = mk.shape[0] // 2
+    dev = count.device
+    draws = TTBSDraws(m=mk[:J].reshape(lead), k=mk[J:].reshape(lead),
+                      rb_perm=rng.draw_son_bits(k_perm, batch, dev),
+                      rb_pick=rng.draw_son_bits(k_pick, batch, dev))
+    return draws, rows
+
+
+def draw_ttbs(key, count: torch.Tensor, bcount: torch.Tensor, p, q, *,
+              batch=()) -> TTBSDraws:
+    """A tick's draws with leading trial dimensions ``batch``: both
+    binomials of every trial in one launch (H2 on the card), trial j's m
+    from row j of ``split(k_ret, J)`` and its k from row j of
+    ``split(k_acc, J)``, J = prod(batch). A key tensor ``[T, 2]`` (``batch``
+    empty) gives one row of draws per key row, row t equal to the host
+    draw of key t, all 2T binomials in one launch: the keyed bank's
+    per-key draws."""
+    return draw_ttbs_rows(key, count, bcount, p, q, batch=batch)[0]
 
 
 def ttbs_step_with(draws: TTBSDraws, state: BufferState, batch_items: Any,
@@ -201,8 +230,10 @@ class BRSDraws:
 
 
 def draw_brs(key, device, *, batch=()) -> BRSDraws:
+    """A tick's draws with leading trial dimensions ``batch``, or one row of
+    draws per row of a key tensor."""
     k_hg, k_perm, k_pick = prng.split(key, 3)
-    batch = tuple(batch)
+    batch = _draw_batch(key, batch)
     return BRSDraws(u_hg=rng.draw_hypergeometric(k_hg, batch, device),
                     rb_perm=rng.draw_son_bits(k_perm, batch, device),
                     rb_pick=rng.draw_son_bits(k_pick, batch, device))

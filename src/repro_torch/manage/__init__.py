@@ -12,8 +12,10 @@ from .bank_loop import (  # noqa: F401
 from .loop import (  # noqa: F401
     item_proto,
     make_manage_step,
+    make_run_farm,
     make_run_loop,
     materialize_stream,
+    run_farm,
     run_loop,
     tick_keys,
 )

@@ -13,14 +13,22 @@ time-biased samples at once. Two retraining regimes:
     prequentially evaluated on ITS key's arrivals, through
     ``torch.func.vmap`` over the adapter's ``fit`` / ``evaluate``.
 
+``controller=`` (a :class:`repro_torch.decay.AdaptiveDecay`) closes the
+loop between the prequential loss and the decay rate through the bank's
+``step_decayed``: in shared mode one controller observes the shared
+metric and its rate decays every key; with ``per_key=True`` each train key
+has its own controller (state fields [Q]) fed by its own loss, and the
+tick's [K] factor is the schedule's base rate everywhere but at the train
+keys, which take their controllers' rates. The adjustment is gated on
+retrain ticks, as in :mod:`.loop`.
+
 As in :mod:`.loop`, the loop is a Python loop over the tick body that
 :func:`make_bank_manage_step` returns, so driving the tick by hand is bit
 identical to the loop, and tick t uses :func:`.loop.tick_keys`. ``t`` and
 the retrain decision are host ints; nothing else is read on the host.
 
-Not ported yet: ``controller=`` (ROADMAP A.5) and ``telemetry=`` (A.9)
-raise ``NotImplementedError``; the key-sharded loop and
-``shard_keyed_stream`` wait for A.7.
+Not ported yet: ``telemetry=`` (A.9) raises ``NotImplementedError``; the
+key-sharded loop and ``shard_keyed_stream`` wait for A.7.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.bank import Routing, SamplerBank
 from repro_torch.core import prng
 from repro_torch.core.api import SampleView
-from repro_torch.manage.loop import item_proto, tick_keys
+from repro_torch.manage.loop import _drive, _stacked, item_proto, tick_keys
 from repro_torch.manage.models import ModelAdapter
 from repro_torch.obs.profile import scope as _scope
 
@@ -102,25 +110,44 @@ def _as_train_keys(train_keys, num_keys: int, device) -> torch.Tensor:
 
 def make_bank_manage_step(bank: SamplerBank, model: ModelAdapter, *,
                           retrain_every: int = 1, train_keys,
-                          per_key: bool = False) -> Callable:
+                          per_key: bool = False, controller=None) -> Callable:
     """One tick of the bank loop: ``(key, t, state, params, batch, bcount)
     -> (state, params, metrics)`` with ``t`` a host int, ``batch`` a keyed
     tick batch (``"key"`` [b] plus payload fields) and ``metrics`` =
     {"metric", "size" [Q], "overflow"}. Consumes ``state`` (the bank's step
     updates its reservoirs in place). The same tick body
-    :func:`make_bank_run_loop` runs."""
+    :func:`make_bank_run_loop` runs.
+
+    With a ``controller`` the tick carries its state (fields [Q] when
+    ``per_key``): ``(key, t, state, params, cstate, batch, bcount) ->
+    (state, params, cstate, metrics)``; ``metrics`` gains the controllers'
+    factor ``"decay"`` (0-d shared, the train keys' [Q] per key)."""
     tk = _as_train_keys(train_keys, bank.num_keys, bank.device)
     Q = tk.shape[0]
     v_eval = torch.func.vmap(model.evaluate)
     v_fit = torch.func.vmap(model.fit)
 
-    def tick(key, t: int, state, params, batch, bcount):
+    def decay_of(state, cstate):
+        """(the tick's factor for the bank, the controllers' rates)."""
+        d = controller.rate(cstate)
+        if not per_key:
+            return d, d
+        base = bank.base_rate(state)
+        return base.expand(bank.num_keys).clone().index_copy_(0, tk, d), d
+
+    def body(key, t: int, state, params, cstate, batch, bcount):
         k_step, k_extract, k_fit = tick_keys(key, t)
         keys_t, payload = _split_keyed(batch)
+        do_fit = (t + 1) % retrain_every == 0
         # the step leaves params alone, so evaluating after it is still
         # prequential, and the per-key windows reuse the step's routing
         with _scope("manage.sampler_step"):
-            state, bstats = bank.step_stats(k_step, state, keys_t, payload, bcount)
+            if controller is None:
+                state, bstats = bank.step_stats(k_step, state, keys_t, payload, bcount)
+            else:
+                d_bank, d = decay_of(state, cstate)
+                state, bstats = bank.step_decayed_stats(k_step, state, keys_t, payload,
+                                                        bcount, d_bank)
         with _scope("manage.eval"):
             if per_key:
                 windows, counts = _train_windows(bstats["routing"], payload,
@@ -128,7 +155,10 @@ def make_bank_manage_step(bank: SamplerBank, model: ModelAdapter, *,
                 metric = v_eval(params, windows, counts)
             else:
                 metric = model.evaluate(params, payload, bcount)
-        if (t + 1) % retrain_every == 0:
+        if controller is not None:
+            with _scope("manage.controller"):
+                cstate = controller.observe(cstate, metric, do_fit)
+        if do_fit:
             with _scope("manage.retrain"):
                 view = bank.extract(k_extract, state, tk)
                 if per_key:
@@ -138,6 +168,15 @@ def make_bank_manage_step(bank: SamplerBank, model: ModelAdapter, *,
         with _scope("manage.size"):
             metrics = {"metric": metric, "size": bank.size(k_extract, state, tk),
                        "overflow": bstats["overflow"]}
+        if controller is not None:
+            metrics["decay"] = d
+        return state, params, cstate, metrics
+
+    if controller is not None:
+        return body
+
+    def tick(key, t: int, state, params, batch, bcount):
+        state, params, _, metrics = body(key, t, state, params, None, batch, bcount)
         return state, params, metrics
 
     return tick
@@ -159,35 +198,28 @@ def make_bank_run_loop(bank: SamplerBank, model: ModelAdapter, *,
         [T]}``, fit on the pooled extract of ``train_keys``;
       * ``per_key=True``: params gain a leading [Q] dimension and
         ``trace["metric"]`` is [T, Q], each key's prequential loss on its
-        own arrivals (NaN on ticks it did not arrive).
+        own arrivals (NaN on ticks it did not arrive);
+      * ``controller``: the decay controller (module docstring); the trace
+        gains ``"decay"``, [T] shared or the train keys' [T, Q] per key.
 
     ``superbatch`` is accepted for the JAX package's signature and changes
     nothing (there is no compiled scan body to chunk here)."""
     del superbatch
-    if controller is not None:
-        raise NotImplementedError("controller= (adaptive decay) is not ported "
-                                  "to repro_torch yet (ROADMAP queue A.5)")
     if telemetry is not None:
         raise NotImplementedError("telemetry= is not ported to repro_torch yet "
                                   "(ROADMAP queue A.9)")
     train_keys = list(train_keys)
     tick = make_bank_manage_step(bank, model, retrain_every=retrain_every,
-                                 train_keys=train_keys, per_key=per_key)
+                                 train_keys=train_keys, per_key=per_key,
+                                 controller=controller)
     Q = len(train_keys)
 
     def run(key: prng.Key, batches: Any, bcounts: torch.Tensor):
-        state = bank.init(keyed_item_proto(batches))
         params = model.init()
+        carry = () if controller is None else (controller.init(bank.device),)
         if per_key:
-            params = pytree.tree_map(
-                lambda a: a.unsqueeze(0).expand((Q,) + tuple(a.shape)).clone(),
-                params)
-        ms = []
-        for t in range(bcounts.shape[0]):
-            batch_t = {f: v[t] for f, v in batches.items()}
-            state, params, m = tick(key, t, state, params, batch_t, bcounts[t])
-            ms.append(m)
-        trace = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-        return state, params, trace
+            params, carry = _stacked(params, Q), _stacked(carry, Q)
+        return _drive(tick, key, bank.init(keyed_item_proto(batches)), params, carry,
+                     batches, bcounts)
 
     return run

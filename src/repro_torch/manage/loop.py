@@ -17,9 +17,18 @@ extract, fit) keys (:func:`tick_keys`); ``size`` and ``extract`` consume the
 same extract key, so the logged size is the size of the sample a retrain
 would see.
 
-Not ported yet: the closed-loop decay ``controller=`` and ``telemetry=``
-(they raise ``NotImplementedError``), Monte-Carlo farms and the sharded
-loops (ROADMAP queue A).
+Closed-loop adaptive decay: ``controller=`` (a
+:class:`repro_torch.decay.AdaptiveDecay`) drives ``sampler.step_decayed``
+with the controller's rate each tick and feeds the prequential metric back;
+the rate's adjustment is gated on retrain ticks, and the trace gains the
+applied factor under ``"decay"``.
+
+Monte-Carlo farms (:func:`make_run_farm`): trials share one stream, each
+with its own key from ``split(key, trials)``, and run as a leading
+dimension of the sampler's state; the trace gains a leading [trials] axis.
+
+Not ported yet: ``telemetry=`` (it raises ``NotImplementedError``) and the
+sharded loops (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -48,27 +57,77 @@ def item_proto(batches: Any) -> Any:
                                                  device=a.device), batches)
 
 
+def _check_controllable(sampler: Sampler) -> None:
+    if sampler.step_decayed is None:
+        raise ValueError(
+            f"sampler {sampler.scheme!r} has no decay to control (no "
+            "step_decayed closure): the adaptive controller drives the "
+            "time-biased schemes (rtbs/ttbs/btbs), not the decay-free baselines")
+
+
 def make_manage_step(sampler: Sampler, model: ModelAdapter, *,
-                     retrain_every: int = 1) -> Callable:
+                     retrain_every: int = 1, controller=None) -> Callable:
     """One tick of the loop: ``(key, t, state, params, batch, bcount) ->
     (state, params, metrics)`` with ``t`` a host int. The same tick body
     :func:`make_run_loop` runs, so driving it tick by tick is bit-identical
-    to the loop."""
+    to the loop.
 
-    def tick(key, t: int, state, params, batch_items, bcount):
+    With a ``controller`` the tick carries its state too: ``(key, t, state,
+    params, cstate, batch, bcount) -> (state, params, cstate, metrics)``,
+    and ``metrics`` gains the applied factor ``"decay"``."""
+    if controller is not None:
+        _check_controllable(sampler)
+
+    def body(key, t: int, state, params, cstate, batch_items, bcount):
         k_step, k_extract, k_fit = tick_keys(key, t)
+        do_fit = (t + 1) % retrain_every == 0
         with _scope("manage.eval"):
             metric = model.evaluate(params, batch_items, bcount)
         with _scope("manage.sampler_step"):
-            state = sampler.step(k_step, state, batch_items, bcount)
-        if (t + 1) % retrain_every == 0:
+            if controller is None:
+                state = sampler.step(k_step, state, batch_items, bcount)
+            else:
+                d = controller.rate(cstate)
+                state = sampler.step_decayed(k_step, state, batch_items, bcount, d)
+        if controller is not None:
+            with _scope("manage.controller"):
+                cstate = controller.observe(cstate, metric, do_fit)
+        if do_fit:
             with _scope("manage.retrain"):
                 params = model.fit(k_fit, params, sampler.extract(k_extract, state))
         with _scope("manage.size"):
             metrics = {"metric": metric, "size": sampler.size(k_extract, state)}
+        if controller is not None:
+            metrics["decay"] = d
+        return state, params, cstate, metrics
+
+    if controller is not None:
+        return body
+
+    def tick(key, t: int, state, params, batch_items, bcount):
+        state, params, _, metrics = body(key, t, state, params, None, batch_items, bcount)
         return state, params, metrics
 
     return tick
+
+
+def _stacked(tree: Any, n: int) -> Any:
+    """``n`` copies of a pytree's tensors along a new leading dimension."""
+    return pytree.tree_map(
+        lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape)).clone(), tree)
+
+
+def _drive(tick: Callable, key, state, params, carry: tuple, batches: Any,
+          bcounts: torch.Tensor):
+    """Run ``tick`` over every tick of a stream (leaves [T, ...]); returns
+    ``(state, params, trace)``, the trace's columns stacked over ticks.
+    ``carry`` is ``()`` or ``(cstate,)``, as the tick takes it."""
+    ms = []
+    for t in range(bcounts.shape[0]):
+        batch_t = pytree.tree_map(lambda a: a[t], batches)
+        state, params, *carry, m = tick(key, t, state, params, *carry, batch_t, bcounts[t])
+        ms.append(m)
+    return state, params, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
 
 def make_run_loop(sampler: Sampler, model: ModelAdapter, *,
@@ -78,27 +137,24 @@ def make_run_loop(sampler: Sampler, model: ModelAdapter, *,
     ``batches`` leaves [T, bcap, ...] and ``bcounts`` [T] on the device,
     ``trace`` = {"metric": f32 [T], "size": int64 [T]}.
 
+    ``controller`` (a :class:`repro_torch.decay.AdaptiveDecay`) closes the
+    loop between the prequential metric and the sampler's decay rate (see
+    the module docstring); the trace gains ``"decay"`` f32 [T]. The sampler
+    must be decay-capable (rtbs/ttbs/btbs).
+
     ``superbatch`` is accepted for the JAX package's signature and changes
     nothing (there is no compiled scan body to chunk here)."""
     del superbatch
-    if controller is not None:
-        raise NotImplementedError("controller= (adaptive decay) is not ported "
-                                  "to repro_torch yet (ROADMAP queue A.5)")
     if telemetry is not None:
         raise NotImplementedError("telemetry= is not ported to repro_torch yet "
                                   "(ROADMAP queue A.9)")
-    tick = make_manage_step(sampler, model, retrain_every=retrain_every)
+    tick = make_manage_step(sampler, model, retrain_every=retrain_every,
+                            controller=controller)
 
     def run(key: prng.Key, batches: Any, bcounts: torch.Tensor):
-        state = sampler.init(item_proto(batches))
-        params = model.init()
-        ms = []
-        for t in range(bcounts.shape[0]):
-            batch_t = pytree.tree_map(lambda a: a[t], batches)
-            state, params, m = tick(key, t, state, params, batch_t, bcounts[t])
-            ms.append(m)
-        trace = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-        return state, params, trace
+        carry = () if controller is None else (controller.init(sampler.device),)
+        return _drive(tick, key, sampler.init(item_proto(batches)), model.init(), carry,
+                     batches, bcounts)
 
     return run
 
@@ -110,6 +166,62 @@ def run_loop(key: prng.Key, sampler: Sampler, model: ModelAdapter,
     return make_run_loop(sampler, model, retrain_every=retrain_every,
                          superbatch=superbatch,
                          controller=controller)(key, batches, bcounts)
+
+
+def _per_trial(model: ModelAdapter, trials: int) -> ModelAdapter:
+    """``model`` over a list of ``trials`` params: ``evaluate`` stacks the
+    trials' metrics, ``fit`` refits trial i on row i of the view with row i
+    of the fit keys (a key tensor row gives the draws its host key does)."""
+
+    def fit(key, params, view):
+        return [model.fit(key[i], p, pytree.tree_map(lambda a: a[i], view))
+                for i, p in enumerate(params)]
+
+    def evaluate(params, batch, bcount):
+        return torch.stack([model.evaluate(p, batch, bcount) for p in params])
+
+    return ModelAdapter(name=model.name, init=lambda: [model.init() for _ in range(trials)],
+                        fit=fit, evaluate=evaluate, hyper=model.hyper, device=model.device)
+
+
+def make_run_farm(sampler: Sampler, model: ModelAdapter, *,
+                  retrain_every: int = 1, superbatch: int | None = None,
+                  controller=None) -> Callable:
+    """Monte-Carlo farm: ``farm(key, trials, batches, bcounts) -> trace``,
+    trace leaves with a leading [trials] axis, bit-equal to stacking
+    :func:`make_run_loop`'s ``run(k_i, batches, bcounts)`` over
+    ``k_i = split(key, trials)[i]``: the trials share the stream, each with
+    its own sampler, model and controller randomness.
+
+    :func:`make_manage_step`'s tick runs once for all trials: they are a
+    leading dimension of the sampler's state, of the controller's state and
+    of the tick keys (a key tensor whose row i is trial i's key), so a tick
+    steps every trial in one pass (one B1 launch). The model adapters take
+    no trial dimension yet, so ``evaluate`` and ``fit`` run once a trial."""
+    del superbatch
+    if controller is not None:
+        _check_controllable(sampler)
+
+    def farm(key: prng.Key, trials: int, batches: Any, bcounts: torch.Tensor):
+        tick = make_manage_step(sampler, _per_trial(model, trials),
+                                retrain_every=retrain_every, controller=controller)
+        dev = sampler.device
+        carry = () if controller is None else (_stacked(controller.init(dev), trials),)
+        _, _, trace = _drive(tick, prng.key_rows(key, trials, dev),
+                            _stacked(sampler.init(item_proto(batches)), trials),
+                            [model.init() for _ in range(trials)], carry, batches, bcounts)
+        return {k: v.movedim(0, 1) for k, v in trace.items()}
+
+    return farm
+
+
+def run_farm(key: prng.Key, trials: int, sampler: Sampler, model: ModelAdapter,
+             batches: Any, bcounts: torch.Tensor, *, retrain_every: int = 1,
+             superbatch: int | None = None, controller=None):
+    """One-shot convenience wrapper over :func:`make_run_farm`."""
+    return make_run_farm(sampler, model, retrain_every=retrain_every,
+                         superbatch=superbatch,
+                         controller=controller)(key, trials, batches, bcounts)
 
 
 def materialize_stream(stream: Any, T: int, *, batch_size: int | Callable,

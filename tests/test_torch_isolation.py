@@ -25,7 +25,8 @@ MODULES = [
     "repro_torch.kernels._common",
     "repro_torch.kernels.swap_delete.ops", "repro_torch.kernels.swap_delete.kernel",
     "repro_torch.kernels.swap_delete.ref", "repro_torch.kernels.swap_delete.bench",
-    "repro_torch.decay", "repro_torch.decay.schedules", "repro_torch.data.streams",
+    "repro_torch.decay", "repro_torch.decay.schedules", "repro_torch.decay.adaptive",
+    "repro_torch.data.streams",
     "repro_torch.models.simple_ml", "repro_torch.manage",
     "repro_torch.manage.models", "repro_torch.manage.loop",
     "repro_torch.obs.profile", "repro_torch.bank", "repro_torch.bank.routing",
@@ -89,6 +90,7 @@ def test_entry_points_raise_without_a_card():
     ssm = zoo.build(get_smoke_config("mamba2_370m"))
     for call in (lambda: make_sampler("rtbs", n=4, lam=0.1),
                  lambda: make_bank("rtbs", num_keys=4, n=2, lam=0.1),
+                 lambda: make_bank("ttbs", num_keys=4, n=2, lam=0.1, batch_size=1.0),
                  lambda: make_model("linreg"),
                  lambda: materialize_stream(LinRegStream(), 2, batch_size=3),
                  lambda: decay_profile(exponential(0.1), 3),

@@ -220,7 +220,9 @@ def test_unported_options_raise():
         make_sampler("nope", device=CPU)
     sampler = make_sampler("rtbs", n=4, lam=0.1, device=CPU)
     model = make_model("linreg", device=CPU)
-    with pytest.raises(NotImplementedError):
-        make_run_loop(sampler, model, controller=object())
+    ctrl = tdecay.loss_ratio(lam0=0.1, lam_min=0.01, lam_max=1.0)
+    for scheme in ("brs", "sw"):
+        with pytest.raises(ValueError, match="no decay"):
+            make_run_loop(make_sampler(scheme, n=4, device=CPU), model, controller=ctrl)
     with pytest.raises(NotImplementedError):
         make_run_loop(sampler, model, telemetry=object())
