@@ -119,7 +119,33 @@ the JAX package. Every check raises on failure; no phase catches its own.
      bound, its plain version, ``torch.binomial`` and a one-row launch; B3
      at cap 256 equal to its plain version and timed beside its bound;
      and (d) card == CPU at K = 4096;
- 13. the ``kernels`` JSON line, the card line, and the result line.
+ 13. the LM online-management driver (``repro_torch.launch.train``) at
+     mamba2_370m's full size (48 layers, d 1,024, bf16 compute, f32 params
+     and AdamW moments), R-TBS over 512-token sequences, 64 a tick, n 4,096,
+     a retrain of 8 AdamW steps on 16 rows every 4 ticks, 12 ticks: eval
+     finite and falling, W exact, B1 once a tick, B5 48 times a forward
+     (eval and every fit step), a profiled retrain tick by scope, peak
+     memory, seconds a retrain, fit tokens/s and ticks/s; a run through
+     ``main`` stopped at tick 8 (checkpoint, profiler trace) and resumed to
+     12 equal to the unbroken run bit for bit, its final checkpoint byte for
+     byte; one layer's gradients through B5 within B5's bf16 tolerance of
+     the plain route's; B5 timed at the fit's shape. (d) one retrain of 2
+     steps at 2 layers of full width in f32, mamba2_370m and stablelm_12b,
+     card vs CPU from the same params and rows;
+ 14. the driver's bank mode (``--num-keys 16384``, R-TBS, 4 layers of
+     mamba2_370m, 128-token items, bcap 32) with and without
+     ``--telemetry-dir``: equal logs, B3 once a tick, the JSONL passing
+     ``benchmarks/check_telemetry.py``;
+ 15. telemetry on the main cell (phase 3's stream at cap 2^20) through
+     ``make_run_loop(..., telemetry=make_telemetry(dir, every=16))``: the
+     outputs bit-identical to telemetry off, the records passing the schema
+     check, fast ticks with their drains under
+     ``set_sync_debug_mode("error")``, the rows' device ms and kernels a
+     tick; a short serve run's ``query`` records;
+ 16. the ``kernels`` JSON line, the card line, and the result line.
+
+``python3 chip_smoke.py --only 13,13d,14,15`` runs only the listed phases of
+13-15 (no kernels line, no result line).
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -128,6 +154,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -577,49 +604,59 @@ def _breakdown(torch, prof, wall_ms: float, tag: str = "[3]", scopes=_SCOPES,
                       ("H1 kernels", H1_KERNELS)),
                what: str = "retrain tick") -> dict:
     """Device time of one profiled tick (or serving step): kernel time summed
-    over the device's kernel events, each scope's share, the hand-written
-    kernels by name, and the device's idle share of the step's wall time.
-    A scope's share is the time of the kernels that start inside its ranges
-    on the device (the profiler's device-side annotation of each
-    ``record_function``, ctypes-launched kernels included). Those ranges
-    hold a scope's kernels but not those of a scope nested in it, so the
-    shares split the device time. (Summing the CPU ranges'
-    ``device_time_total`` instead counted some kernels under several
-    ranges: the Mamba2 prefill's scopes summed to 3.1x its device time.)"""
-    import bisect
-
+    over the device's kernel events, each scope's share (and its kernel
+    count, ``"<scope> kernels"``), the hand-written kernels by name, and the
+    device's idle share of the step's wall time. A scope's share is the time
+    of the kernels that start inside its ranges on the device (the
+    profiler's device-side annotation of each ``record_function``,
+    ctypes-launched kernels included). Those ranges hold a scope's kernels
+    but not those of a scope nested in it, so the shares split the device
+    time. (Summing the CPU ranges' ``device_time_total`` instead counted some
+    kernels under several ranges: the Mamba2 prefill's scopes summed to 3.1x
+    its device time.) The events are read raw from the profiler's kineto
+    results with numpy: a retrain tick of phase 13 holds ~170,000 kernels,
+    and building ``prof.events()`` for them took 130 s of host time (NVIDIA
+    H100 80GB HBM3 at 700 W)."""
+    import numpy as np
     from torch.autograd import DeviceType
 
-    evs = prof.events()
-    kern = [e for e in evs
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy = sum(e.device_time_total for e in kern) / 1e3
-    res = {"wall_ms": wall_ms, "device_ms": busy, "kernels": len(kern)}
+    starts, durs, names = [], [], []
+    spans = {s: [] for s in scopes}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if e.is_user_annotation():
+            if e.name() in spans:
+                spans[e.name()].append((e.start_ns(), e.end_ns()))
+        else:
+            starts.append(e.start_ns())
+            durs.append(e.duration_ns())
+            names.append(e.name())
+    starts, durs = np.asarray(starts, np.int64), np.asarray(durs, np.float64)
+    busy = float(durs.sum()) / 1e6
+    res = {"wall_ms": wall_ms, "device_ms": busy, "kernels": len(names)}
     for label, sub in named:
         subs = (sub,) if isinstance(sub, str) else sub
-        res[label] = sum(e.device_time_total for e in kern
-                         if any(x in e.name for x in subs)) / 1e3
+        res[label] = float(sum(d for n, d in zip(names, durs)
+                               if any(x in n for x in subs))) / 1e6
     for name in scopes:
-        spans = sorted((e.time_range.start, e.time_range.end) for e in evs
-                       if e.device_type == DeviceType.CUDA and e.is_user_annotation
-                       and e.name == name)
-        starts = [a for a, _ in spans]
-        total = 0.0
-        for k in kern:
-            i = bisect.bisect_right(starts, k.time_range.start) - 1
-            if i >= 0 and k.time_range.start < spans[i][1]:
-                total += k.device_time_total
-        res[name] = total / 1e3
+        sp = np.asarray(sorted(spans[name]), np.int64).reshape(-1, 2)
+        inside = np.zeros(len(starts), bool)
+        if len(sp):
+            i = np.searchsorted(sp[:, 0], starts, side="right") - 1
+            inside = (i >= 0) & (starts < sp[np.clip(i, 0, None), 1])
+        res[name] = float(durs[inside].sum()) / 1e6
+        res[f"{name} kernels"] = int(inside.sum())
     print(f"{tag} profiled {what}: wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms in {len(kern)} kernels, idle "
+          f"{busy:.3f} ms in {len(names)} kernels, idle "
           f"{100 * (1 - busy / wall_ms):.1f} % of the {what}")
     for k in tuple(label for label, _ in named) + tuple(scopes):
         v = res.get(k, 0.0)
         print(f"{tag}   {k:22s} {v:9.3f} ms  {100 * v / max(busy, 1e-9):5.1f} % "
               f"of device time")
     by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    for n, d in zip(names, durs):
+        by_name[n] = by_name.get(n, 0.0) + d / 1e6
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"{tag}   top kernel: {name[:70]:70s} {v:8.3f} ms")
     return res
@@ -2541,6 +2578,518 @@ def phase_ttbs_bank_parity(torch, np):
           f"sizes, the {Q_BANK} keys' decay); final buffers {int(sc.nfull.sum())} items")
 
 
+# ---------------------------------------------------------------------------
+# the LM online-management driver (ROADMAP A.8, A.9, A.11d): mamba2_370m at
+# full size retrained with AdamW on its R-TBS sample, checkpoint/resume, the
+# bank with telemetry, telemetry on the main cell
+# --lr 3e-4: at 3e-3 (the driver's default, sized for the smoke configs)
+# AdamW's first steps raise this model's eval loss (11.03 -> 11.25 over 16
+# steps, PERF.md Sec. 6)
+TRAIN_FLAGS = ["--arch", "mamba2_370m", "--preset", "full", "--seq-len", "512",
+               "--batch-per-tick", "64", "--reservoir", "4096", "--retrain-every", "4",
+               "--retrain-steps", "8", "--train-batch", "16", "--drift", "none",
+               "--lr", "3e-4"]
+TRAIN_TICKS, TRAIN_STOP, TRAIN_LAM = 12, 8, 0.07
+# the backward's kernels run on autograd's device thread, outside the
+# ``train.backward`` range of the calling thread: they land in the row of
+# ``manage.retrain``, whose own share is the backward and the minibatch gather
+TRAIN_SCOPES = ("manage.eval", "manage.sampler_step", "manage.size", "manage.retrain",
+                "train.forward", "train.optim", "rtbs.tick_map", "rtbs.payload")
+# one Mamba2 layer's parameter gradients through B5 (bf16 forward, the plain
+# chunked form's backward) against the plain route's: each gradient's
+# relative Frobenius distance, bounded by B5's bf16 tolerance
+B5_GRAD_RTOL = 5e-2
+# card vs CPU, one retrain of 2 AdamW steps at 2 layers of full width in f32:
+# the step's losses, grad norms and the eval loss after it (f32 sums in two
+# BLAS libraries' orders through two layers)
+TRAIN_F32_RTOL = 1e-4
+# ... and the params: an element whose two gradients are both below the
+# sums' rounding can take AdamW's normalised step with the other sign, so
+# the params are held as a share: at most 1e-3 of them beyond 1e-5, none
+# beyond two such steps (2 x lr x lr_scale) + 1e-5
+TRAIN_PARAM_ATOL, TRAIN_PARAM_SHARE = 1e-5, 1e-3
+
+
+def _between_ms(torch, np, prof, after: str, before: str) -> tuple[float, int]:
+    """(ms, kernels) of the device's kernels that start after the end of
+    each device-side range of scope ``after`` and before the start of the
+    next range of scope ``before``: in a train step, the backward's kernels
+    between ``train.forward``'s and ``train.optim``'s. Autograd launches
+    them from its own thread, outside the caller's ``train.backward`` range,
+    so no device-side range of that scope holds them."""
+    from torch.autograd import DeviceType
+
+    starts, durs, spans = [], [], {after: [], before: []}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if e.is_user_annotation():
+            if e.name() in spans:
+                spans[e.name()].append((e.start_ns(), e.end_ns()))
+        else:
+            starts.append(e.start_ns())
+            durs.append(e.duration_ns())
+    starts, durs = np.asarray(starts, np.int64), np.asarray(durs, np.float64)
+    nxt = sorted(a for a, _ in spans[before])
+    inside = np.zeros(len(starts), bool)
+    for _, end in sorted(spans[after]):
+        j = np.searchsorted(nxt, end)
+        if j < len(nxt):
+            inside |= (starts >= end) & (starts < nxt[j])
+    return float(durs[inside].sum()) / 1e6, int(inside.sum())
+
+
+def _check_telemetry_file():
+    """``benchmarks/check_telemetry.py``'s ``check_file``, loaded from its
+    file (the script imports only the standard library)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "check_telemetry", HERE / "benchmarks" / "check_telemetry.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.check_file
+
+
+def _b5_layer_grads(torch, cfg, p, u, w, plain: bool):
+    """Gradients of sum(apply_ssm(u) * w) over u and one layer's SSM
+    parameters, with B5 on its CUDA route or the plain chunked form."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+    from repro_torch.models import ssm as S
+
+    leaves, spec = pytree.tree_flatten(p)
+    live = [x.detach().requires_grad_(True) for x in leaves]
+    ui = u.detach().requires_grad_(True)
+    orig = ss_ops.ssd_scan
+    if plain:
+        ss_ops.ssd_scan = lambda x, dt, a, Bm, Cm, *, chunk, init_state=None: \
+            ss_ref.ssd_chunked_ref(x, dt, a, Bm, Cm, chunk=chunk, init_state=init_state)
+    try:
+        out, _ = S.apply_ssm(cfg, pytree.tree_unflatten(live, spec), ui)
+        return torch.autograd.grad((out.float() * w).sum(), [ui] + live)
+    finally:
+        ss_ops.ssd_scan = orig
+
+
+def phase_train(torch, np, kernels, timer, bw):
+    """Phase 13: ``python -m repro_torch.launch.train``'s loop at
+    mamba2_370m's full size: an unbroken run, a run stopped at tick 8 and
+    resumed to 12 from its checkpoint (bit for bit), B1 and B5 counted a
+    tick, a profiled retrain tick, one layer's B5 gradient against the plain
+    route's, and B5 timed at the training shape."""
+    import shutil
+    import tempfile
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    marks = {}
+    args = train.parse_args(TRAIN_FLAGS + ["--ticks", str(TRAIN_TICKS)])
+    run = train.LocalRun(args)
+    cfg, L = run.cfg, run.cfg.num_layers
+    nparam = sum(x.numel() for x in pytree.tree_leaves(run.model_state["params"]))
+    print(f"[13] {' '.join(TRAIN_FLAGS)}: {L} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.padded_vocab}, {cfg.dtype} compute, {cfg.param_dtype} params and AdamW "
+          f"moments ({nparam / 1e6:.1f} M params, {3 * 4 * nparam / 1e9:.2f} GB with m and v)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rows, walls, deltas, fit_s, prof_res = [], [], [], [], None
+    for t in range(TRAIN_TICKS):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if t == TRAIN_TICKS - 1:        # a retrain tick ((t + 1) % 4 == 0), profiled
+            with torch.profiler.profile(activities=acts) as prof:
+                rows.append(run.tick(t))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            marks["profiler exit"] = time.perf_counter() - t0 - walls[-1]
+            t_b = time.perf_counter()
+            prof_res = _breakdown(torch, prof, 1e3 * walls[-1], tag="[13]",
+                                  scopes=TRAIN_SCOPES,
+                                  named=(("B1 kernel", "tbs_step_apply_kernel"),
+                                         ("B5 kernel", "ssd_scan_tc_kernel")))
+            bwd_ms, bwd_k = _between_ms(torch, np, prof, "train.forward", "train.optim")
+            marks["breakdown"] = time.perf_counter() - t_b
+        else:
+            rows.append(run.tick(t))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        deltas.append(dict(kernels.launches(), ssd_tc=ss_ops.ssd_scan.tensor_core_launches))
+        if (t + 1) % args.retrain_every == 0:
+            fit_s.append(run.last_fit_s)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    marks["unbroken run"] = time.perf_counter() - t_phase
+    evals = [r["eval_loss"] for r in rows]
+    ntok_fit = args.retrain_steps * args.train_batch * args.seq_len
+    fast = [w for t, w in enumerate(walls[:-1]) if (t + 1) % args.retrain_every]
+    print(f"[13] eval loss by tick: {[round(e, 4) for e in evals]}")
+    print(f"[13] W by tick (exact, W = e^-lam W + 64 in f32): "
+          f"{[r['total_weight'] for r in rows]}; |S| {[r['sample_size'] for r in rows]}")
+    print(f"[13] launches a tick: B1 1; B5 {L} a fast tick, {L * (args.retrain_steps + 2)} "
+          f"a retrain tick (eval, {args.retrain_steps} fit-step forwards, the train loss), "
+          f"all tensor-core; {sum(d['ssd_scan'] for d in deltas)} B5 launches in "
+          f"{TRAIN_TICKS} ticks")
+    print(f"[13] {TRAIN_TICKS - 1} unprofiled ticks in {sum(walls[:-1]):.3f} s = "
+          f"{(TRAIN_TICKS - 1) / sum(walls[:-1]):.3f} ticks/s (fast ticks "
+          f"{1e3 * statistics.median(fast):.1f} ms median); seconds a retrain (fit, "
+          f"{args.retrain_steps} AdamW steps) {[round(s, 4) for s in fit_s]}; fit "
+          f"{ntok_fit / statistics.median(fit_s):.0f} tokens/s; peak memory {peak_gb:.2f} GB")
+    print(f"[13]   train.backward         {bwd_ms:9.3f} ms  "
+          f"{100 * bwd_ms / prof_res['device_ms']:5.1f} % of device time ({bwd_k} kernels "
+          f"between each train.forward and its train.optim: autograd's thread launches "
+          f"them, so they sit in manage.retrain's own row above)")
+    check(all(math.isfinite(e) for e in evals), f"eval losses {evals}")
+    check(evals[-1] < evals[0], f"eval loss did not fall: {evals[0]} -> {evals[-1]}")
+    _check_w(np, [r["total_weight"] for r in rows], [args.batch_per_tick] * TRAIN_TICKS,
+             TRAIN_LAM)
+    check(all(r["sample_size"] <= args.reservoir for r in rows), "|S| above --reservoir")
+    for t, d in enumerate(deltas):
+        fit = (t + 1) % args.retrain_every == 0
+        want = L * ((1 + args.retrain_steps + 1) if fit else 1)
+        check(d["tbs_step_apply"] == 1, f"tick {t}: B1 launched {d['tbs_step_apply']} times")
+        check(d["ssd_scan"] == d["ssd_tc"] == want,
+              f"tick {t}: B5 launched {d['ssd_scan']} times ({d['ssd_tc']} tensor-core), "
+              f"want {want}: {L} a forward (eval, {args.retrain_steps} fit steps and the "
+              f"train loss on a retrain tick)")
+        check(d["flash_attention"] == 0, f"tick {t}: B4 launched")
+
+    # (a) stop at tick 8 (a checkpoint there, a profiler trace of tick 0),
+    # then resume to 12 from it: bit for bit the unbroken run
+    ck, pdir = tempfile.mkdtemp(prefix="ck_"), tempfile.mkdtemp(prefix="prof_")
+    try:
+        t0 = time.perf_counter()
+        first = train.main(TRAIN_FLAGS + ["--ticks", str(TRAIN_STOP), "--ckpt-dir", ck,
+                                          "--ckpt-every", str(TRAIN_STOP), "--profile-dir",
+                                          pdir, "--profile-ticks", "1"])
+        t1 = time.perf_counter()
+        resumed = train.main(TRAIN_FLAGS + ["--ticks", str(TRAIN_TICKS), "--ckpt-dir", ck,
+                                            "--ckpt-every", "4", "--resume"])
+        t2 = time.perf_counter()
+        traces = list(Path(pdir).glob("trace_*.json"))
+        check(len(traces) == 1 and traces[0].stat().st_size > 0, f"profile traces {traces}")
+        check([r["tick"] for r in resumed] == list(range(TRAIN_STOP, TRAIN_TICKS)),
+              "resumed ticks")
+        for r in first + resumed:
+            want = rows[r["tick"]]
+            same = all(r[k] == want[k] or (math.isnan(r[k]) and math.isnan(want[k]))
+                       for k in want)
+            check(set(r) == set(want) and same,
+                  f"tick {r['tick']}: resumed {r} != unbroken {want}")
+        like = convert.train_checkpoint_like(run.model_state, run.st, None)
+        t3 = time.perf_counter()
+        back = restore_checkpoint(ck, TRAIN_TICKS, like)
+        mine = convert.train_checkpoint_to_numpy(run.model_state, run.st, None, TRAIN_TICKS)
+        t4 = time.perf_counter()
+        from repro_torch.checkpoint.store import _flatten
+
+        la, lb = _flatten(back)[0], _flatten(mine)[0]
+        nbytes = 0
+        for i, (a, b) in enumerate(zip(la, lb)):
+            a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            b = np.asarray(b)
+            if a.dtype != b.dtype:        # a restored sampler leaf: the port's int64
+                a = a.astype(b.dtype)
+            same = a.shape == b.shape and np.array_equal(
+                a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+            check(same, f"leaf {i} of the resumed run's checkpoint differs from the "
+                        f"unbroken run")
+            nbytes += b.nbytes
+        marks["stop, resume, compare"] = time.perf_counter() - t0
+        ck_gb = sum(f.stat().st_size for f in Path(ck).rglob("*") if f.is_file()) / 1e9
+        print(f"[13] (a) stopped at tick {TRAIN_STOP} ({t1 - t0:.2f} s, a checkpoint at "
+              f"{TRAIN_STOP}, a profiler trace of tick 0: {traces[0].name}, "
+              f"{traces[0].stat().st_size / 1e6:.1f} MB), resumed to {TRAIN_TICKS} "
+              f"({t2 - t1:.2f} s): eval and train losses, W and |S| of every tick equal to "
+              f"the unbroken run's bit for bit, and the final checkpoint's {len(lb)} "
+              f"leaves ({nbytes / 1e9:.3f} GB: params, m, v, count, the reservoir, the "
+              f"tick) byte for byte; checkpoints on disk {ck_gb:.2f} GB; restore + host "
+              f"copy {t4 - t3:.2f} s")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(pdir, ignore_errors=True)
+
+    # (b) one layer's gradients through B5 against the plain route's, at the
+    # fit's shape (16 x 512), from the trained layer
+    g = torch.Generator(device="cuda").manual_seed(13)
+    p0 = run.model_state["params"]["blocks"][0]["ssm"]
+    u = (torch.randn((args.train_batch, args.seq_len, cfg.d_model), generator=g,
+                     device="cuda") * 0.5).to(torch.bfloat16)
+    w = torch.randn((args.train_batch, args.seq_len, cfg.d_model), generator=g, device="cuda")
+    n0 = ss_ops.ssd_scan.tensor_core_launches
+    gk = _b5_layer_grads(torch, cfg, p0, u, w, plain=False)
+    check(ss_ops.ssd_scan.tensor_core_launches == n0 + 1, "the kernel route missed B5")
+    gp = _b5_layer_grads(torch, cfg, p0, u, w, plain=True)
+    check(ss_ops.ssd_scan.tensor_core_launches == n0 + 1, "the plain route launched B5")
+    names = ["u"] + [pytree.keystr(k) for k, _ in pytree.tree_flatten_with_path(p0)[0]]
+    rels = {}
+    for nm, a, b in zip(names, gk, gp):
+        rels[nm] = float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+        check(torch.isfinite(a).all() and rels[nm] <= B5_GRAD_RTOL,
+              f"layer gradient {nm}: relative distance {rels[nm]} > {B5_GRAD_RTOL}")
+    print(f"[13] (b) one layer's gradients (u and {len(names) - 1} params) of "
+          f"sum(apply_ssm(u) w) at [{args.train_batch}, {args.seq_len}, {cfg.d_model}] bf16, "
+          f"B5 forward + plain backward vs the plain route: relative distances "
+          f"{ {k: float(f'{v:.3g}') for k, v in rels.items()} } <= {B5_GRAD_RTOL}")
+    del gk, gp, u, w
+
+    # (c) B5 alone at the fit's shape (the conv output's strides, mamba2's
+    # statistics), beside its bound and its plain version
+    H, P, G, N, Q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk
+    x, dt, a, Bm, Cm = _b5_operands(torch, args.train_batch, args.seq_len, H, G, N, P,
+                                    torch.bfloat16, g, strided=True, model=True)
+    b5_ms = timer(lambda: ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q), 10)
+    plain_ms = timer(lambda: ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q), 5)
+    gy = torch.ones_like(x)
+    bwd_ms = timer(lambda: ss_ops.ssd_scan_backward(
+        x, dt, a, Bm, Cm, None, min(Q, args.seq_len), gy, None), 3)
+    bound, by, flops, nbytes = _b5_bound_ms(x, Bm, min(Q, args.seq_len), bw)
+    y, _ = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
+    want, _ = ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q)
+    err = _b5_close(torch, y, want, 5e-2, "B5 at the fit's shape")
+    print(f"[13] (c) B5 at the fit's shape x bf16 [{args.train_batch}, {args.seq_len}, {H}, "
+          f"{P}], B/C [{args.train_batch}, {args.seq_len}, {G}, {N}], Q {Q}: kernel "
+          f"{b5_ms:.4f} ms, bound {bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB) = {b5_ms / bound:.2f}x; plain {plain_ms:.3f} ms; its "
+          f"backward (the plain form's gradient) {bwd_ms:.3f} ms; max |err| {err:.3g}")
+    del x, dt, a, Bm, Cm, y, want, gy
+    res = dict(rows=rows, peak_gb=peak_gb, fit_s=fit_s, prof=prof_res,
+               b5_train=dict(ms=b5_ms, bound_ms=bound, bound_by=by, plain_ms=plain_ms,
+                             backward_ms=bwd_ms, max_abs_err=err,
+                             launches=sum(d["ssd_scan"] for d in deltas),
+                             shape=[args.train_batch, args.seq_len, H, P]),
+               b1_launches=sum(d["tbs_step_apply"] for d in deltas))
+    del run
+    torch.cuda.empty_cache()
+    print(f"[13] phase wall time {time.perf_counter() - t_phase:.1f} s: "
+          f"{ {k: round(v, 1) for k, v in marks.items()} }")
+    return res
+
+
+def phase_train_parity(torch, np):
+    """Phase 13 (b'): one retrain (2 AdamW steps) at 2 layers of full width
+    in f32 from the same params and rows, on the card and on the CPU, for
+    mamba2_370m and stablelm_12b (both depth cuts)."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import convert
+    from repro_torch.config import get_config
+    from repro_torch.core.api import SampleView
+    from repro_torch.manage import make_sgd_adapter
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import sorted_tree
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    rows_n, seq, tb, steps, lr = 8, 64, 2, 2, 3e-3
+    for arch in ("mamba2_370m", "stablelm_12b"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
+        api = zoo.build(cfg)
+        tree = convert.lm_params_to_numpy(api.init_params(5))
+        rng = np.random.default_rng(6)
+        items = rng.integers(0, cfg.vocab_size, (rows_n, seq), dtype=np.int32)
+        picks = rng.integers(0, rows_n, (steps, tb))
+        held = rng.integers(0, cfg.vocab_size, (2, seq), dtype=np.int32)
+        out, metrics = {}, {}
+        for dev in ("cuda", "cpu"):
+            p = convert.lm_params_from_numpy(cfg, tree, device=dev)
+            step = make_train_step(api, AdamWConfig(lr=lr), warmup=2, total_steps=4000)
+            ms = []
+
+            def recording(params, opt, batch, _step=step, _ms=ms):
+                params, opt, m = _step(params, opt, batch)
+                _ms.append((float(m["loss"]), float(m["grad_norm"])))
+                return params, opt, m
+
+            ad = make_sgd_adapter(init_params=lambda: p, train_step=recording,
+                                  init_opt_state=adamw_init, loss=api.loss,
+                                  batch_field="tokens", train_batch=tb, retrain_steps=steps,
+                                  device=dev)
+            view = SampleView(items=torch.from_numpy(items).to(dev),
+                              mask=torch.ones(rows_n, dtype=torch.bool, device=dev),
+                              size=torch.tensor(rows_n, device=dev))
+            st = ad.fit(None, ad.init(), view, rows=torch.from_numpy(picks).to(dev))
+            ev = float(ad.evaluate(st, torch.from_numpy(held).to(dev), 2))
+            out[dev] = [x.cpu() for x in pytree.tree_leaves(sorted_tree(st["params"]))]
+            metrics[dev] = (ms, ev)
+            del p, st, ad, view
+        (mg, eg), (mc, ec) = metrics["cuda"], metrics["cpu"]
+        for (lg, ng), (lc, nc) in zip(mg, mc):
+            check(abs(lg - lc) <= TRAIN_F32_RTOL * abs(lc) and
+                  abs(ng - nc) <= TRAIN_F32_RTOL * abs(nc),
+                  f"{arch}: step loss / grad norm card {lg}, {ng} vs CPU {lc}, {nc}")
+        check(abs(eg - ec) <= TRAIN_F32_RTOL * abs(ec), f"{arch}: eval card {eg} vs CPU {ec}")
+        lr_eff = lr * float(cosine_schedule(1, warmup=2, total=4000))
+        n = beyond = 0
+        worst = 0.0
+        for a, b in zip(out["cuda"], out["cpu"]):
+            d = (a - b).abs()
+            n += d.numel()
+            beyond += int((d > TRAIN_PARAM_ATOL).sum())
+            worst = max(worst, float(d.max()))
+        check(beyond <= TRAIN_PARAM_SHARE * n and worst <= 2 * lr_eff + TRAIN_PARAM_ATOL,
+              f"{arch}: {beyond} of {n} params beyond {TRAIN_PARAM_ATOL}, worst {worst}")
+        print(f"[13] (d) {arch} at 2 layers of full width, f32, one retrain of {steps} AdamW "
+              f"steps on {tb} x {seq} rows, card vs CPU: step losses "
+              f"{[round(x[0], 6) for x in mg]} (CPU {[round(x[0], 6) for x in mc]}), grad "
+              f"norms within {TRAIN_F32_RTOL}, eval after {eg:.6f} vs {ec:.6f}; params: "
+              f"{beyond} of {n} beyond {TRAIN_PARAM_ATOL} (<= {TRAIN_PARAM_SHARE} of them), "
+              f"worst {worst:.3g} <= 2 lr_eff + {TRAIN_PARAM_ATOL} = "
+              f"{2 * lr_eff + TRAIN_PARAM_ATOL:.3g}; {time.perf_counter() - t0:.1f} s")
+        del out, tree
+        torch.cuda.empty_cache()
+    print(f"[13] (d) phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+BANK_TRAIN_FLAGS = ["--arch", "mamba2_370m", "--preset", "full", "--layers", "4",
+                    "--seq-len", "128", "--batch-per-tick", "256", "--reservoir", "64",
+                    "--num-keys", "16384", "--bank-bcap", "32", "--train-keys", "8",
+                    "--ticks", "8", "--retrain-every", "4", "--retrain-steps", "2",
+                    "--train-batch", "16"]
+
+
+def phase_bank_train(torch, np, kernels):
+    """Phase 14: the driver's bank mode (``--num-keys``) with R-TBS on the
+    Mamba2 LM at a depth cut, with and without telemetry."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    check_file = _check_telemetry_file()
+    logs, launches = [], []
+    with tempfile.TemporaryDirectory() as tel:
+        for extra in ([], ["--telemetry-dir", tel, "--telemetry-every", "4"]):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            logs.append(train.main(BANK_TRAIN_FLAGS + extra))
+            torch.cuda.synchronize()
+            launches.append((kernels.launches(), time.perf_counter() - t0))
+        path = Path(tel) / "telemetry.jsonl"
+        errs = check_file(path)
+        recs = [json.loads(x) for x in path.read_text().splitlines()]
+    T = len(logs[0])
+    check(logs[0] == logs[1], "the bank run with telemetry differs from the run without")
+    for lc, _ in launches:
+        check(lc["tbs_step_apply_banked"] == T, f"B3 launched {lc['tbs_step_apply_banked']} "
+                                                f"times in {T} ticks")
+    check(errs == [], f"telemetry schema: {errs}")
+    ticks = [r for r in recs if r["kind"] == "tick"]
+    check([r["t"] for r in ticks] == list(range(T)), "tick records")
+    check([r["metric"] for r in ticks] == [r["eval_loss"] for r in logs[0]],
+          "telemetry metric != the trace's eval loss")
+    check(all(math.isfinite(r["eval_loss"]) for r in logs[0]), "bank eval loss")
+    K = int(BANK_TRAIN_FLAGS[BANK_TRAIN_FLAGS.index("--num-keys") + 1])
+    print(f"[14] bank mode {' '.join(BANK_TRAIN_FLAGS)}: K = {K} keys x 65 slots x 128 "
+          f"tokens ({K * 65 * 128 * 4 / 1e9:.3f} GB of items); eval by tick "
+          f"{[round(r['eval_loss'], 4) for r in logs[0]]}; top-8 |S| at the end "
+          f"{logs[0][-1]['train_key_sizes']}; telemetry on == off bit for bit; B3 "
+          f"{launches[0][0]['tbs_step_apply_banked']} launches in {T} ticks; runs "
+          f"{launches[0][1]:.2f} s / {launches[1][1]:.2f} s (off / on); "
+          f"{len(ticks)} tick records + {len(recs) - len(ticks)} others pass "
+          f"check_telemetry.check_file; columns {sorted(ticks[0])}")
+    print(f"[14] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches[0][0]
+
+
+def phase_telemetry(torch, np, kernels):
+    """Phase 15: telemetry on the main cell (phase 3's stream at cap 2^20)."""
+    import tempfile
+
+    from repro_torch.core import prng
+    from repro_torch.core.api import make_sampler
+    from repro_torch.launch import serve
+    from repro_torch.manage import make_model, make_run_loop
+    from repro_torch.obs import make_telemetry
+
+    t_phase = time.perf_counter()
+    check_file = _check_telemetry_file()
+    batches, bcounts, _ = _main_stream(torch, "[15]")
+    sampler = make_sampler("rtbs", n=N_MAIN, lam=LAM)
+    model = make_model("linreg", dim=2)
+    key = prng.key(11)
+    with tempfile.TemporaryDirectory() as d:
+        tel = make_telemetry(d, every=16)
+        t0 = time.perf_counter()
+        off = make_run_loop(sampler, model, retrain_every=RETRAIN_EVERY)(key, batches, bcounts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        on = make_run_loop(sampler, model, retrain_every=RETRAIN_EVERY, telemetry=tel)(
+            key, batches, bcounts)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(_leaves_equal(torch, off, on), "telemetry changed (state, params, trace)")
+        tel.close()
+        path = Path(d) / "telemetry.jsonl"
+        errs = check_file(path)
+        recs = [json.loads(x) for x in path.read_text().splitlines()]
+        ticks = [r for r in recs if r["kind"] == "tick"]
+        T = int(bcounts.shape[0])
+        check(errs == [] and [r["t"] for r in ticks] == list(range(T)),
+              f"telemetry records: {errs}, ticks {[r['t'] for r in ticks]}")
+        check([r["size"] for r in ticks] == off[2]["size"].tolist(), "size column")
+        warns = [r for r in recs if r["kind"] == "warning"]
+        print(f"[15] main cell ({T} ticks, cap {N_MAIN + 1}), telemetry every 16: "
+              f"(state, params, trace) bit-identical to telemetry off; {len(ticks)} tick "
+              f"records + run header + {len(warns)} warnings pass check_file; runs "
+              f"{t1 - t0:.3f} s off, {t2 - t1:.3f} s on")
+
+        # fast ticks with their drains, under set_sync_debug_mode("error")
+        fast = {k: v[:8] for k, v in batches.items()}
+        tel2 = make_telemetry(d, every=4, jsonl_name="fast.jsonl")
+        loop = make_run_loop(sampler, model, retrain_every=10 ** 6, telemetry=tel2)
+        loop(key, fast, bcounts[:8])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop(key, fast, bcounts[:8])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(tel2.ticks == 16 and tel2.drains == 4, f"fast-tick drains {tel2.drains}")
+        # the rows' device cost: 8 fast ticks profiled, the obs.stats scope's kernels
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            loop(key, fast, bcounts[:8])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        br = _breakdown(torch, prof, 1e3 * wall, tag="[15]", scopes=("obs.stats",),
+                        named=(), what="8 fast ticks with telemetry")
+        nstats = br["obs.stats kernels"]
+        print(f"[15] 8 fast ticks, no host sync (set_sync_debug_mode('error')), 2 drains of "
+              f"4 rows; telemetry's device time {br['obs.stats'] / 8:.4f} ms and "
+              f"{nstats / 8:.1f} kernels a tick (the obs.stats scope) of "
+              f"{br['device_ms'] / 8:.4f} ms and {br['kernels'] / 8:.1f} kernels a tick")
+        tel2.close()
+
+        # a short serve run's query records
+        tel3 = make_telemetry(d, jsonl_name="serve.jsonl", monitors=())
+        toks = serve.main(["--arch", "stablelm_12b", "--prompts", "3", "--prompt-len", "16",
+                           "--gen", "4"], telemetry=tel3)
+        tel3.close()
+        spath = Path(d) / "serve.jsonl"
+        qs = [json.loads(x) for x in spath.read_text().splitlines()]
+        queries = [q for q in qs if q["kind"] == "query"]
+        check(check_file(spath) == [] and len(queries) == 3 and
+              [q["tokens_served"] for q in queries] == [5, 10, 15],
+              f"serve query records {queries}")
+        print(f"[15] serve (stablelm smoke, 3 x 16 prompts, 4 generated): {len(queries)} query "
+              f"records pass check_file; {queries[-1]}; tokens {toks.shape}")
+    print(f"[15] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2579,6 +3128,17 @@ def main() -> int:
                 print(f"[1]   {src}: {line.strip()}")
 
     timer = Timer()
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":   # a subset of the new phases
+        only = sys.argv[2].split(",")
+        for ph, fn in (("13", lambda: phase_train(torch, np, kernels, timer, bw)),
+                       ("13d", lambda: phase_train_parity(torch, np)),
+                       ("14", lambda: phase_bank_train(torch, np, kernels)),
+                       ("15", lambda: phase_telemetry(torch, np, kernels))):
+            if ph in only:
+                fn()
+        print(f"chip_smoke: phases {only} only; no kernels line, no result line")
+        return 0
+    t_all = time.perf_counter()
     kres = phase_kernels(torch, timer, bw, reps=20)
     main_res = phase_main(torch, np, kernels, timer, bw, reps=20)
     phase_cpu_parity(torch, np)
@@ -2595,6 +3155,13 @@ def main() -> int:
     phase_farm(torch, np, kernels)
     tbank_res = phase_ttbs_bank(torch, np, kernels, timer, bw, reps=20)
     phase_ttbs_bank_parity(torch, np)
+    t_new = time.perf_counter()
+    train_res = phase_train(torch, np, kernels, timer, bw)
+    phase_train_parity(torch, np)
+    phase_bank_train(torch, np, kernels)
+    phase_telemetry(torch, np, kernels)
+    print(f"[16] phases 13-15 took {time.perf_counter() - t_new:.1f} s of "
+          f"{time.perf_counter() - t_all:.1f} s")
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -2659,6 +3226,9 @@ def main() -> int:
     rows[list(kres).index("ssd_scan")]["f32_route"] = {
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "max_abs_err": kres["ssd_scan"]["f32_err"], "ms": kres["ssd_scan"]["f32_ms"]}
+    # B5 at the LM driver's fit shape, and its launches over phase 13's run
+    rows[list(kres).index("ssd_scan")]["train"] = train_res["b5_train"]
+    rows[list(kres).index("tbs_step_apply")]["train_launches"] = train_res["b1_launches"]
     print(json.dumps({"kernels": rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,0 +1,3 @@
+from .store import (  # noqa: F401
+    AsyncCheckpointer, host_tree, latest_step, restore_checkpoint, save_checkpoint,
+)

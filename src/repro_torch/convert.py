@@ -12,6 +12,11 @@ the port's dictionaries with a list of per-layer ``blocks`` (dense and
 Mamba2 trees alike). Mamba2 decode state: JAX's stacked ``SSMCache``
 (``conv`` [L, B, W-1, conv_dim], ``state`` [L, B, H, N, P]) to and from the
 port's list of per-layer :class:`~repro_torch.models.ssm.SSMCache`.
+AdamW state: ``{"count", "m", "v"}`` with the moments in the LM params'
+layout. The SGD adapter's state ``{"opt", "params"}`` and the LM driver's
+whole checkpoint tree ``(sgd state, sampler state[, controller state],
+tick)`` in JAX's layout (:func:`train_checkpoint_to_numpy`), the tree
+``repro_torch.checkpoint`` writes and restores.
 """
 from __future__ import annotations
 
@@ -96,8 +101,10 @@ def _np_to_torch(a, device, dtype) -> torch.Tensor:
 
 def _to_np(t: torch.Tensor) -> np.ndarray:
     """numpy has no bfloat16: bfloat16 comes back as float32 (exactly)."""
+    on_cpu = t.device.type == "cpu"
     t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return a.copy() if on_cpu else a    # a card tensor's .cpu() is already a copy
 
 
 def lm_params_from_numpy(cfg, tree: dict, *, device=None) -> dict:
@@ -144,3 +151,79 @@ def ssm_caches_to_numpy(caches: list[SSMCache]) -> dict:
     as in :func:`lm_params_to_numpy`)."""
     return {"conv": np.stack([_to_np(c.conv) for c in caches]),
             "state": np.stack([_to_np(c.state) for c in caches])}
+
+
+def _lm_layout(params: dict, leaf, stack) -> dict:
+    """The JAX layout of the port's LM params: ``leaf`` maps each top-level
+    tensor, ``stack`` each per-layer list of one block parameter."""
+    out = pytree.tree_map(leaf, {k: v for k, v in params.items() if k != "blocks"})
+    out["blocks"] = pytree.tree_map(lambda *xs: stack(xs), *params["blocks"])
+    return out
+
+
+def adamw_state_to_numpy(opt: dict) -> dict:
+    """AdamW state ``{"count", "m", "v"}`` over LM params -> JAX's layout as
+    numpy (``count`` int32 0-d, the moments as :func:`lm_params_to_numpy`)."""
+    return {"count": opt["count"].detach().cpu().numpy().astype(np.int32),
+            "m": lm_params_to_numpy(opt["m"]), "v": lm_params_to_numpy(opt["v"])}
+
+
+def adamw_state_from_numpy(cfg, tree: dict, *, device=None) -> dict:
+    """JAX's AdamW state over LM params, as numpy -> the port's, on ``device``."""
+    dev = _device.resolve(device)
+    return {"count": _t(tree["count"], dev, torch.int32),
+            "m": lm_params_from_numpy(cfg, tree["m"], device=dev),
+            "v": lm_params_from_numpy(cfg, tree["v"], device=dev)}
+
+
+def sgd_state_to_numpy(state: dict) -> dict:
+    """The SGD adapter's LM state ``{"params", "opt"}`` -> JAX's layout as
+    numpy (a host copy: later in-place updates cannot reach it)."""
+    return {"opt": adamw_state_to_numpy(state["opt"]),
+            "params": lm_params_to_numpy(state["params"])}
+
+
+def sgd_state_from_numpy(cfg, tree: dict, *, device=None) -> dict:
+    dev = _device.resolve(device)
+    return {"opt": adamw_state_from_numpy(cfg, tree["opt"], device=dev),
+            "params": lm_params_from_numpy(cfg, tree["params"], device=dev)}
+
+
+def _skeleton(state: dict) -> dict:
+    """:func:`sgd_state_to_numpy`'s structure with empty placeholder leaves
+    (no copy): the ``tree_like`` a restore fills with the stored arrays."""
+    hole = lambda *_: np.empty(0)
+    return {"opt": {"count": hole(), "m": _lm_layout(state["opt"]["m"], hole, hole),
+                    "v": _lm_layout(state["opt"]["v"], hole, hole)},
+            "params": _lm_layout(state["params"], hole, hole)}
+
+
+def train_checkpoint_to_numpy(model_state: dict, sampler_state: Any, cstate: Any,
+                              tick: int) -> tuple:
+    """The LM driver's checkpoint tree in JAX's layout and leaf order, host
+    copies throughout: ``(sgd state, sampler state, controller state, tick)``,
+    or without the controller state when ``cstate`` is None, as JAX's
+    ``launch/train.py`` saves it."""
+    from repro_torch.checkpoint import host_tree
+
+    head = (sgd_state_to_numpy(model_state), host_tree(sampler_state))
+    return head + ((host_tree(cstate),) if cstate is not None else ()) + (int(tick),)
+
+
+def train_checkpoint_like(model_state: dict, sampler_state: Any, cstate: Any) -> tuple:
+    """The ``tree_like`` that restores :func:`train_checkpoint_to_numpy`'s
+    tree: the sgd state as numpy placeholders (no copy), the sampler and
+    controller states as they are (a restore casts to their dtypes and
+    devices), a tick."""
+    head = (_skeleton(model_state), sampler_state)
+    return head + ((cstate,) if cstate is not None else ()) + (0,)
+
+
+def train_checkpoint_from_numpy(cfg, tree: tuple, *, device=None) -> tuple:
+    """A restored driver checkpoint (``restore_checkpoint`` of
+    :func:`train_checkpoint_like`) -> ``(model_state, sampler_state,
+    cstate | None, tick)`` in the port's layout on ``device``."""
+    dev = _device.resolve(device)
+    model_state = sgd_state_from_numpy(cfg, tree[0], device=dev)
+    cstate = tree[2] if len(tree) == 4 else None
+    return model_state, tree[1], cstate, int(tree[-1])

@@ -11,6 +11,11 @@ the launches of both kernels, ``flash_attention.tensor_core_launches`` those
 of the tensor-core kernel. Unlike the JAX wrapper it takes no ``block_q`` /
 ``block_k``: those were the TPU's tile sizes, and the kernels' tiles are
 fixed by their designs.
+
+B4 is forward-only, as in JAX (whose training never runs
+``attention_impl="pallas"``): under grad mode a CUDA call whose q, k or v
+requires grad raises rather than return an output cut off from the graph.
+Training runs ``attention_impl="xla"``, the plain ``sdpa``.
 """
 from __future__ import annotations
 
@@ -67,6 +72,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     _common.check_cuda("flash_attention", q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention: kernel B4 has no backward; train with "
+                           "attention_impl='xla' (the plain sdpa), as the JAX package does")
     if q.shape[0] > _MAX_GRID_YZ or q.shape[2] > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention: batch {q.shape[0]} and heads "
                          f"{q.shape[2]} must be at most {_MAX_GRID_YZ}")

@@ -11,6 +11,15 @@ only for CPU tensors. ``ssd_scan.launches`` counts the launches of both
 kernels, ``ssd_scan.tensor_core_launches`` those of the tensor-core kernel.
 Unlike the JAX wrapper it takes an ``init_state`` (the carried state at
 chunk 0), so the model's ``ssd_chunked`` has one route on the card.
+
+Gradients: on the card the call is a ``torch.autograd.Function`` whose
+forward launches the kernel and saves only its inputs, and whose backward
+is :func:`ssd_scan_backward`: it recomputes the plain chunked form
+(:func:`.ref.ssd_chunked_ref`, the JAX model's jnp ``ssd_chunked``) on the
+saved inputs and returns that form's gradients, the gradient JAX takes (JAX
+has no backward kernel either). Saving only the inputs keeps a layer's
+[B, nc, H, Q, Q] f32 intermediates out of memory between the forward and
+the backward; each layer recomputes its own in the backward.
 """
 from __future__ import annotations
 
@@ -89,6 +98,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tenso
     xbc = (x, Bm, Cm)
     which = route(x.dtype, [t.shape for t in xbc], [t.stride() for t in xbc],
                   [t.data_ptr() for t in xbc])
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, Bm, Cm, init_state)):
+        return _SSDScan.apply(x, dt, a, Bm, Cm, init_state, Q, which)
+    return _launch(x, dt, a, Bm, Cm, init_state, Q, which)
+
+
+def _launch(x, dt, a, Bm, Cm, init_state, Q: int, which: str):
+    xbc = (x, Bm, Cm)
     B, S, H, P = x.shape
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
@@ -100,6 +117,50 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tenso
         kernel.ssd_scan(x, dt, a, Bm, Cm, init_state, y, state, Q)
     ssd_scan.launches += 1
     return y, state
+
+
+def ssd_scan_backward(x, dt, a, Bm, Cm, init_state, chunk: int, gy, gstate):
+    """The gradients of :func:`.ref.ssd_chunked_ref` at (x, dt, a, Bm, Cm,
+    init_state) against the output cotangents ``gy`` [B,S,H,P] and
+    ``gstate`` [B,H,N,P] (either may be None: no gradient flows from that
+    output). Returns one gradient per input, None where the input is None
+    or takes no gradient. The backward of B5's CUDA route; a plain function
+    the CPU tests call."""
+    ins = (x, dt, a, Bm, Cm, init_state)
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(t.is_floating_point())
+                  for t in ins]
+        y, state = ref.ssd_chunked_ref(*leaves[:5], chunk=chunk, init_state=leaves[5])
+        outs, cots = [], []
+        for o, g in ((y, gy), (state, gstate)):
+            if g is not None:
+                outs.append(o)
+                cots.append(g)
+        want = [i for i, t in enumerate(leaves) if t is not None and t.requires_grad]
+        got = (torch.autograd.grad(outs, [leaves[i] for i in want], cots, allow_unused=True)
+               if outs else [None] * len(want))
+    grads = [None] * len(ins)
+    for i, g in zip(want, got):
+        grads[i] = g
+    return tuple(grads)
+
+
+class _SSDScan(torch.autograd.Function):
+    """B5 with the plain chunked form's gradient (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, Bm, Cm, init_state, Q, which):
+        ctx.set_materialize_grads(False)   # an unused output's cotangent stays None
+        y, state = _launch(x, dt, a, Bm, Cm, init_state, Q, which)
+        ctx.save_for_backward(x, dt, a, Bm, Cm, init_state)
+        ctx.Q = Q
+        return y, state
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        grads = ssd_scan_backward(*ctx.saved_tensors, ctx.Q, gy, gstate)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad[:6])) + (None, None)
 
 
 ssd_scan.launches = 0

@@ -11,6 +11,9 @@ in f32, the ground truth every chunked form is held against.
 (``kernels/ssd_scan/kernel.py::_kernel``), chunk by chunk in f32 in the
 model's layout: the CPU path of :func:`..ops.ssd_scan`, and what
 ``chip_smoke.py`` and the card tests hold the CUDA kernel against.
+:func:`ssd_chunked_ref` is the JAX model's jnp ``ssd_chunked``
+(``models/ssm.py``) line for line: the Mamba2 model's CPU route, and the
+function whose gradient B5's backward takes, as JAX differentiates it.
 """
 from __future__ import annotations
 
@@ -93,3 +96,63 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.T
             "bjhn,bjhp->bhnp", B_n * w[..., None], x_n)
         ys.append(y)
     return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                    Cm: torch.Tensor, *, chunk: int, init_state: torch.Tensor | None = None):
+    """The JAX model's chunked SSD in its own order of operations (scores and
+    the inter-chunk term rounded to x's dtype before they are summed): x
+    [B,S,H,P], dt [B,S,H] (post-softplus), A [H] (< 0), Bm/Cm [B,S,G,N] ->
+    (y [B,S,H,P] in x's dtype, final state [B,H,N,P] f32), by chunks of
+    ``chunk`` tokens (which must divide S). Groups reach heads through
+    ``expand``, never ``repeat_interleave``, so the backward sums them
+    without atomics. One departure, which changes no forward value: the
+    decay's exponent is masked before its ``exp`` (below), so the gradient
+    stays finite where JAX's overflows to NaN."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = chunk
+    nc = S // Q
+    rep = H // G
+
+    def chunk_view(t):  # [B,S,...] -> [B,nc,Q,...]
+        return t.reshape((Bsz, nc, Q) + tuple(t.shape[2:]))
+
+    xc, dtc = chunk_view(x), chunk_view(dt)
+    Bc, Cc = chunk_view(Bm), chunk_view(Cm)
+
+    state = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ii = torch.arange(Q, device=x.device)
+    tri = ii[:, None] >= ii[None, :]
+    ys = []
+    for c in range(nc):
+        # one chunk: intra-chunk quadratic part + inter-chunk state
+        x_n, dt_n, B_n, C_n = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+        la = (dt_n * A[None, None, :]).float()                   # [B,Q,H]
+        cl = torch.cumsum(la, dim=1)                             # [B,Q,H]
+        clh = cl.transpose(1, 2)                                 # [B,H,Q]
+        # intra: scores[i,j] = (C_i.B_j) exp(cl_i - cl_j) dt_j for j<=i
+        CB = torch.einsum("bqgs,bkgs->bgqk", C_n, B_n)           # [B,G,Q,Q]
+        CB = CB[:, :, None].expand(Bsz, G, rep, Q, Q).reshape(Bsz, H, Q, Q)
+        # the exponent's upper triangle is masked to -inf BEFORE the exp: its
+        # exp(cl_i - cl_j), j > i, overflows to inf at mamba2_370m's chunk of
+        # 256, and the where's zero cotangent times inf would turn every
+        # gradient into NaN (JAX's jnp form does, ROADMAP C.13); the kept
+        # entries, and so the forward, are bit for bit JAX's
+        decay = torch.exp(torch.where(tri[None, None], clh[..., :, None] - clh[..., None, :],
+                                      -torch.inf))
+        scores = CB.float() * decay * dt_n.transpose(1, 2)[:, :, None, :]
+        scores = torch.where(tri[None, None], scores, 0.0)
+        y_intra = torch.einsum("bhqk,bkhp->bqhp", scores.to(x.dtype), x_n)
+        # inter: y_inter[i] = C_i . (state_prev * exp(cl_i))
+        Ch = C_n.reshape(Bsz, Q, G, 1, N).expand(Bsz, Q, G, rep, N).reshape(Bsz, Q, H, N)
+        y_inter = torch.einsum("bqhs,bhsp,bqh->bqhp", Ch.float(), state, torch.exp(cl))
+        # state update: state = state * exp(cl_last) + sum_j exp(cl_last-cl_j) dt_j B_j x_j
+        w = torch.exp(cl[:, -1:, :] - cl) * dt_n                 # [B,Q,H]
+        Bh = B_n.reshape(Bsz, Q, G, 1, N).expand(Bsz, Q, G, rep, N).reshape(Bsz, Q, H, N)
+        st_n = torch.einsum("bqh,bqhs,bqhp->bhsp", w.float(), Bh.float(), x_n.float())
+        state = state * torch.exp(cl[:, -1])[:, :, None, None] + st_n
+        ys.append(y_intra + y_inter.to(x.dtype))
+    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
+    return y, state

@@ -5,10 +5,14 @@ same printed lines. It runs on the CUDA card unless ``device="cpu"`` is
 passed to :func:`main`. :func:`serve_batch` is the prefill + decode body,
 which ``main`` and ``chip_smoke.py`` both call. It serves the dense archs
 (KV caches, kernel B4 under ``attention_impl="pallas"``) and the default
-``mamba2_370m`` (per-layer SSM state; kernel B5 in every prefill). Serving
-telemetry (``--telemetry-dir``, ``--telemetry-stdout`` or a ``telemetry=``
-handle) waits for the port of ``obs/telemetry`` (ROADMAP A.9) and raises
-until then.
+``mamba2_370m`` (per-layer SSM state; kernel B5 in every prefill).
+
+With ``--telemetry-dir`` / ``--telemetry-stdout`` (or a
+:class:`repro_torch.obs.Telemetry` handle passed as ``telemetry=``) the
+driver emits one ``kind="query"`` record per served prompt -- prompt and
+generated lengths, prefill and decode wall time, cumulative tokens served
+-- after a ``kind="run"`` header with ``mode="serve"``, through the same
+sinks the manage loops drain into, as the JAX package's serve does.
 
 Examples (on the card):
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full \\
@@ -29,6 +33,7 @@ from repro_torch import _device
 from repro_torch import config as C
 from repro_torch.kernels import launches
 from repro_torch.models import zoo
+from repro_torch.obs import make_telemetry
 from repro_torch.obs.profile import scope
 from repro_torch.train.steps import make_decode_step
 
@@ -93,20 +98,25 @@ def main(argv=None, telemetry=None, device=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--telemetry-dir", default=None,
                     help="write per-query serving telemetry (JSONL) under "
-                         "this directory (not ported yet: raises)")
+                         "this directory (repro_torch.obs)")
     ap.add_argument("--telemetry-stdout", action="store_true",
-                    help="echo telemetry records to stdout (not ported yet: raises)")
+                    help="echo telemetry records to stdout")
     args = ap.parse_args(argv)
-    if telemetry is not None or args.telemetry_dir or args.telemetry_stdout:
-        raise NotImplementedError(
-            "serving telemetry needs repro_torch.obs.telemetry, which is not "
-            "ported yet (ROADMAP A.9)")
-
     dev = _device.resolve(device)
+    own_telemetry = False
+    if telemetry is None and (args.telemetry_dir or args.telemetry_stdout):
+        telemetry = make_telemetry(args.telemetry_dir, stdout=args.telemetry_stdout,
+                                   monitors=())
+        own_telemetry = True
+
     cfg = (C.get_smoke_config(args.arch) if args.preset == "smoke"
            else C.get_config(args.arch))
     api = zoo.build(cfg)
     params = api.init_params(args.seed, device=dev)
+    if telemetry is not None:
+        telemetry.open_run({"mode": "serve", "arch": args.arch, "prompts": args.prompts,
+                            "prompt_len": args.prompt_len, "gen": args.gen,
+                            "backend": dev.type, "jax": None, "torch": torch.__version__})
     batch = zoo.make_demo_batch(cfg, torch.Generator(device=dev).manual_seed(args.seed + 1),
                                 args.prompts, args.prompt_len)
     res = serve_batch(api, params, batch, args.gen)
@@ -114,6 +124,22 @@ def main(argv=None, telemetry=None, device=None):
     print(f"[serve] decoded {args.gen} tokens x {args.prompts} seqs "
           f"in {res.decode_s:.2f}s ({args.gen * args.prompts / res.decode_s:.1f} tok/s)")
     print("[serve] first sequence:", res.tokens[0].tolist())
+    if telemetry is not None:
+        served = 0
+        for q in range(args.prompts):
+            served += int(res.tokens.shape[1])
+            telemetry.emit({
+                "kind": "query", "query": q,
+                "prompt_len": args.prompt_len,
+                "gen_tokens": int(res.tokens.shape[1]),
+                "tokens_served": served,  # cumulative across the batch
+                "prefill_s": res.prefill_s / args.prompts,
+                "decode_s": res.decode_s / args.prompts,
+                "tok_per_s": args.gen * args.prompts / max(res.decode_s, 1e-9),
+            })
+        telemetry.flush()
+        if own_telemetry:
+            telemetry.close()
     return res.tokens
 
 

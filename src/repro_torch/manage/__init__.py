@@ -2,7 +2,7 @@
 -> a :class:`repro_torch.core.api.Sampler` -> periodic retraining ->
 prequential eval (:mod:`.loop`), its keyed twin over a
 :class:`repro_torch.bank.SamplerBank` (:mod:`.bank_loop`), and the
-closed-form model adapters (:mod:`.models`)."""
+model adapters (:mod:`.models`), closed-form and SGD."""
 from .bank_loop import (  # noqa: F401
     keyed_item_proto,
     make_bank_manage_step,
@@ -19,4 +19,6 @@ from .loop import (  # noqa: F401
     run_loop,
     tick_keys,
 )
-from .models import ModelAdapter, available_models, make_model  # noqa: F401
+from .models import (  # noqa: F401
+    ModelAdapter, available_models, draw_rows, make_model, make_sgd_adapter, rows_from_uniforms,
+)

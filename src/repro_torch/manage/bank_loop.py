@@ -27,8 +27,11 @@ As in :mod:`.loop`, the loop is a Python loop over the tick body that
 identical to the loop, and tick t uses :func:`.loop.tick_keys`. ``t`` and
 the retrain decision are host ints; nothing else is read on the host.
 
-Not ported yet: ``telemetry=`` (A.9) raises ``NotImplementedError``; the
-key-sharded loop and ``shard_keyed_stream`` wait for A.7.
+``telemetry=`` adds JAX's bank row a tick (:func:`_make_bank_stats`:
+routing gauges, the probed tenant's Thm 4.1 columns, the laziest key's
+pending decay, the controller's gauges), drained as in :mod:`.loop`; the
+outputs stay bit-identical. Not ported yet: the key-sharded loop and
+``shard_keyed_stream`` (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -41,8 +44,10 @@ from torch.utils import _pytree as pytree
 from repro_torch.bank import Routing, SamplerBank
 from repro_torch.core import prng
 from repro_torch.core.api import SampleView
-from repro_torch.manage.loop import _drive, _stacked, item_proto, tick_keys
+from repro_torch.manage.loop import (_check_telemetry, _drive, _stacked, _telemetry_hook,
+                                     item_proto, tick_keys)
 from repro_torch.manage.models import ModelAdapter
+from repro_torch.obs import probe as _obs_probe
 from repro_torch.obs.profile import scope as _scope
 
 KEY_FIELD = "key"
@@ -110,7 +115,8 @@ def _as_train_keys(train_keys, num_keys: int, device) -> torch.Tensor:
 
 def make_bank_manage_step(bank: SamplerBank, model: ModelAdapter, *,
                           retrain_every: int = 1, train_keys,
-                          per_key: bool = False, controller=None) -> Callable:
+                          per_key: bool = False, controller=None,
+                          _with_obs: bool = False) -> Callable:
     """One tick of the bank loop: ``(key, t, state, params, batch, bcount)
     -> (state, params, metrics)`` with ``t`` a host int, ``batch`` a keyed
     tick batch (``"key"`` [b] plus payload fields) and ``metrics`` =
@@ -170,6 +176,8 @@ def make_bank_manage_step(bank: SamplerBank, model: ModelAdapter, *,
                        "overflow": bstats["overflow"]}
         if controller is not None:
             metrics["decay"] = d
+        if _with_obs:   # telemetry's routing gauges, kept out of the trace
+            metrics["_obs"] = {k: bstats[k] for k in ("ntouched", "invalid", "decay")}
         return state, params, cstate, metrics
 
     if controller is not None:
@@ -202,24 +210,76 @@ def make_bank_run_loop(bank: SamplerBank, model: ModelAdapter, *,
       * ``controller``: the decay controller (module docstring); the trace
         gains ``"decay"``, [T] shared or the train keys' [T, Q] per key.
 
+    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`) adds the bank's
+    stats row a tick, its probe on ``telemetry.probe_key`` (default 0); the
+    outputs stay bit-identical. Anything else raises ``TypeError``.
+
     ``superbatch`` is accepted for the JAX package's signature and changes
     nothing (there is no compiled scan body to chunk here)."""
     del superbatch
-    if telemetry is not None:
-        raise NotImplementedError("telemetry= is not ported to repro_torch yet "
-                                  "(ROADMAP queue A.9)")
+    _check_telemetry(telemetry)
     train_keys = list(train_keys)
     tick = make_bank_manage_step(bank, model, retrain_every=retrain_every,
                                  train_keys=train_keys, per_key=per_key,
-                                 controller=controller)
+                                 controller=controller, _with_obs=telemetry is not None)
     Q = len(train_keys)
+    stats_fn = None
+    if telemetry is not None:
+        pk = telemetry.probe_key if telemetry.probe_key is not None else 0
+        stats_fn = _make_bank_stats(bank, controller, per_key, retrain_every, pk)
 
     def run(key: prng.Key, batches: Any, bcounts: torch.Tensor):
         params = model.init()
         carry = () if controller is None else (controller.init(bank.device),)
         if per_key:
             params, carry = _stacked(params, Q), _stacked(carry, Q)
-        return _drive(tick, key, bank.init(keyed_item_proto(batches)), params, carry,
-                     batches, bcounts)
+        state = bank.init(keyed_item_proto(batches))
+        on_tick = finish = None
+        if telemetry is not None:
+            on_tick, finish = _telemetry_hook(
+                telemetry, stats_fn, bank.device,
+                {"scheme": f"bank.{bank.scheme}", "ticks": int(bcounts.shape[0]),
+                 "state_bytes": _obs_probe.tree_nbytes(state)})
+        out = _drive(tick, key, state, params, carry, batches, bcounts, on_tick)
+        if finish is not None:
+            finish()
+        return out
 
     return run
+
+
+def _make_bank_stats(bank: SamplerBank, controller, per_key: bool,
+                     retrain_every: int, probe_key: int) -> Callable:
+    """The bank loop's telemetry row (JAX's ``_make_bank_stats``): per-tick
+    routing gauges (touched keys, invalid ids, overflow drops), the probed
+    tenant's Thm 4.1 self-check columns (:func:`repro_torch.obs.probe.
+    make_bank_probe_stats`), the pending-decay magnitude across the bank
+    (the smallest composed factor: the deferred decay the laziest key
+    carries), and the controller's gauges (the first train key's lane under
+    ``per_key``)."""
+    probe = _obs_probe.make_bank_probe_stats(bank, probe_key)
+    cstats = getattr(controller, "stats", None)
+
+    def stats_fn(t: int, batch, bcount, state, carry, m) -> dict:
+        keys_t, _ = _split_keyed(batch)
+        obs = m["_obs"]
+        row = {"t": t, "bcount": bcount.to(torch.int32),
+               "metric": m["metric"].to(torch.float32),
+               "size": m["size"].to(torch.int32),
+               "overflow": m["overflow"].to(torch.int32),
+               "retrain": (t + 1) % retrain_every == 0,
+               "ntouched": obs["ntouched"].to(torch.int32),
+               "invalid": obs["invalid"].to(torch.int32)}
+        d = torch.as_tensor(obs["decay"], dtype=torch.float32, device=bank.device)
+        # a [K] per-key factor vector reports the probed tenant's lane
+        row["decay"] = d if d.dim() == 0 else d[probe_key]
+        row.update(probe(state, keys_t, bcount))
+        row["pending_min"] = state.pending.min().to(torch.float32)
+        if cstats is not None:
+            cs = carry[0]
+            if per_key:
+                cs = pytree.tree_map(lambda a: a[0], cs)
+            row.update(cstats(cs))
+        return row
+
+    return stats_fn

@@ -27,8 +27,14 @@ Monte-Carlo farms (:func:`make_run_farm`): trials share one stream, each
 with its own key from ``split(key, trials)``, and run as a leading
 dimension of the sampler's state; the trace gains a leading [trials] axis.
 
-Not ported yet: ``telemetry=`` (it raises ``NotImplementedError``) and the
-sharded loops (ROADMAP queue A).
+Telemetry (``telemetry=``, a :class:`repro_torch.obs.Telemetry`): each
+tick adds one stats row (:func:`_make_loop_stats`, JAX's columns) computed
+on the device under the ``obs.stats`` scope; rows drain in ``every``-tick
+blocks without a host sync in the tick (:mod:`repro_torch.obs.telemetry`),
+after one ``kind="run"`` header a run. ``(state, params, trace)`` is
+bit-identical to ``telemetry=None``.
+
+Not ported yet: the sharded loops (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -42,7 +48,9 @@ from repro_torch import _device
 from repro_torch.core import prng
 from repro_torch.core.api import Sampler
 from repro_torch.manage.models import ModelAdapter
+from repro_torch.obs import probe as _obs_probe
 from repro_torch.obs.profile import scope as _scope
+from repro_torch.obs.telemetry import Telemetry
 
 
 def tick_keys(key: prng.Key, t: int) -> tuple[prng.Key, prng.Key, prng.Key]:
@@ -118,16 +126,74 @@ def _stacked(tree: Any, n: int) -> Any:
 
 
 def _drive(tick: Callable, key, state, params, carry: tuple, batches: Any,
-          bcounts: torch.Tensor):
+          bcounts: torch.Tensor, on_tick: Callable | None = None):
     """Run ``tick`` over every tick of a stream (leaves [T, ...]); returns
     ``(state, params, trace)``, the trace's columns stacked over ticks.
-    ``carry`` is ``()`` or ``(cstate,)``, as the tick takes it."""
+    ``carry`` is ``()`` or ``(cstate,)``, as the tick takes it.
+    ``on_tick(t, batch_t, bcount_t, state, carry, m)``, when given, sees each
+    tick's outputs (telemetry); a reserved ``"_obs"`` entry of ``m`` goes to
+    it and never to the trace."""
     ms = []
     for t in range(bcounts.shape[0]):
         batch_t = pytree.tree_map(lambda a: a[t], batches)
         state, params, *carry, m = tick(key, t, state, params, *carry, batch_t, bcounts[t])
+        if on_tick is not None:
+            on_tick(t, batch_t, bcounts[t], state, carry, m)
+            m = {k: v for k, v in m.items() if k != "_obs"}
         ms.append(m)
     return state, params, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+
+def _check_telemetry(telemetry) -> None:
+    if telemetry is not None and not isinstance(telemetry, Telemetry):
+        raise TypeError(f"telemetry= takes a repro_torch.obs.Telemetry (see "
+                        f"repro_torch.obs.make_telemetry); got {type(telemetry).__name__}")
+
+
+def _make_loop_stats(sampler: Sampler, controller, retrain_every: int) -> Callable:
+    """The single-sampler loop's telemetry row (JAX's ``_make_loop_stats``):
+    per-tick sample size, the stored mass C / decayed weight W gauges
+    (:func:`repro_torch.obs.probe.make_state_stats`), the retrain flag, the
+    applied decay factor (the controller's trace entry, else the schedule's
+    static rate) and the controller's lambda / hold / pulse gauges when one
+    is in the carry. ``t``, the retrain flag and a static decay are host
+    values; everything else stays on the device."""
+    state_stats = _obs_probe.make_state_stats(sampler)
+    d0 = _obs_probe.static_decay(sampler)
+    cstats = getattr(controller, "stats", None)
+
+    def stats_fn(t: int, batch, bcount, state, carry, m) -> dict:
+        del batch
+        row = {"t": t, "bcount": bcount.to(torch.int32),
+               "metric": m["metric"].to(torch.float32),
+               "size": m["size"].to(torch.int32),
+               "retrain": (t + 1) % retrain_every == 0}
+        row.update(state_stats(state))
+        if "decay" in m:
+            row["decay"] = m["decay"].to(torch.float32)
+        elif d0 is not None:
+            row["decay"] = d0
+        if cstats is not None:
+            row.update(cstats(carry[0]))
+        return row
+
+    return stats_fn
+
+
+def _telemetry_hook(telemetry, stats_fn: Callable, device, meta: dict):
+    """(on_tick, finish) for one instrumented run: opens the run's header
+    (JAX's ``_wrap_run_header``: ``jax`` is None here, ``torch`` the
+    version) and pushes each tick's row into a drain."""
+    telemetry.open_run({**meta, "superbatch": 1, "every": telemetry.every,
+                        "backend": torch.device(device).type, "jax": None,
+                        "torch": torch.__version__})
+    drain = telemetry.drain(device)
+
+    def on_tick(t, batch_t, bcount, state, carry, m):
+        with _scope("obs.stats"):
+            drain.push(stats_fn(t, batch_t, bcount, state, carry, m))
+
+    return on_tick, drain.finish
 
 
 def make_run_loop(sampler: Sampler, model: ModelAdapter, *,
@@ -142,19 +208,33 @@ def make_run_loop(sampler: Sampler, model: ModelAdapter, *,
     the module docstring); the trace gains ``"decay"`` f32 [T]. The sampler
     must be decay-capable (rtbs/ttbs/btbs).
 
+    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`) adds one stats
+    row a tick and drains them in ``telemetry.every``-tick blocks (module
+    docstring); the outputs stay bit-identical. Anything else raises
+    ``TypeError``.
+
     ``superbatch`` is accepted for the JAX package's signature and changes
     nothing (there is no compiled scan body to chunk here)."""
     del superbatch
-    if telemetry is not None:
-        raise NotImplementedError("telemetry= is not ported to repro_torch yet "
-                                  "(ROADMAP queue A.9)")
+    _check_telemetry(telemetry)
     tick = make_manage_step(sampler, model, retrain_every=retrain_every,
                             controller=controller)
+    stats_fn = (None if telemetry is None
+                else _make_loop_stats(sampler, controller, retrain_every))
 
     def run(key: prng.Key, batches: Any, bcounts: torch.Tensor):
         carry = () if controller is None else (controller.init(sampler.device),)
-        return _drive(tick, key, sampler.init(item_proto(batches)), model.init(), carry,
-                     batches, bcounts)
+        state = sampler.init(item_proto(batches))
+        on_tick = finish = None
+        if telemetry is not None:
+            on_tick, finish = _telemetry_hook(
+                telemetry, stats_fn, sampler.device,
+                {"scheme": sampler.scheme, "ticks": int(bcounts.shape[0]),
+                 "state_bytes": _obs_probe.tree_nbytes(state)})
+        out = _drive(tick, key, state, model.init(), carry, batches, bcounts, on_tick)
+        if finish is not None:
+            finish()
+        return out
 
     return run
 

@@ -4,9 +4,11 @@ The port of the JAX package's ``models/ssm.py``. Prefill runs the chunked
 SSD algorithm: quadratic attention-like math inside chunks of length Q plus
 a linear state recurrence across chunks, carrying the [B,H,N,P] f32 state.
 On CUDA tensors :func:`ssd_chunked` is kernel B5
-(:func:`repro_torch.kernels.ssd_scan.ops.ssd_scan`); on CPU tensors it is
-the line-for-line twin of JAX's jnp ``ssd_chunked``, so the CPU tests hold
-the port's model tightly against JAX's. The two compute one function; in
+(:func:`repro_torch.kernels.ssd_scan.ops.ssd_scan`), whose backward is the
+gradient of the plain chunked form; on CPU tensors it is that plain form,
+:func:`repro_torch.kernels.ssd_scan.ref.ssd_chunked_ref`, the line-for-line
+twin of JAX's jnp ``ssd_chunked``, so the CPU tests hold the port's model
+tightly against JAX's. The two compute one function; in
 bf16 B5 rounds once, at its output, where the jnp form also rounds the
 scores and the inter-chunk term. Decode is the O(1) recurrent update, plain
 torch as in JAX.
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.obs.profile import scope
 
 from . import layers as L
@@ -82,51 +85,13 @@ def _causal_conv(cfg, p, xBC):
 def ssd_chunked(cfg, x, dt, A, Bm, Cm, init_state=None):
     """Chunked SSD. x [B,S,H,P], dt [B,S,H] (post-softplus), A [H] (<0),
     Bm/Cm [B,S,G,N]. Returns (y [B,S,H,P], final_state [B,H,N,P])."""
-    Bsz, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
+    S = x.shape[1]
     Q = min(cfg.ssm_chunk, S)
     if S % Q:
         raise ValueError(f"ssd_chunked: chunk {Q} does not divide the sequence {S}")
     if x.device.type != "cpu":
         return ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q, init_state=init_state)
-    nc = S // Q
-    rep = H // G
-
-    def chunk_view(t):  # [B,S,...] -> [B,nc,Q,...]
-        return t.reshape((Bsz, nc, Q) + tuple(t.shape[2:]))
-
-    xc, dtc = chunk_view(x), chunk_view(dt)
-    Bc, Cc = chunk_view(Bm), chunk_view(Cm)
-
-    state = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state.float())
-    ii = torch.arange(Q, device=x.device)
-    tri = ii[:, None] >= ii[None, :]
-    ys = []
-    for c in range(nc):
-        # one chunk: intra-chunk quadratic part + inter-chunk state
-        x_n, dt_n, B_n, C_n = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
-        la = (dt_n * A[None, None, :]).float()                   # [B,Q,H]
-        cl = torch.cumsum(la, dim=1)                             # [B,Q,H]
-        clh = cl.transpose(1, 2)                                 # [B,H,Q]
-        # intra: scores[i,j] = (C_i.B_j) exp(cl_i - cl_j) dt_j for j<=i
-        CB = torch.einsum("bqgs,bkgs->bgqk", C_n, B_n)           # [B,G,Q,Q]
-        CB = CB[:, :, None].expand(Bsz, G, rep, Q, Q).reshape(Bsz, H, Q, Q)
-        decay = torch.exp(clh[..., :, None] - clh[..., None, :])
-        scores = CB.float() * decay * dt_n.transpose(1, 2)[:, :, None, :]
-        scores = torch.where(tri[None, None], scores, 0.0)
-        y_intra = torch.einsum("bhqk,bkhp->bqhp", scores.to(x.dtype), x_n)
-        # inter: y_inter[i] = C_i . (state_prev * exp(cl_i))
-        Ch = C_n.reshape(Bsz, Q, G, 1, N).expand(Bsz, Q, G, rep, N).reshape(Bsz, Q, H, N)
-        y_inter = torch.einsum("bqhs,bhsp,bqh->bqhp", Ch.float(), state, torch.exp(cl))
-        # state update: state = state * exp(cl_last) + sum_j exp(cl_last-cl_j) dt_j B_j x_j
-        w = torch.exp(cl[:, -1:, :] - cl) * dt_n                 # [B,Q,H]
-        Bh = B_n.reshape(Bsz, Q, G, 1, N).expand(Bsz, Q, G, rep, N).reshape(Bsz, Q, H, N)
-        st_n = torch.einsum("bqh,bqhs,bqhp->bhsp", w.float(), Bh.float(), x_n.float())
-        state = state * torch.exp(cl[:, -1])[:, :, None, None] + st_n
-        ys.append(y_intra + y_inter.to(x.dtype))
-    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
-    return y, state
+    return ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=Q, init_state=init_state)
 
 
 @dataclasses.dataclass

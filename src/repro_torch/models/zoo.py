@@ -1,10 +1,10 @@
 """Unified model API over the zoo: the port of the JAX package's
-``models/zoo.py`` (``ModelAPI``, ``build``, ``precast``, ``make_demo_batch``).
+``models/zoo.py`` (``ModelAPI`` with its ``loss``, ``build``, ``precast``,
+``loss_fn``, ``make_demo_batch``).
 
 The dense family (``transformer``) and the ssm family (``mamba_lm``) are
-built so far; the other families raise naming their slice. ``loss_fn`` and
-``input_specs`` come with the training and dry-run slices (ROADMAP A.11d,
-A.12). Where JAX takes a ``jax.random`` key, the port takes a seed
+built so far; the other families raise naming their slice. ``input_specs``
+serves the dry run and comes with it (ROADMAP A.12). Where JAX takes a ``jax.random`` key, the port takes a seed
 (``init_params``) or a ``torch.Generator`` (``make_demo_batch``)."""
 from __future__ import annotations
 
@@ -28,6 +28,9 @@ class ModelAPI:
     prefill: Callable[[Any, Any, int], Any]
     init_decode_state: Callable[..., Any]    # (batch, max_len, prefill_len=0, *, device=None)
     decode_step: Callable[[Any, Any, torch.Tensor], Any]
+
+    def loss(self, params, batch):
+        return loss_fn(self.cfg, self.forward, params, batch)
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
@@ -71,6 +74,26 @@ def precast(cfg, params):
         return params
     dt = getattr(torch, cfg.dtype)
     return pytree.tree_map(lambda p: p.to(dt) if p.is_floating_point() else p, params)
+
+
+def loss_fn(cfg, forward, params, batch):
+    """Next-token cross entropy in f32 (padded-vocab logits; labels < vocab),
+    averaged over ``batch["loss_mask"][:, 1:]`` when the batch carries one.
+    Logits past a frontend prefix (``logits.shape[1] - tokens.shape[1]``
+    positions) are dropped, as in JAX."""
+    logits = forward(params, batch)
+    tokens = batch["tokens"]
+    offset = logits.shape[1] - tokens.shape[1]
+    logits = logits[:, offset:][:, :-1].float()
+    labels = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        m = mask[:, 1:].float()
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)
 
 
 def make_demo_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,

@@ -1,2 +1,1 @@
-"""repro_torch.train -- the serving steps of the LM (training steps come
-with the training slice)."""
+"""repro_torch.train -- the LM's train, prefill and decode steps."""

@@ -669,9 +669,16 @@ def test_make_bank_validation():
         b.size(prng.key(0), st, np.asarray([-1]))
     with pytest.raises(ValueError, match="train_keys"):
         make_bank_run_loop(b, make_model("linreg", device=CPU), train_keys=range(9))
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(TypeError, match="Telemetry"):
         make_bank_run_loop(b, make_model("linreg", device=CPU), train_keys=range(2),
                            telemetry=object())
+    from repro_torch.obs import MemorySink, Telemetry
+    tel = Telemetry([MemorySink()], probe_key=3)
+    make_bank_run_loop(b, make_model("linreg", device=CPU), train_keys=range(2),
+                       telemetry=tel)   # a real handle builds
+    with pytest.raises(ValueError, match="probe_key"):
+        make_bank_run_loop(b, make_model("linreg", device=CPU), train_keys=range(2),
+                           telemetry=Telemetry([MemorySink()], probe_key=4))
 
 
 def test_time_varying_schedule_bank_equals_its_factors():

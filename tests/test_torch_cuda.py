@@ -1045,3 +1045,45 @@ def test_simple_schemes_card_equal_cpu(dev, scheme, hyper):
     for a, b in ((sg.count, sc.count), (sg.overflow, sc.overflow),
                  (sg.total_weight, sc.total_weight), (tg["size"], tc["size"])):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_gradients_are_the_plain_forms(dev, dtype):
+    """B5 under autograd on the card: the forward launches the kernel once,
+    the backward launches none and returns exactly
+    ``ops.ssd_scan_backward``'s gradients (the plain chunked form's, given
+    the same cotangent), and two backward passes agree bit for bit."""
+    from repro_torch.kernels.ssd_scan import ops as ss_ops
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    B, S, H, G, N, P, Q = 2, 512, 8, 1, 64, 64, 256
+    x = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=dev))
+    a = -torch.ones(H, device=dev)
+    Bm = torch.randn(B, S, G, N, generator=g, device=dev).to(dtype)
+    Cm = torch.randn(B, S, G, N, generator=g, device=dev).to(dtype)
+    gy = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+    outs = []
+    for _ in range(2):
+        live = [t.clone().requires_grad_(True) for t in (x, dt, a, Bm, Cm)]
+        n0 = ss_ops.ssd_scan.launches
+        y, _ = ss_ops.ssd_scan(*live, chunk=Q)
+        assert ss_ops.ssd_scan.launches == n0 + 1
+        outs.append(torch.autograd.grad(y, live, gy))
+        assert ss_ops.ssd_scan.launches == n0 + 1
+    want = ss_ops.ssd_scan_backward(x, dt, a, Bm, Cm, None, Q, gy, None)
+    for u, v, w in zip(outs[0], outs[1], want):
+        assert torch.isfinite(u).all() and torch.equal(u, v) and torch.equal(u, w)
+
+
+def test_flash_attention_refuses_gradients_on_the_card(dev):
+    """B4 has no backward: a CUDA call whose inputs require grad raises under
+    grad mode instead of returning an output cut off from the graph; without
+    grad mode it runs."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_ops.flash_attention(q, q, q)
+    with torch.no_grad():
+        assert fa_ops.flash_attention(q, q, q).shape == q.shape

@@ -46,6 +46,11 @@ MODULES = [
     "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.ablate",
     "repro_torch.models.ssm",
     "repro_torch.models.mamba_lm",
+    "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+    "repro_torch.obs", "repro_torch.obs.sinks", "repro_torch.obs.monitors",
+    "repro_torch.obs.probe", "repro_torch.obs.telemetry",
+    "repro_torch.launch.train",
 ]
 
 
@@ -82,7 +87,7 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.decay import decay_profile, exponential
     from repro_torch.bank import make_bank
     from repro_torch.config import get_smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.manage import make_model, materialize_stream
     from repro_torch.models import zoo
 
@@ -101,7 +106,8 @@ def test_entry_points_raise_without_a_card():
                  lambda: ssm.init_decode_state(2, 8),
                  lambda: convert.ssm_caches_from_numpy(ssm.cfg, [[[[0.0]]]], [[[[[0.0]]]]]),
                  lambda: serve.main(["--gen", "1"]),
-                 lambda: serve.main(["--arch", "stablelm_12b", "--gen", "1"])):
+                 lambda: serve.main(["--arch", "stablelm_12b", "--gen", "1"]),
+                 lambda: train.main(["--arch", "mamba2_370m", "--ticks", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 

@@ -334,8 +334,43 @@ def test_serve_counts_launches_by_phase_on_cpu():
 
 
 @pytest.mark.parametrize("extra,telemetry", [
-    (["--telemetry-dir", "unused"], None), (["--telemetry-stdout"], None),
-    ([], object())])
-def test_serve_telemetry_raises(extra, telemetry):
-    with pytest.raises(NotImplementedError, match="A.9"):
-        serve.main(SMOKE_ARGS + extra, telemetry=telemetry, device="cpu")
+    (["--telemetry-dir", "DIR"], None), (["--telemetry-stdout"], None),
+    ([], "handle")])
+def test_serve_telemetry_raises(extra, telemetry, tmp_path, capsys):
+    """Serving telemetry, once refused, now writes JAX's records: a
+    ``mode="serve"`` run header, then one ``kind="query"`` record per prompt
+    with cumulative ``tokens_served``, through ``--telemetry-dir`` (a JSONL
+    that passes ``benchmarks/check_telemetry.py``), ``--telemetry-stdout``
+    or a handle passed in."""
+    import importlib.util
+    import json
+    import pathlib
+
+    from repro_torch.obs import MemorySink, Telemetry
+
+    extra = [str(tmp_path) if a == "DIR" else a for a in extra]
+    mem = MemorySink() if telemetry == "handle" else None
+    tel = Telemetry([mem]) if mem is not None else None
+    gen = serve.main(SMOKE_ARGS + extra, telemetry=tel, device="cpu")
+    out = capsys.readouterr().out
+    if mem is not None:
+        recs = list(mem.records)
+    elif "--telemetry-stdout" in extra:
+        recs = [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+                if line.startswith("[obs] ")]
+    else:
+        path = tmp_path / "telemetry.jsonl"
+        spec = importlib.util.spec_from_file_location(
+            "check_telemetry", pathlib.Path(__file__).resolve().parents[1]
+            / "benchmarks" / "check_telemetry.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        assert mod.check_file(path) == []
+        recs = [json.loads(line) for line in path.read_text().splitlines()]
+    assert recs[0]["kind"] == "run" and recs[0]["mode"] == "serve"
+    queries = [r for r in recs if r["kind"] == "query"]
+    prompts = int(SMOKE_ARGS[SMOKE_ARGS.index("--prompts") + 1])
+    assert [q["query"] for q in queries] == list(range(prompts))
+    assert [q["tokens_served"] for q in queries] == \
+        [gen.shape[1] * (i + 1) for i in range(prompts)]
+    assert all(q["gen_tokens"] == gen.shape[1] and q["prefill_s"] >= 0 for q in queries)

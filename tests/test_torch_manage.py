@@ -224,5 +224,12 @@ def test_unported_options_raise():
     for scheme in ("brs", "sw"):
         with pytest.raises(ValueError, match="no decay"):
             make_run_loop(make_sampler(scheme, n=4, device=CPU), model, controller=ctrl)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Telemetry"):
         make_run_loop(sampler, model, telemetry=object())
+    # a real handle runs, and drains one record a tick
+    from repro_torch.obs import MemorySink, Telemetry
+    mem = MemorySink()
+    batches, bcounts = materialize_stream(tstreams.LinRegStream(), 3, batch_size=5, device=CPU)
+    make_run_loop(sampler, model, telemetry=Telemetry([mem], every=2))(prng.key(0), batches,
+                                                                      bcounts)
+    assert [r["t"] for r in mem.by_kind("tick")] == [0, 1, 2]
