@@ -142,10 +142,25 @@ the JAX package. Every check raises on failure; no phase catches its own.
      check, fast ticks with their drains under
      ``set_sync_debug_mode("error")``, the rows' device ms and kernels a
      tick; a short serve run's ``query`` records;
- 16. the ``kernels`` JSON line, the card line, and the result line.
+ 16. the distributed schemes (``make_sampler("drtbs" | "dttbs")``), the
+     S = 8 reservoir shards a leading dimension of the card's state,
+     through ``make_sharded_run_loop``: (a) D-R-TBS at n = 2^20, cap_s
+     2^18, 65,536 arrivals a tick (8,192 a shard), 48 ticks: C_t and W_t
+     exact in f32 on every tick, |S_t| in {floor C_t, floor C_t + 1},
+     overflow 0, B1 once a tick for all shards, H3 2 S times a tick (two
+     split chains), B2 once a retrain, nothing else; ticks per second
+     beside phase 3's R-TBS, a tick under ``set_sync_debug_mode("error")``,
+     a profiled retrain tick by scope; (b) card == CPU bit for bit at S = 4,
+     cap_s 4,096, for drtbs and dttbs; (c) fused == per-tick == resumed at
+     tick 24; (d) D-T-TBS on the same stream (n_s 2^17, cap 2^19 a shard):
+     H2 and B1 once a tick, W exact per shard; (e) an 8-trial sharded farm
+     at cap_s 4,096 equal to its single runs, and the driver's ``--scheme
+     drtbs --shards 8`` at phase 14's depth cut resumed from its checkpoint
+     equal to the unbroken run byte for byte;
+ 17. the ``kernels`` JSON line, the card line, and the result line.
 
-``python3 chip_smoke.py --only 13,13d,14,15`` runs only the listed phases of
-13-15 (no kernels line, no result line).
+``python3 chip_smoke.py --only 13,13d,14,15,16`` runs only the listed phases
+of 13-16 (no kernels line, no result line).
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -3092,6 +3107,281 @@ def phase_telemetry(torch, np, kernels):
     print(f"[15] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the paper's distributed schemes (ROADMAP A.7): S reservoir shards as a
+# leading dimension of one card's state, through the sharded loops
+# global n 2^20 over 8 shards of 2^18 slots (twice the mean share), the
+# main cell's 65,536 arrivals a tick (8,192 a shard)
+SH_S, SH_N, SH_CAP_S, SH_T = 8, 1 << 20, 1 << 18, 48
+SH_SCOPES = ("manage.eval", "manage.sampler_step", "drtbs.draws", "drtbs.tick_map",
+             "drtbs.payload", "drtbs.partial", "manage.retrain", "manage.size")
+H3_KERNELS = ("hypergeometric",)
+# the sharded driver at phase 14's depth cut (4 layers of mamba2_370m)
+SHARD_TRAIN_FLAGS = ["--arch", "mamba2_370m", "--preset", "full", "--layers", "4",
+                     "--seq-len", "128", "--batch-per-tick", "256", "--reservoir", "4096",
+                     "--scheme", "drtbs", "--shards", "8", "--retrain-every", "4",
+                     "--retrain-steps", "2", "--train-batch", "16", "--ckpt-every", "4"]
+
+
+def _drtbs_recurrence(np, sizes, n, lam):
+    """D-R-TBS's C_t and W_t on the host in f32, as its tick composes them:
+    W = d W + B rounded once; C follows the decay (or undershoot)
+    downsample, the inserts and the overshoot downsample to n."""
+    d, nf = np.float32(math.exp(-lam)), np.float32(n)
+    W = C = np.float32(0.0)
+    Cs, Ws = [], []
+    for b in sizes:
+        B = np.float32(b)
+        w_dec = np.float32(d * W)
+        w_new = _fma32(np, d, W, B)
+        if W < nf:
+            C1 = min(w_dec, C) if 0 < w_dec < C else min(C, max(w_dec, np.float32(0)))
+            C2 = np.float32(C1 + B)
+            C = nf if C2 > nf else C2
+        elif w_new >= nf:
+            C = nf
+        else:
+            C = np.float32(min(np.float32(w_new - B), C) + B)
+        W = w_new
+        Cs.append(C)
+        Ws.append(W)
+    return Cs, Ws
+
+
+def _sharded_stream(torch, S, T, b, *, bcap=None, sizes=None, device=None, seed=0):
+    from repro_torch.data.streams import LinRegStream
+    from repro_torch.manage import materialize_stream, shard_stream
+
+    batches, bcounts = materialize_stream(LinRegStream(seed=seed), T,
+                                          batch_size=sizes or b, bcap=bcap, device=device)
+    return shard_stream(batches, bcounts, S, device=device)
+
+
+def phase_sharded(torch, np, kernels, timer, bw, rtbs_ticks_per_s):
+    """Phase 16: D-R-TBS and D-T-TBS with the shards a leading dimension of
+    one card's state, through the sharded loops and the driver."""
+    import shutil
+    import tempfile
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import prng
+    from repro_torch.core.api import make_sampler
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.manage import (init_sharded_state, item_proto, make_model,
+                                    make_sharded_manage_step, make_sharded_resume_loop,
+                                    make_sharded_run_farm, make_sharded_run_loop)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    S, T, b_s = SH_S, SH_T, BCAP_MAIN // SH_S
+    batches, bcounts = _sharded_stream(torch, S, T, BCAP_MAIN)
+    sizes = [BCAP_MAIN] * T
+    mesh = make_data_mesh(S)
+    sampler = make_sampler("drtbs", n=SH_N, lam=LAM, cap_s=SH_CAP_S)
+    model = make_model("linreg", dim=2)
+    key = prng.key(21)
+    run = make_sharded_run_loop(sampler, model, mesh, retrain_every=RETRAIN_EVERY)
+    run(key, pytree.tree_map(lambda a: a[:RETRAIN_EVERY], batches), bcounts[:RETRAIN_EVERY])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, params, trace = run(key, batches, bcounts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    nfit = sum((t + 1) % RETRAIN_EVERY == 0 for t in range(T))
+    want = {"tbs_step_apply": T, "hypergeometric": 2 * S * T, "reservoir_compact": nfit,
+            "binomial": 0, "swap_delete": 0, "tbs_step_apply_banked": 0}
+    for k, v in want.items():
+        check(launches[k] == v, f"[16] drtbs: {k} launched {launches[k]} times, not {v}")
+    print(f"[16] (a) drtbs: n = {SH_N}, {S} shards of cap_s {SH_CAP_S} "
+          f"({S * SH_CAP_S * 12 / 1e6:.1f} MB of items), {T} ticks of {BCAP_MAIN} arrivals "
+          f"({b_s} a shard), lam {LAM}, retrain every {RETRAIN_EVERY}: {wall:.3f} s = "
+          f"{T / wall:.2f} ticks/s (phase 3's R-TBS at n = {N_MAIN}: "
+          f"{rtbs_ticks_per_s:.2f} ticks/s); launches {launches}")
+
+    # the ticks by hand: W / C / sizes per tick, equal to the run
+    tick = make_sharded_manage_step(sampler, model, mesh, retrain_every=RETRAIN_EVERY)
+    st, p = init_sharded_state(sampler, S, item_proto(batches)), model.init()
+    rows, sz = [], []
+    for t in range(T):
+        st, p, m = tick(key, t, st, p, pytree.tree_map(lambda a: a[t], batches), bcounts[t])
+        rows.append(torch.stack([st.weight.double(), st.total_weight.double()]))
+        sz.append(m["size"])
+    check(_leaves_equal(torch, (st, p), (state, params)), "[16] (a) ticks by hand != the run")
+    check(torch.equal(torch.stack(sz), trace["size"]), "[16] (a) sizes by hand != the run")
+    rows = torch.stack(rows).cpu().numpy()                       # [T, 2, S]
+    check((rows == rows[:, :, :1]).all(), "[16] (a) C / W not replicated over the shards")
+    Cs, Ws = _drtbs_recurrence(np, sizes, SH_N, LAM)
+    sizes_t = trace["size"].cpu().numpy()
+    for t in range(T):
+        check(np.float32(rows[t, 1, 0]) == Ws[t], f"[16] (a) tick {t}: W {rows[t, 1, 0]!r} "
+                                                  f"!= {Ws[t]!r}")
+        check(np.float32(rows[t, 0, 0]) == Cs[t], f"[16] (a) tick {t}: C {rows[t, 0, 0]!r} "
+                                                  f"!= {Cs[t]!r}")
+        lo = math.floor(Cs[t])
+        check(lo <= sizes_t[t] <= lo + 1, f"[16] (a) tick {t}: |S| {sizes_t[t]} vs C {Cs[t]}")
+    check(int(state.overflow.sum()) == 0, "[16] (a) overflow at the main cell")
+    check(int(state.nfull.sum()) <= SH_N, "[16] (a) more full items than n")
+    check(np.isfinite(trace["metric"].cpu().numpy()).all(), "[16] (a) metric")
+    sat = next(t for t in range(T) if Ws[t] >= SH_N)
+    print(f"[16] (a) W_t and C_t exact in f32 on all {T} ticks (saturated from tick {sat}), "
+          f"|S_t| in {{floor C_t, floor C_t + 1}}, overflow 0; final nfull by shard "
+          f"{state.nfull.tolist()} (sum {int(state.nfull.sum())}), C {Cs[-1]:.1f} W "
+          f"{Ws[-1]:.1f}; metric first/last {float(trace['metric'][0]):.4f}/"
+          f"{float(trace['metric'][-1]):.4f}")
+
+    # a non-retrain tick with every host sync an error
+    t_free = T
+    check((t_free + 1) % RETRAIN_EVERY != 0, "[16] sync-check tick must not retrain")
+    b_t = pytree.tree_map(lambda a: a[T - 1], batches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tick(key, t_free, state, params, b_t, bcounts[T - 1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(int(out[0].nfull.sum()) <= SH_N, "[16] sync-check tick")
+    print("[16] (a) one non-retrain tick ran under set_sync_debug_mode('error'): no host sync")
+
+    # one profiled retrain tick
+    prof_t = 4 * RETRAIN_EVERY - 1
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tick(key, prof_t, state, params, b_t, bcounts[T - 1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_res = _breakdown(torch, prof, wall_ms, tag="[16] (a)", scopes=SH_SCOPES,
+                          named=(("B1 kernel", "tbs_step_apply_kernel"),
+                                 ("H3 kernels", H3_KERNELS),
+                                 ("B2 kernel", "reservoir_compact")))
+
+    # (c) fused == per-tick (above) == resumed, split at tick 24
+    resume = make_sharded_resume_loop(sampler, model, mesh, retrain_every=RETRAIN_EVERY)
+    st, p = init_sharded_state(sampler, S, item_proto(batches)), model.init()
+    traces = []
+    for lo, hi in ((0, 24), (24, T)):
+        st, p, tr = resume(key, st, p, pytree.tree_map(lambda a: a[lo:hi], batches),
+                           bcounts[lo:hi], lo)
+        traces.append(tr)
+    check(_leaves_equal(torch, (st, p), (state, params)), "[16] (c) resumed != fused")
+    check(_leaves_equal(torch, {k: torch.cat([tr[k] for tr in traces]) for k in trace}, trace),
+          "[16] (c) resumed trace != fused")
+    print("[16] (c) fused == per-tick == resumed at tick 24, bit for bit (state, params, "
+          "metric, size)")
+    del state, st, out
+    torch.cuda.empty_cache()
+
+    # (d) D-T-TBS on the same stream: n_s = n / S, b_s arrivals a shard
+    n_s, cap_d = SH_N // S, 1 << 19
+    dsampler = make_sampler("dttbs", n=n_s, lam=LAM, batch_size=float(b_s), cap=cap_d)
+    drun = make_sharded_run_loop(dsampler, model, mesh, retrain_every=RETRAIN_EVERY)
+    drun(key, pytree.tree_map(lambda a: a[:RETRAIN_EVERY], batches), bcounts[:RETRAIN_EVERY])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dstate, _, dtrace = drun(key, batches, bcounts)
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t0
+    dlaunches = kernels.launches()
+    for k, v in {"tbs_step_apply": T, "binomial": T, "reservoir_compact": nfit,
+                 "hypergeometric": 0, "swap_delete": 0}.items():
+        check(dlaunches[k] == v, f"[16] (d) dttbs: {k} launched {dlaunches[k]} times, not {v}")
+    p_ = float(dsampler.hyper["p"])
+    w = np.float32(0.0)
+    for t in range(T):
+        w = _fma32(np, np.float32(p_), w, np.float32(b_s))
+    check((dstate.total_weight.cpu().numpy() == w).all(), "[16] (d) W per shard")
+    check(int(dstate.overflow.sum()) == 0, "[16] (d) overflow")
+    E = S * n_s * (1 - p_ ** T)
+    got = float(dtrace["size"][-1])
+    check(abs(got - E) <= 6 * math.sqrt(E) + 1, f"[16] (d) |S| {got} vs E {E:.1f}")
+    print(f"[16] (d) dttbs: n_s {n_s}, q {dsampler.hyper['q']:.4f}, cap {cap_d} a shard: "
+          f"{dwall:.3f} s = {T / dwall:.2f} ticks/s; launches {dlaunches}; W exact per shard "
+          f"(one rounding), overflow 0, final |S| {int(got)} vs E {E:.1f}")
+    del dstate, batches, bcounts
+    torch.cuda.empty_cache()
+
+    # (b) card == CPU bit for bit at S = 4, cap_s 4096, for both schemes
+    psz = [256 if t < 24 else 32 for t in range(T)]
+    for scheme, hyper in (("drtbs", dict(n=4095, lam=LAM, cap_s=4096)),
+                          ("dttbs", dict(n=1024, lam=LAM, batch_size=64.0, cap=4096))):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            bt, bc = _sharded_stream(torch, 4, T, None, bcap=256, sizes=lambda t: psz[t],
+                                     device=dev, seed=1)
+            out[dev] = make_sharded_run_loop(
+                make_sampler(scheme, **hyper, device=dev), make_model("linreg", dim=2,
+                                                                      device=dev),
+                make_data_mesh(4, device=dev), retrain_every=RETRAIN_EVERY)(prng.key(7), bt, bc)
+        (sg, pg, tg), (sc, pc, tc) = out["cuda"], out["cpu"]
+        check(_leaves_equal(torch, pytree.tree_map(lambda a: a.cpu(), sg), sc),
+              f"[16] (b) {scheme}: state card != CPU")
+        check(torch.equal(tg["size"].cpu(), tc["size"]), f"[16] (b) {scheme}: sizes")
+        check(torch.allclose(tg["metric"].cpu(), tc["metric"], rtol=1e-4, atol=1e-5, equal_nan=True),
+              f"[16] (b) {scheme}: metric beyond rtol 1e-4")
+        check(torch.allclose(pg.cpu(), pc, rtol=1e-4, atol=1e-5), f"[16] (b) {scheme}: params")
+        print(f"[16] (b) {scheme} at S = 4: card == CPU bit for bit (every state leaf, sizes "
+              f"of {T} ticks); metric max |diff| "
+              f"{float((tg['metric'].cpu() - tc['metric']).abs().nan_to_num().max()):.3g}, "
+              f"params max |diff| {float((pg.cpu() - pc).abs().max()):.3g} (rtol 1e-4: f32 "
+              f"sums in another order)")
+
+    # (e) a sharded farm of 8 trials at cap_s 4096 (a size cut), then the driver
+    bt, bc = _sharded_stream(torch, S, T, None, bcap=256, sizes=lambda t: psz[t], seed=1)
+    fs = make_sampler("drtbs", n=4095, lam=LAM, cap_s=4096)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fstates, fparams, ftrace = make_sharded_run_farm(fs, model, mesh, retrain_every=RETRAIN_EVERY)(
+        prng.key(3), 8, bt, bc)
+    torch.cuda.synchronize()
+    fwall = time.perf_counter() - t0
+    flaunch = kernels.launches()
+    check(flaunch["tbs_step_apply"] == T, "[16] (e) farm: B1 not once a tick for all trials")
+    frun = make_sharded_run_loop(fs, model, mesh, retrain_every=RETRAIN_EVERY)
+    for i, k in enumerate(prng.split(prng.key(3), 8)):
+        s1, p1, t1 = frun(k, bt, bc)
+        check(_leaves_equal(torch, (s1, p1, t1), pytree.tree_map(
+            lambda a: a[i], (fstates, fparams, ftrace))), f"[16] (e) farm trial {i} != its run")
+    print(f"[16] (e) farm of 8 trials x {S} shards x {T} ticks at cap_s 4096: {fwall:.3f} s "
+          f"({8 * T / fwall:.2f} trial-ticks/s); B1 {flaunch['tbs_step_apply']} launches; "
+          f"equal to the 8 single runs bit for bit")
+
+    ck = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        full = train.main(SHARD_TRAIN_FLAGS + ["--ticks", "8", "--ckpt-dir", str(ck / "a")])
+        torch.cuda.synchronize()
+        twall = time.perf_counter() - t0
+        tl = kernels.launches()
+        train.main(SHARD_TRAIN_FLAGS + ["--ticks", "4", "--ckpt-dir", str(ck / "b")])
+        resumed = train.main(SHARD_TRAIN_FLAGS + ["--ticks", "8", "--ckpt-dir", str(ck / "b"),
+                                                  "--resume"])
+        check(resumed == full[4:], "[16] (e) the resumed driver's log != the unbroken run's")
+        fa = (ck / "a" / "step_8" / "leaves.npz").read_bytes()
+        fb = (ck / "b" / "step_8" / "leaves.npz").read_bytes()
+        check(fa == fb, "[16] (e) the resumed driver's checkpoint differs byte for byte")
+        check(all(math.isfinite(r["eval_loss"]) for r in full), "[16] (e) driver eval")
+        check(tl["tbs_step_apply"] == 8, "[16] (e) driver: B1 not once a tick")
+        print(f"[16] (e) driver {' '.join(SHARD_TRAIN_FLAGS)}: 8 ticks in {twall:.2f} s, eval "
+              f"{[round(r['eval_loss'], 4) for r in full]}, |S| "
+              f"{[r['sample_size'] for r in full]}; B1 {tl['tbs_step_apply']}, B5 "
+              f"{tl['ssd_scan']}, B2 {tl['reservoir_compact']}, H3 {tl['hypergeometric']} "
+              f"launches; stopped at 4 and resumed to 8: log and step_8 checkpoint equal "
+              f"byte for byte")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    print(f"[16] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "dttbs_launches": dlaunches, "ticks_per_s": T / wall,
+            "profile": prof_res}
+
+
 def main() -> int:
     import torch
 
@@ -3133,7 +3423,9 @@ def main() -> int:
         for ph, fn in (("13", lambda: phase_train(torch, np, kernels, timer, bw)),
                        ("13d", lambda: phase_train_parity(torch, np)),
                        ("14", lambda: phase_bank_train(torch, np, kernels)),
-                       ("15", lambda: phase_telemetry(torch, np, kernels))):
+                       ("15", lambda: phase_telemetry(torch, np, kernels)),
+                       ("16", lambda: phase_sharded(torch, np, kernels, timer, bw,
+                                                    float("nan")))):
             if ph in only:
                 fn()
         print(f"chip_smoke: phases {only} only; no kernels line, no result line")
@@ -3160,8 +3452,10 @@ def main() -> int:
     phase_train_parity(torch, np)
     phase_bank_train(torch, np, kernels)
     phase_telemetry(torch, np, kernels)
-    print(f"[16] phases 13-15 took {time.perf_counter() - t_new:.1f} s of "
-          f"{time.perf_counter() - t_all:.1f} s")
+    t_sh = time.perf_counter()
+    shard_res = phase_sharded(torch, np, kernels, timer, bw, main_res["ticks_per_s"])
+    print(f"[17] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 "
+          f"{time.perf_counter() - t_sh:.1f} s, of {time.perf_counter() - t_all:.1f} s")
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -3229,6 +3523,15 @@ def main() -> int:
     # B5 at the LM driver's fit shape, and its launches over phase 13's run
     rows[list(kres).index("ssd_scan")]["train"] = train_res["b5_train"]
     rows[list(kres).index("tbs_step_apply")]["train_launches"] = train_res["b1_launches"]
+    # launches on the sharded path (phase 16): D-R-TBS's 48 ticks at 8 shards
+    # (B1, H3, B2), D-T-TBS's (H2)
+    sh = shard_res["launches"]
+    for k, n_, path in (("tbs_step_apply", sh["tbs_step_apply"], "drtbs"),
+                        ("reservoir_compact", sh["reservoir_compact"], "drtbs"),
+                        ("hypergeometric", sh["hypergeometric"], "drtbs"),
+                        ("binomial", shard_res["dttbs_launches"]["binomial"], "dttbs")):
+        rows[list(kres).index(k)]["sharded"] = {"launches": n_, "ticks": SH_T,
+                                                "shards": SH_S, "scheme": path}
     print(json.dumps({"kernels": rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,3 +1,4 @@
 from .store import (  # noqa: F401
-    AsyncCheckpointer, host_tree, latest_step, restore_checkpoint, save_checkpoint,
+    AsyncCheckpointer, host_tree, latest_step, reshard_reservoir, restore_checkpoint,
+    save_checkpoint,
 )

@@ -19,8 +19,8 @@ int32 (JAX's default integers), bfloat16 as float32 (exactly; numpy has no
 bfloat16). :func:`restore_checkpoint` casts each leaf back to the dtype and
 device of the matching leaf of ``tree_like``.
 
-``reshard_reservoir`` (elastic re-partition of a D-R-TBS reservoir) comes
-with the sharded path (ROADMAP A.7)."""
+:func:`reshard_reservoir` re-partitions a D-R-TBS reservoir over another
+number of shards (numpy, host side)."""
 from __future__ import annotations
 
 import dataclasses
@@ -188,3 +188,25 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+
+def reshard_reservoir(items: np.ndarray, nfull: np.ndarray, new_shards: int, cap_s: int):
+    """Elastic re-partition of a D-R-TBS reservoir (``items`` [S, cap_old,
+    ...], ``nfull`` [S]): gather every valid full item and deal them round
+    robin over ``new_shards`` buffers of ``cap_s`` slots. Full items are
+    exchangeable, so any deterministic re-partition keeps every inclusion
+    probability (Theorem 4.2 is per-item marginal). Returns ``(items
+    [new_shards, cap_s, ...], counts [new_shards] int32)``."""
+    S_old = items.shape[0]
+    rows = [items[s, : int(nfull[s])] for s in range(S_old)]
+    allrows = np.concatenate(rows, axis=0) if rows else items[:0, 0]
+    out = np.zeros((new_shards, cap_s) + items.shape[2:], items.dtype)
+    counts = np.zeros((new_shards,), np.int32)
+    for i, row in enumerate(allrows):
+        s = i % new_shards
+        if counts[s] < cap_s:
+            out[s, counts[s]] = row
+            counts[s] += 1
+    if counts.sum() != len(allrows):
+        raise ValueError("elastic reshard overflow: raise cap_s")
+    return out, counts

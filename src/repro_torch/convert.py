@@ -2,7 +2,13 @@
 state taken with ``np.asarray``) into the port, and back.
 
 An R-TBS state is the item pytree (leaves [cap, ...]), ``nfull``, ``weight``
-(the sample weight C) and ``total_weight`` (W). A bank state is the item
+(the sample weight C) and ``total_weight`` (W). A sharded D-R-TBS state
+(JAX's gathered ``DRTBSShard`` snapshot) is the item pytree (leaves [S,
+cap_s, ...]), ``nfull`` [S], the replicated ``partial_item`` (leaves [S,
+...]), ``weight`` [S], ``total_weight`` [S] and ``overflow`` [S]; a buffer
+state (T-TBS, B-TBS, B-RS, SW, and a gathered D-T-TBS snapshot with a
+leading [S]) is the item pytree, ``count``, ``total_weight`` and
+``overflow``. A bank state is the item
 pytree (leaves [K, cap, ...]) and the [K] columns ``nfull``, ``weight``,
 ``total_weight``, ``pending`` and ``overflow`` (constant-rate schedules
 only: their ``dstate`` is None). Adapter params: linreg ``[dim+1]``,
@@ -29,7 +35,9 @@ from torch.utils import _pytree as pytree
 from repro_torch import _device
 from repro_torch.bank import BankState
 from repro_torch.core import latent as lt
+from repro_torch.core.distributed import DRTBSShard
 from repro_torch.core.rtbs import RTBSState
+from repro_torch.core.simple import BufferState
 from repro_torch.models.ssm import SSMCache
 
 
@@ -55,6 +63,50 @@ def rtbs_state_to_numpy(state: RTBSState) -> dict:
         "weight": state.lat.weight.cpu().numpy(),
         "total_weight": state.total_weight.cpu().numpy(),
     }
+
+
+def drtbs_state_from_numpy(items: Any, nfull, partial_item: Any, weight, total_weight,
+                           overflow, *, device=None) -> DRTBSShard:
+    """A gathered D-R-TBS snapshot (JAX's ``gather_tree`` of its
+    ``DRTBSShard``, each field read with ``np.asarray``) on the port's
+    device."""
+    dev = _device.resolve(device)
+    leaf = lambda a: _t(a, dev)  # noqa: E731
+    return DRTBSShard(items=pytree.tree_map(leaf, items), nfull=_t(nfull, dev, torch.int64),
+                      partial_item=pytree.tree_map(leaf, partial_item),
+                      weight=_t(weight, dev, torch.float32),
+                      total_weight=_t(total_weight, dev, torch.float32),
+                      overflow=_t(overflow, dev, torch.int64))
+
+
+def drtbs_state_to_numpy(state: DRTBSShard) -> dict:
+    """The port's D-R-TBS state in JAX's gathered layout, as numpy (int32
+    counts, as JAX keeps them)."""
+    host = lambda a: a.detach().cpu().numpy().copy()  # noqa: E731
+    return {"items": pytree.tree_map(host, state.items),
+            "nfull": host(state.nfull).astype(np.int32),
+            "partial_item": pytree.tree_map(host, state.partial_item),
+            "weight": host(state.weight), "total_weight": host(state.total_weight),
+            "overflow": host(state.overflow).astype(np.int32)}
+
+
+def buffer_state_from_numpy(items: Any, count, total_weight, overflow, *,
+                            device=None) -> BufferState:
+    """A buffer state (JAX's ``BufferState``, or its gathered D-T-TBS
+    snapshot with a leading [S]) on the port's device."""
+    dev = _device.resolve(device)
+    return BufferState(items=pytree.tree_map(lambda a: _t(a, dev), items),
+                       count=_t(count, dev, torch.int64),
+                       total_weight=_t(total_weight, dev, torch.float32),
+                       overflow=_t(overflow, dev, torch.int64))
+
+
+def buffer_state_to_numpy(state: BufferState) -> dict:
+    host = lambda a: a.detach().cpu().numpy().copy()  # noqa: E731
+    return {"items": pytree.tree_map(host, state.items),
+            "count": host(state.count).astype(np.int32),
+            "total_weight": host(state.total_weight),
+            "overflow": host(state.overflow).astype(np.int32)}
 
 
 def bank_state_from_numpy(items: Any, nfull, weight, total_weight, pending,

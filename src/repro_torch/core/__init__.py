@@ -6,6 +6,8 @@
   * :mod:`.latent` -- latent fractional samples and the Alg. 3 maps
   * :mod:`.rtbs`   -- R-TBS (Algorithm 2), fused into one payload pass
   * :mod:`.simple` -- T-TBS, B-TBS, B-RS and the sliding window
+  * :mod:`.distributed` -- D-R-TBS and D-T-TBS (Sec. 5), the shards a
+                      leading dimension of one device's state
   * :mod:`.api`    -- the Sampler protocol and registry
 """
-from . import latent, prng, rng, rtbs, simple  # noqa: F401
+from . import distributed, latent, prng, rng, rtbs, simple  # noqa: F401

@@ -3,9 +3,10 @@
 ``repro.core.api``).
 
 Registered: R-TBS (``"rtbs"``, paper Alg. 2), T-TBS (``"ttbs"``, Alg. 1),
-B-TBS (``"btbs"``, Alg. 4), B-RS (``"brs"``, Alg. 5, the paper's "Unif")
-and the sliding window (``"sw"``). The distributed schemes ``"dttbs"`` and
-``"drtbs"`` raise ``ValueError`` naming the ROADMAP queue that ports them.
+B-TBS (``"btbs"``, Alg. 4), B-RS (``"brs"``, Alg. 5, the paper's "Unif"),
+the sliding window (``"sw"``), and the distributed schemes of Sec. 5,
+D-T-TBS (``"dttbs"``) and D-R-TBS (``"drtbs"``), whose states carry the S
+reservoir shards as a leading dimension (:mod:`.distributed`).
 
 Conventions:
   * ``init(item_proto)`` takes a pytree of tensors shaped like ONE item, on
@@ -15,6 +16,14 @@ Conventions:
   * ``extract(key, state)`` realizes the sample as a :class:`SampleView`
     and ``size(key, state)`` is its payload-free size for the same key;
   * keys are :class:`repro_torch.core.prng.Key`; nothing syncs to the host.
+
+A distributed scheme (``distributed=True``) steps every shard of a stacked
+state at once: ``init(item_proto)`` is ONE shard's state
+(:func:`repro_torch.manage.init_sharded_state` stacks S of them), ``step``
+takes the state ``[..., S, ...]``, batch leaves ``[S, bcap_s, ...]`` and
+``bcount`` ``[S]``, ``extract`` / ``size`` give each shard's view, and
+``extract_global`` / ``size_global`` the whole sample, packed to a dense
+prefix through B2.
 """
 from __future__ import annotations
 
@@ -30,7 +39,7 @@ from repro_torch.decay import DecayedState, DecaySchedule
 from repro_torch.decay import resolve as _resolve_schedule
 
 from . import latent as lt
-from . import prng, rtbs, simple
+from . import distributed, prng, rtbs, simple
 
 
 @dataclasses.dataclass
@@ -56,7 +65,12 @@ class Sampler:
     device tensor) given from outside: the manage loop's closed-loop
     controller drives the schemes through it. Under a time-varying
     schedule the external ``d`` overrides the schedule's factor for that
-    tick, and the schedule's state still advances."""
+    tick, and the schedule's state still advances.
+
+    ``distributed`` marks the Sec. 5 schemes (drtbs, dttbs), which also
+    set ``extract_global`` / ``size_global``: the realized sample of all
+    shards as one :class:`SampleView` packed to ``[0, size)``, and its size
+    for the same key. Local schemes leave them ``None``."""
 
     scheme: str
     init: Callable[[Any], Any]
@@ -66,6 +80,9 @@ class Sampler:
     hyper: Mapping[str, Any]
     device: torch.device
     step_decayed: Callable[..., Any] | None = None
+    distributed: bool = False
+    extract_global: Callable[[prng.Key, Any], SampleView] | None = None
+    size_global: Callable[[prng.Key, Any], torch.Tensor] | None = None
 
     def __repr__(self) -> str:
         hp = ", ".join(f"{k}={v}" for k, v in self.hyper.items())
@@ -83,9 +100,6 @@ def materialize_view(view: SampleView) -> SampleView:
 
 
 _REGISTRY: dict[str, Callable[..., Sampler]] = {}
-
-# schemes of the JAX package that later slices port, by ROADMAP queue item
-_NOT_PORTED = {"dttbs": "A.7", "drtbs": "A.7"}
 
 
 def register(name: str):
@@ -107,23 +121,20 @@ def make_sampler(scheme: str, *, device=None, **hyper) -> Sampler:
     lam=0.1)``. ``device=None`` means the CUDA card (raises without one)."""
     builder = _REGISTRY.get(scheme)
     if builder is None:
-        if scheme in _NOT_PORTED:
-            raise ValueError(
-                f"sampling scheme {scheme!r} is not ported to repro_torch yet "
-                f"(ROADMAP queue {_NOT_PORTED[scheme]}); available: "
-                f"{available_schemes()}")
         raise ValueError(
             f"unknown sampling scheme {scheme!r}; available: {available_schemes()}")
     return builder(device=_device.resolve(device), **hyper)
 
 
 def _thread_schedule(sched: DecaySchedule, device: torch.device, *, init,
-                     step_d, extract, size) -> dict:
+                     step_d, extract, size, **realize) -> dict:
     """Wire a schedule into a scheme's decay-parametric closures. Constant
     schedules bake the factor in (one f32 device tensor made here, not per
     tick) and keep the bare state; time-varying ones wrap the state in
     :class:`DecayedState` and pull ``d`` from the schedule each tick. Either
-    way ``step_decayed`` takes the same state as ``step``."""
+    way ``step_decayed`` takes the same state as ``step``. ``realize``
+    holds further ``(key, state)`` closures (``extract_global``,
+    ``size_global``), unwrapped like ``extract``."""
     if sched.static_rate is not None:
         d0 = torch.full((), sched.static_rate, dtype=torch.float32,
                         device=device)
@@ -132,7 +143,7 @@ def _thread_schedule(sched: DecaySchedule, device: torch.device, *, init,
             return step_d(key, state, batch_items, bcount, d0)
 
         return dict(init=init, step=step, extract=extract, size=size,
-                    step_decayed=step_d)
+                    step_decayed=step_d, **realize)
 
     def init_w(proto):
         return DecayedState(dstate=sched.init(device), inner=init(proto))
@@ -150,7 +161,8 @@ def _thread_schedule(sched: DecaySchedule, device: torch.device, *, init,
         return lambda key, state: fn(key, state.inner)
 
     return dict(init=init_w, step=step_w, extract=unwrap(extract),
-                size=unwrap(size), step_decayed=step_decayed)
+                size=unwrap(size), step_decayed=step_decayed,
+                **{k: unwrap(fn) for k, fn in realize.items()})
 
 
 def _decay_hyper(sched: DecaySchedule, lam) -> dict:
@@ -200,16 +212,17 @@ def _ttbs_rates(n: int, p: float, batch_size: float) -> tuple[float, float]:
     return p, q
 
 
-def _ttbs_step_d(n: int, batch_size: float, device: torch.device):
+def _ttbs_step_d(n: int, batch_size: float, device: torch.device, step=simple.ttbs_step):
     """Alg. 1 with the decay factor as an operand: p_t = d_t and
     q_t = n (1 - p_t) / b clipped into [0, 1] (a time-varying schedule may
-    ask for q > 1; the clip under-fills instead of failing)."""
+    ask for q > 1; the clip under-fills instead of failing). ``step`` is
+    T-TBS's, or D-T-TBS's on every shard."""
     b = torch.full((), float(batch_size), dtype=torch.float32, device=device)
 
     def step_d(key, state, batch_items, bcount, d):
         d = d.to(torch.float32)
         q = torch.clamp(n * (1.0 - d) / b, 0.0, 1.0)
-        return simple.ttbs_step(key, state, batch_items, bcount, p=d, q=q)
+        return step(key, state, batch_items, bcount, p=d, q=q)
 
     return step_d
 
@@ -290,3 +303,85 @@ def _make_sw(*, n: int, device: torch.device) -> Sampler:
     return Sampler(scheme="sw", init=lambda proto: simple.init(proto, n), step=step,
                    extract=_buffer_extract, size=_buffer_size, hyper={"n": n},
                    device=device)
+
+
+# ---------------------------------------------------------------------------
+# distributed schemes (paper Sec. 5): the S shards a leading dimension
+# ---------------------------------------------------------------------------
+@register("dttbs")
+def _make_dttbs(*, n: int, lam: float | None = None, batch_size: float,
+                cap: int | None = None, decay: DecaySchedule | None = None,
+                device: torch.device) -> Sampler:
+    """D-T-TBS (paper Sec. 5.1): T-TBS on every shard, no coordination.
+    ``n`` and ``batch_size`` are PER-SHARD targets; shard s steps with
+    ``fold_in(key, s)``."""
+    sched = _resolve_schedule(lam, decay)
+    cap = 4 * n if cap is None else cap
+    hyper = {"n": n, **_decay_hyper(sched, lam), "batch_size": batch_size, "cap": cap}
+    step_d = _ttbs_step_d(n, batch_size, device, step=distributed.dttbs_shard_step)
+
+    def extract_global(key, state):
+        del key   # membership is deterministic
+        items, mask, size = distributed.buffer_extract_global(state)
+        return SampleView(items=items, mask=mask, size=size)
+
+    def size_global(key, state):
+        del key
+        return distributed.psum(state.count)
+
+    fields = _thread_schedule(sched, device,
+                              init=lambda proto: simple.init(proto, cap), step_d=step_d,
+                              extract=_buffer_extract, size=_buffer_size,
+                              extract_global=extract_global, size_global=size_global)
+    if sched.static_rate is not None:
+        # as for ttbs: validate eagerly, apply the f64-derived rates
+        p, q = _ttbs_rates(n, sched.static_rate, batch_size)
+        hyper.update(p=p, q=q)
+        pt, qt = (torch.full((), v, dtype=torch.float32, device=device) for v in (p, q))
+
+        def step(key, state, batch_items, bcount):
+            return distributed.dttbs_shard_step(key, state, batch_items, bcount, p=pt, q=qt)
+
+        fields["step"] = step
+    return Sampler(scheme="dttbs", hyper=hyper, device=device, distributed=True, **fields)
+
+
+@register("drtbs")
+def _make_drtbs(*, n: int, lam: float | None = None, cap_s: int,
+                decay: DecaySchedule | None = None, device: torch.device) -> Sampler:
+    """D-R-TBS (paper Sec. 5.2-5.3): co-partitioned reservoir, distributed
+    decisions. ``n`` is the GLOBAL bound, ``cap_s`` the per-shard capacity.
+
+    ``extract`` gives each shard's slice of the realized sample, item leaves
+    ``[..., S, cap_s + 1, ...]``: the shard's buffer and ONE reserved slot
+    (``cap_s``) holding the partial item, realized w.p. frac(C) on shard 0
+    only, so ``mask.sum() == size`` holds per shard and globally (a copy of
+    the buffers; the loops use ``extract_global``, which copies none)."""
+    sched = _resolve_schedule(lam, decay)
+
+    def step_d(key, state, batch_items, bcount, d):
+        return distributed.drtbs_shard_step(key, state, batch_items, bcount, n=n, decay=d)
+
+    def extract(key, state):
+        mask, size, take = distributed.drtbs_realize_shard(key, state)
+        nl = state.nfull.dim()
+        items = pytree.tree_map(lambda a, p: torch.cat([a, p.unsqueeze(nl)], dim=nl),
+                                state.items, state.partial_item)
+        return SampleView(items=items, mask=torch.cat([mask, take.unsqueeze(-1)], dim=-1),
+                          size=size)
+
+    def size(key, state):
+        return distributed.drtbs_realize_shard(key, state)[1]
+
+    def extract_global(key, state):
+        items, mask, size = distributed.drtbs_extract_global(key, state)
+        return SampleView(items=items, mask=mask, size=size)
+
+    return Sampler(
+        scheme="drtbs", hyper={"n": n, **_decay_hyper(sched, lam), "cap_s": cap_s},
+        device=device, distributed=True,
+        **_thread_schedule(sched, device,
+                           init=lambda proto: distributed.init_shard(proto, cap_s),
+                           step_d=step_d, extract=extract, size=size,
+                           extract_global=extract_global,
+                           size_global=distributed.drtbs_global_size))

@@ -82,10 +82,12 @@ def split(k, num: int = 2) -> tuple:
     return tuple(w[..., i, :2] for i in range(num))
 
 
-def key_rows(k: Key, num: int, device) -> torch.Tensor:
-    """``split(k, num)`` of a host key as one int64 ``[num, 2]`` key tensor,
-    evaluated on ``device`` (no host-to-device copy)."""
-    ctr = torch.arange(num, dtype=torch.int64, device=device)
+def key_rows(k, num: int, device) -> torch.Tensor:
+    """``split(k, num)`` as one int64 key tensor: ``[num, 2]`` for a host
+    key, evaluated on ``device`` (no host-to-device copy), or ``[..., num,
+    2]`` for a key tensor ``[..., 2]`` (on its device)."""
+    dev = device if _is_host(k) else k.device
+    ctr = torch.arange(num, dtype=torch.int64, device=dev)
     return philox(ctr, k, c3=_SPLIT)[..., :2]
 
 

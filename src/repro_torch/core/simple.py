@@ -97,9 +97,10 @@ def _apply(state: BufferState, batch_items: Any, src: torch.Tensor, kept: torch.
     """Move the payload by ``src`` in one B1 launch and book the count and
     overflow of ``kept + added`` items."""
     cap = state.cap
-    if state.count.dim():            # trials share one batch: expand it
-        lead = state.count.shape
-        batch_items = pytree.tree_map(lambda b: b.expand(lead + b.shape), batch_items)
+    # trials (or shards) that share one batch lack its leading dimensions:
+    # expand them
+    batch_items = pytree.tree_map(lambda b, a: b.expand(a.shape[:a.dim() - b.dim()] + b.shape),
+                                  batch_items, state.items)
     with _scope("simple.payload"):
         items = tbs_ops.tbs_step_apply(state.items, batch_items, src)
     total = kept + added
@@ -108,8 +109,11 @@ def _apply(state: BufferState, batch_items: Any, src: torch.Tensor, kept: torch.
                        overflow=state.overflow + torch.clamp(total - cap, min=0))
 
 
-def _bcap(batch_items: Any) -> int:
-    return pytree.tree_leaves(batch_items)[0].shape[0]
+def _bcap(batch_items: Any, state: BufferState) -> int:
+    """The batch's row count; its leaves may carry some or all of the
+    state's leading dimensions."""
+    a, b = pytree.tree_leaves(state.items)[0], pytree.tree_leaves(batch_items)[0]
+    return b.shape[b.dim() - (a.dim() - state.count.dim())]
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -191,7 +195,7 @@ def ttbs_step_with(draws: TTBSDraws, state: BufferState, batch_items: Any,
     head, append k uniform batch items. W_t = p W_{t-1} + B_t rounded once
     to f32 (:func:`repro_torch.core.latent.fma_f32`), as XLA contracts the jitted JAX step's
     ``p * W + B`` into a fused multiply-add."""
-    cap, bcap = state.cap, _bcap(batch_items)
+    cap, bcap = state.cap, _bcap(batch_items, state)
     dev = state.count.device
     with _scope("simple.tick_map"):
         perm = rng.prefix_permutation_fast(draws.rb_perm, cap, state.count)
@@ -243,7 +247,7 @@ def brs_step_with(draws: BRSDraws, state: BufferState, batch_items: Any,
                   bcount: torch.Tensor, *, n: int) -> BufferState:
     """Alg. 5 from given draws: M ~ HyperGeo(C, |B|, W) new items (H3 on
     the card), keep min(n - M, |S|) old ones; W counts the items seen."""
-    cap, bcap = state.cap, _bcap(batch_items)
+    cap, bcap = state.cap, _bcap(batch_items, state)
     with _scope("simple.tick_map"):
         bcount = bcount.to(_I64)
         W = state.total_weight
@@ -274,7 +278,7 @@ def sw_step(key, state: BufferState, batch_items: Any, bcount: torch.Tensor, *,
     """The last ``n`` items in arrival order, oldest first. Deterministic:
     ``key`` is unused."""
     del key
-    cap, bcap = state.cap, _bcap(batch_items)
+    cap, bcap = state.cap, _bcap(batch_items, state)
     dev = state.count.device
     with _scope("simple.tick_map"):
         bcount = bcount.to(_I64)

@@ -17,21 +17,28 @@ from .. import _common
 from . import kernel, ref
 
 
-def reservoir_compact(items, mask: torch.Tensor):
+def reservoir_compact(items, mask: torch.Tensor, *, rows: int | None = None):
     """items: a tensor [cap, ...] or a pytree of them (any dtypes and
     trailing shapes); mask [cap] bool -> (the same structure compacted:
     each leaf's kept rows packed in order to [0, count), zeros after;
     count, an int32 0-d tensor on the mask's device). Bit-exact; the count
-    is never read on the host."""
+    is never read on the host. ``rows`` (at least ``cap``) gives the
+    outputs that many rows, those past ``cap`` zero: room for rows a caller
+    appends after the count without copying the packed buffer."""
     if mask.dtype != torch.bool or mask.dim() != 1:
         raise ValueError(f"reservoir_compact: mask must be bool [cap], "
                          f"got {mask.dtype} {tuple(mask.shape)}")
     cap = mask.shape[0]
     leaves, spec = pytree.tree_flatten(items)
+    rows = cap if rows is None else int(rows)
+    if rows < cap:
+        raise ValueError(f"reservoir_compact: rows = {rows} is below cap = {cap}")
     row_bytes = _common.check_leaves("reservoir_compact", leaves, leaves, (cap,), (cap,))
     if all(t.device.type == "cpu" for t in (mask, *leaves)):
         outs = [ref.compact_ref(x.reshape(cap, rb // x.element_size()), mask)[0]
                 .reshape(x.shape) for x, rb in zip(leaves, row_bytes)]
+        if rows > cap:
+            outs = [torch.cat([o, o.new_zeros((rows - cap,) + o.shape[1:])]) for o in outs]
         return pytree.tree_unflatten(outs, spec), mask.sum(dtype=torch.int32)
     _common.check_cuda("reservoir_compact", mask, *leaves)
     if cap >= 2**31:
@@ -40,7 +47,10 @@ def reservoir_compact(items, mask: torch.Tensor):
     # the kernel reads and writes raw bytes: contiguous leaves, the outputs
     # made in the leaves' own dtypes and shapes
     xs = [x.contiguous() for x in leaves]
-    outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in xs]
+    outs = [torch.empty((rows,) + x.shape[1:], dtype=x.dtype, device=x.device) for x in xs]
+    if rows > cap:
+        for o in outs:
+            o[cap:].zero_()
     if cap == 0:
         return pytree.tree_unflatten(outs, spec), torch.zeros((), dtype=torch.int32,
                                                               device=mask.device)

@@ -14,8 +14,15 @@ AdamW). Mamba2 archs run kernel B5 in every forward, eval and fit alike
 (its backward is the plain chunked form's gradient); the sampler's tick runs
 B1. ``--resume`` restarts bit for bit from the newest checkpoint (params,
 optimizer, reservoir, controller, stream position): the stream, the keys and
-every kernel on the path are deterministic. The distributed schemes
-(``drtbs``, ``dttbs``, ``--shards``) raise, naming ROADMAP A.7.
+every kernel on the path are deterministic.
+
+Distributed schemes (``--scheme drtbs|dttbs``, paper Sec. 5): the run goes
+through the sharded loop (:func:`run_sharded`) over ``--shards`` reservoir
+shards (default 8; local schemes ignore it), kept as a leading dimension
+of one card's state. The tick batch is padded to a multiple of the shard
+count; ``--ckpt-dir`` consumes the stream in checkpointed segments through
+:func:`repro_torch.manage.make_sharded_resume_loop` and ``--resume``
+continues them bit for bit.
 
 Decay: ``--decay exp`` (default; rate ``--lam``) or ``--decay poly``
 (power-law, exponent ``--beta``); ``--adaptive`` switches to the
@@ -41,6 +48,8 @@ Examples (on the card):
       --drift none --ckpt-dir runs/ck --ckpt-every 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
       --preset smoke --ticks 20 --scheme rtbs --num-keys 4096 --train-keys 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
+      --preset smoke --ticks 12 --scheme drtbs --shards 8 --retrain-every 4
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ import math
 import time
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import _device, convert
 from repro_torch import config as C
@@ -59,7 +69,11 @@ from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_check
 from repro_torch.core import prng
 from repro_torch.core.api import available_schemes, make_sampler
 from repro_torch.data.streams import KeyedStream, TokenDriftStream, mode_schedule
-from repro_torch.manage import make_bank_run_loop, make_sgd_adapter, materialize_stream
+from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.manage import (
+    init_sharded_state, item_proto, make_bank_run_loop, make_sgd_adapter,
+    make_sharded_resume_loop, make_sharded_run_loop, materialize_stream, shard_stream,
+)
 from repro_torch.models import zoo
 from repro_torch.obs import make_telemetry, profile_span
 from repro_torch.obs import probe as obs_probe
@@ -72,10 +86,11 @@ DECAY_FREE_SCHEMES = ("sw", "brs")
 
 
 def build_sampler(scheme: str, *, n: int, lam: float, batch_per_tick: int,
-                  decay=None, device=None):
+                  shards: int = 1, decay=None, device=None):
     """Map the driver's knobs onto each scheme's hyperparameters. ``decay``
     (a DecaySchedule) replaces the scalar ``lam`` when given; ``lam`` still
-    sizes the B-TBS capacity bound."""
+    sizes the B-TBS capacity bound. ``shards`` sizes the distributed
+    schemes."""
     dkw = {"lam": lam} if decay is None else {"decay": decay}
     if scheme == "rtbs":
         return make_sampler("rtbs", n=n, device=device, **dkw)
@@ -89,8 +104,15 @@ def build_sampler(scheme: str, *, n: int, lam: float, batch_per_tick: int,
         return make_sampler("btbs", cap=max(n, int(3 * steady) + 1), device=device, **dkw)
     if scheme == "ttbs":
         return make_sampler("ttbs", n=n, batch_size=batch_per_tick, device=device, **dkw)
-    if scheme in DISTRIBUTED_SCHEMES:
-        return make_sampler(scheme, n=n, device=device, **dkw)   # raises, naming A.7
+    if scheme == "drtbs":
+        # cap_s covers the worst transient: every global full item plus this
+        # shard's incoming batch landing on one shard before the downsample
+        return make_sampler("drtbs", n=n, cap_s=n + batch_per_tick, device=device, **dkw)
+    if scheme == "dttbs":
+        # per-shard targets: n/S sample rows fed by b/S arrivals per shard
+        n_s = max(1, -(-n // shards))
+        b_s = max(1.0, batch_per_tick / shards)
+        return make_sampler("dttbs", n=n_s, batch_size=b_s, device=device, **dkw)
     raise ValueError(f"unsupported scheme {scheme!r}; see {available_schemes()}")
 
 
@@ -134,9 +156,9 @@ def parse_args(argv=None):
                          "(its widths unchanged)")
     ap.add_argument("--scheme", default="rtbs",
                     choices=["rtbs", "sw", "brs", "btbs", "ttbs", "drtbs", "dttbs"])
-    ap.add_argument("--shards", type=int, default=None,
-                    help="data-axis width for the distributed schemes (ROADMAP "
-                         "A.7: not ported; raises)")
+    ap.add_argument("--shards", type=int, default=8,
+                    help="reservoir shards of the distributed schemes (a leading "
+                         "dimension of one card's state); local schemes ignore it")
     ap.add_argument("--num-keys", type=int, default=0,
                     help="multi-tenant mode: maintain one per-key time-biased "
                          "sample for this many entities (repro_torch.bank; "
@@ -213,6 +235,119 @@ def build_model(args, device):
         device=device,
     )
     return cfg, api, adapter
+
+
+def _log_sharded_trace(trace, t0, mode_of, log, telemetry=None):
+    metric = trace["metric"].cpu().numpy()
+    size = trace["size"].cpu().numpy()
+    dec = trace["decay"].cpu().numpy() if "decay" in trace else None
+    for i in range(len(size)):
+        t = t0 + i
+        row = {"tick": t, "mode": mode_of(t), "eval_loss": float(metric[i]),
+               "sample_size": int(size[i])}
+        extra = ""
+        if dec is not None:
+            row["lam"] = float(-math.log(max(float(dec[i]), 1e-30)))
+            extra = f" lam={row['lam']:6.4f}"
+        log.append(row)
+        if telemetry is not None:   # the checkpointed path: host-side records
+            telemetry.emit({"kind": "tick", "t": t, "metric": float(metric[i]),
+                            "size": int(size[i]),
+                            **({"decay": float(dec[i])} if dec is not None else {})})
+        print(f"[train] tick={t:4d} mode={mode_of(t)} eval={float(metric[i]):7.4f} "
+              f"|S|={int(size[i]):5d}{extra}", flush=True)
+    if telemetry is not None:
+        telemetry.flush()
+
+
+def _sampler_first(tree: tuple) -> tuple:
+    """The driver's checkpoint tree with its first two entries swapped: the
+    sharded run saves ``(sampler state, sgd state, ...)``, as JAX's does."""
+    return (tree[1], tree[0]) + tuple(tree[2:])
+
+
+def run_sharded(args, adapter, cfg, sampler, controller, device):
+    """The Sec. 5 path: every tick's batch co-partitioned over ``--shards``
+    shards, then stream -> per-shard sample update -> periodic retrain on
+    the global view -> prequential eval through the sharded loop. Without
+    ``--ckpt-dir`` the stream is one run of
+    :func:`repro_torch.manage.make_sharded_run_loop`; with it, the stream
+    is consumed in ``--ckpt-every``-tick segments (rounded up to the retrain
+    cadence) through :func:`repro_torch.manage.make_sharded_resume_loop`,
+    the gathered snapshot saved after each, and ``--resume`` restarts bit
+    for bit."""
+    S, dev = args.shards, device
+    # main() rounded batch_per_tick up to a multiple of S: the sampler's
+    # rates and the padding-free shard segments both depend on it
+    assert args.batch_per_tick % S == 0
+    stream = TokenDriftStream(seed=args.seed, vocab=cfg.vocab_size, seq_len=args.seq_len)
+
+    def mode_of(t):
+        return 0 if args.drift == "none" else mode_schedule(args.drift, t)
+
+    batches, bcounts = materialize_stream(stream, args.ticks, batch_size=args.batch_per_tick,
+                                          mode=mode_of, device=dev)
+    batches, bcounts = shard_stream(batches, bcounts, S, device=dev)
+    mesh = make_data_mesh(S, device=dev)
+    key = prng.key(args.seed)
+    log = []
+    telemetry = build_telemetry(args)
+    if not args.ckpt_dir:
+        run = make_sharded_run_loop(sampler, adapter, mesh, retrain_every=args.retrain_every,
+                                    superbatch=args.superbatch, controller=controller,
+                                    telemetry=telemetry)
+        print(f"[train] sharded {args.scheme} loop: {S} shards, {args.ticks} ticks, "
+              "one run", flush=True)
+        with profile_cm(args):
+            _, _, trace = run(key, batches, bcounts)
+        _log_sharded_trace(trace, 0, mode_of, log)
+        if telemetry is not None:
+            telemetry.close()
+        return log
+
+    seg = -(-args.ckpt_every // args.retrain_every) * args.retrain_every
+    resume = make_sharded_resume_loop(sampler, adapter, mesh, retrain_every=args.retrain_every,
+                                      superbatch=args.superbatch, controller=controller)
+    state = init_sharded_state(sampler, S, item_proto(batches))
+    params = adapter.init()
+    cstate = controller.init(dev) if controller is not None else None
+    start_tick = 0
+    ckpt = AsyncCheckpointer(args.ckpt_dir)
+    if args.resume:
+        last = latest_step(args.ckpt_dir)
+        if last is not None:
+            like = _sampler_first(convert.train_checkpoint_like(params, state, cstate))
+            tree = restore_checkpoint(args.ckpt_dir, last, like)
+            params, state, cstate, start_tick = convert.train_checkpoint_from_numpy(
+                cfg, _sampler_first(tree), device=dev)
+            print(f"[train] resumed sharded run from step {last} (tick {start_tick})")
+    print(f"[train] sharded {args.scheme} loop: {S} shards, {args.ticks} ticks, "
+          f"{seg}-tick checkpointed segments", flush=True)
+    if telemetry is not None:
+        telemetry.open_run({"scheme": args.scheme, "ticks": args.ticks, "segment": seg,
+                            "every": telemetry.every, "backend": dev.type, "jax": None,
+                            "torch": torch.__version__, "state_bytes": None})
+
+    def cut(tree, lo, hi):
+        return pytree.tree_map(lambda a: a[lo:hi], tree)
+
+    for t0 in range(start_tick, args.ticks, seg):
+        t1 = min(t0 + seg, args.ticks)
+        aux = () if controller is None else (cstate,)
+        state, params, *aux, trace = resume(key, state, params, *aux, cut(batches, t0, t1),
+                                            bcounts[t0:t1], t0)
+        cstate = aux[0] if aux else None
+        _log_sharded_trace(trace, t0, mode_of, log, telemetry=telemetry)
+        # only retrain-aligned ticks are resume points (the resume loop
+        # requires t0 % G == 0, G | retrain_every): a misaligned final
+        # segment is not saved, and a later --resume replays it
+        if t1 % args.retrain_every == 0:
+            ckpt.save(t1, _sampler_first(
+                convert.train_checkpoint_to_numpy(params, state, cstate, t1)))
+    ckpt.wait()
+    if telemetry is not None:
+        telemetry.close()
+    return log
 
 
 def run_bank(args, adapter, cfg, device):
@@ -396,14 +531,29 @@ class LocalRun:
 
 def main(argv=None, device=None):
     args = parse_args(argv)
-    if args.scheme in DISTRIBUTED_SCHEMES or args.shards is not None:
-        raise SystemExit(f"--scheme {args.scheme} / --shards: the distributed schemes "
-                         "and the sharded loop are not ported to repro_torch yet "
-                         "(ROADMAP A.7)")
+    if args.scheme in DISTRIBUTED_SCHEMES:
+        if args.shards < 1:
+            raise SystemExit(f"--shards must be at least 1; got {args.shards}")
+        # pad the tick batch to a multiple of the shards BEFORE the sampler
+        # is built: dttbs calibrates its rates on the per-shard arrivals, and
+        # the SGD adapter's loss needs padding-free shard segments
+        b = -(-args.batch_per_tick // args.shards) * args.shards
+        if b != args.batch_per_tick:
+            print(f"[train] batch-per-tick {args.batch_per_tick} -> {b} "
+                  f"(multiple of {args.shards} shards)")
+            args.batch_per_tick = b
     if args.num_keys:
         dev = _device.resolve(device)
         cfg, _, adapter = build_model(args, dev)
         return run_bank(args, adapter, cfg, dev)
+    if args.scheme in DISTRIBUTED_SCHEMES:
+        dev = _device.resolve(device)
+        cfg, _, adapter = build_model(args, dev)
+        sched, controller = build_decay(args)
+        sampler = build_sampler(args.scheme, n=args.reservoir, lam=args.lam,
+                                batch_per_tick=args.batch_per_tick, shards=args.shards,
+                                decay=sched, device=dev)
+        return run_sharded(args, adapter, cfg, sampler, controller, dev)
 
     run = LocalRun(args, device)
     ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None

@@ -1,6 +1,7 @@
 """repro_torch.manage -- the paper's online model-management loop: a stream
 -> a :class:`repro_torch.core.api.Sampler` -> periodic retraining ->
-prequential eval (:mod:`.loop`), its keyed twin over a
+prequential eval (:mod:`.loop`, with the sharded loops of the
+distributed schemes), its keyed twin over a
 :class:`repro_torch.bank.SamplerBank` (:mod:`.bank_loop`), and the
 model adapters (:mod:`.models`), closed-form and SGD."""
 from .bank_loop import (  # noqa: F401
@@ -10,13 +11,19 @@ from .bank_loop import (  # noqa: F401
     pooled_view,
 )
 from .loop import (  # noqa: F401
+    init_sharded_state,
     item_proto,
     make_manage_step,
     make_run_farm,
     make_run_loop,
+    make_sharded_manage_step,
+    make_sharded_resume_loop,
+    make_sharded_run_farm,
+    make_sharded_run_loop,
     materialize_stream,
     run_farm,
     run_loop,
+    shard_stream,
     tick_keys,
 )
 from .models import (  # noqa: F401

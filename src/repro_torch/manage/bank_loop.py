@@ -240,10 +240,11 @@ def make_bank_run_loop(bank: SamplerBank, model: ModelAdapter, *,
                 telemetry, stats_fn, bank.device,
                 {"scheme": f"bank.{bank.scheme}", "ticks": int(bcounts.shape[0]),
                  "state_bytes": _obs_probe.tree_nbytes(state)})
-        out = _drive(tick, key, state, params, carry, batches, bcounts, on_tick)
+        state, params, *_, trace = _drive(tick, key, state, params, carry, batches, bcounts,
+                                          on_tick)
         if finish is not None:
             finish()
-        return out
+        return state, params, trace
 
     return run
 

@@ -34,7 +34,19 @@ blocks without a host sync in the tick (:mod:`repro_torch.obs.telemetry`),
 after one ``kind="run"`` header a run. ``(state, params, trace)`` is
 bit-identical to ``telemetry=None``.
 
-Not ported yet: the sharded loops (ROADMAP A.7).
+The sharded loops (paper Sec. 5; :func:`make_sharded_run_loop`,
+:func:`make_sharded_manage_step`, :func:`make_sharded_run_farm`,
+:func:`make_sharded_resume_loop`) run the same tick over a distributed
+sampler (drtbs, dttbs) whose S reservoir shards are a leading dimension of
+its state (:mod:`repro_torch.core.distributed`): tick t's arrivals are
+co-partitioned, batch leaves ``[S * bcap_s, ...]`` with shard s owning rows
+``[s * bcap_s, (s + 1) * bcap_s)`` and ``bcount`` ``[S]``
+(:func:`shard_stream` builds the layout). The metric is the
+|B_t|-weighted sum of the shards' metrics, NaN only when the global tick
+is empty; retraining fits the global sample (``extract_global``) and the
+logged size is ``size_global``. The state they take and return is the
+gathered snapshot (every leaf ``[S, ...]``), so fused, per-tick and
+resumed runs compose bit for bit.
 """
 from __future__ import annotations
 
@@ -45,7 +57,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import _device
-from repro_torch.core import prng
+from repro_torch.core import distributed, prng
 from repro_torch.core.api import Sampler
 from repro_torch.manage.models import ModelAdapter
 from repro_torch.obs import probe as _obs_probe
@@ -73,6 +85,51 @@ def _check_controllable(sampler: Sampler) -> None:
             "time-biased schemes (rtbs/ttbs/btbs), not the decay-free baselines")
 
 
+def _tick_body(sampler: Sampler, retrain_every: int, controller, *, evaluate: Callable,
+               fit: Callable, extract: Callable, size: Callable) -> Callable:
+    """The tick ``(key, t, state, params, cstate, batch, bcount) -> (state,
+    params, cstate, metrics)`` every loop runs; the sharded loops pass
+    their summed metric and global extract / size closures."""
+
+    def body(key, t: int, state, params, cstate, batch_items, bcount):
+        k_step, k_extract, k_fit = tick_keys(key, t)
+        do_fit = (t + 1) % retrain_every == 0
+        with _scope("manage.eval"):
+            metric = evaluate(params, batch_items, bcount)
+        with _scope("manage.sampler_step"):
+            if controller is None:
+                state = sampler.step(k_step, state, batch_items, bcount)
+            else:
+                d = controller.rate(cstate)
+                state = sampler.step_decayed(k_step, state, batch_items, bcount, d)
+        if controller is not None:
+            with _scope("manage.controller"):
+                cstate = controller.observe(cstate, metric, do_fit)
+        if do_fit:
+            with _scope("manage.retrain"):
+                params = fit(k_fit, params, extract(k_extract, state))
+        with _scope("manage.size"):
+            metrics = {"metric": metric, "size": size(k_extract, state)}
+        if controller is not None:
+            metrics["decay"] = d
+        return state, params, cstate, metrics
+
+    return body
+
+
+def _carry_form(body: Callable, controller) -> Callable:
+    """The tick's public signature: the body itself with a controller,
+    else without the controller state."""
+    if controller is not None:
+        return body
+
+    def tick(key, t: int, state, params, batch_items, bcount):
+        state, params, _, metrics = body(key, t, state, params, None, batch_items, bcount)
+        return state, params, metrics
+
+    return tick
+
+
 def make_manage_step(sampler: Sampler, model: ModelAdapter, *,
                      retrain_every: int = 1, controller=None) -> Callable:
     """One tick of the loop: ``(key, t, state, params, batch, bcount) ->
@@ -85,38 +142,9 @@ def make_manage_step(sampler: Sampler, model: ModelAdapter, *,
     and ``metrics`` gains the applied factor ``"decay"``."""
     if controller is not None:
         _check_controllable(sampler)
-
-    def body(key, t: int, state, params, cstate, batch_items, bcount):
-        k_step, k_extract, k_fit = tick_keys(key, t)
-        do_fit = (t + 1) % retrain_every == 0
-        with _scope("manage.eval"):
-            metric = model.evaluate(params, batch_items, bcount)
-        with _scope("manage.sampler_step"):
-            if controller is None:
-                state = sampler.step(k_step, state, batch_items, bcount)
-            else:
-                d = controller.rate(cstate)
-                state = sampler.step_decayed(k_step, state, batch_items, bcount, d)
-        if controller is not None:
-            with _scope("manage.controller"):
-                cstate = controller.observe(cstate, metric, do_fit)
-        if do_fit:
-            with _scope("manage.retrain"):
-                params = model.fit(k_fit, params, sampler.extract(k_extract, state))
-        with _scope("manage.size"):
-            metrics = {"metric": metric, "size": sampler.size(k_extract, state)}
-        if controller is not None:
-            metrics["decay"] = d
-        return state, params, cstate, metrics
-
-    if controller is not None:
-        return body
-
-    def tick(key, t: int, state, params, batch_items, bcount):
-        state, params, _, metrics = body(key, t, state, params, None, batch_items, bcount)
-        return state, params, metrics
-
-    return tick
+    return _carry_form(_tick_body(sampler, retrain_every, controller, evaluate=model.evaluate,
+                                  fit=model.fit, extract=sampler.extract, size=sampler.size),
+                       controller)
 
 
 def _stacked(tree: Any, n: int) -> Any:
@@ -126,22 +154,24 @@ def _stacked(tree: Any, n: int) -> Any:
 
 
 def _drive(tick: Callable, key, state, params, carry: tuple, batches: Any,
-          bcounts: torch.Tensor, on_tick: Callable | None = None):
-    """Run ``tick`` over every tick of a stream (leaves [T, ...]); returns
-    ``(state, params, trace)``, the trace's columns stacked over ticks.
-    ``carry`` is ``()`` or ``(cstate,)``, as the tick takes it.
+          bcounts: torch.Tensor, on_tick: Callable | None = None, t0: int = 0):
+    """Run ``tick`` over every tick of a stream (leaves [T, ...]), the
+    first of them global tick ``t0``; returns ``(state, params, *carry,
+    trace)``, the trace's columns stacked over ticks. ``carry`` is ``()``
+    or ``(cstate,)``, as the tick takes it.
     ``on_tick(t, batch_t, bcount_t, state, carry, m)``, when given, sees each
     tick's outputs (telemetry); a reserved ``"_obs"`` entry of ``m`` goes to
     it and never to the trace."""
     ms = []
-    for t in range(bcounts.shape[0]):
-        batch_t = pytree.tree_map(lambda a: a[t], batches)
-        state, params, *carry, m = tick(key, t, state, params, *carry, batch_t, bcounts[t])
+    for i in range(bcounts.shape[0]):
+        batch_t = pytree.tree_map(lambda a: a[i], batches)
+        state, params, *carry, m = tick(key, t0 + i, state, params, *carry, batch_t,
+                                        bcounts[i])
         if on_tick is not None:
-            on_tick(t, batch_t, bcounts[t], state, carry, m)
+            on_tick(t0 + i, batch_t, bcounts[i], state, carry, m)
             m = {k: v for k, v in m.items() if k != "_obs"}
         ms.append(m)
-    return state, params, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+    return (state, params, *carry, {k: torch.stack([m[k] for m in ms]) for k in ms[0]})
 
 
 def _check_telemetry(telemetry) -> None:
@@ -231,10 +261,11 @@ def make_run_loop(sampler: Sampler, model: ModelAdapter, *,
                 telemetry, stats_fn, sampler.device,
                 {"scheme": sampler.scheme, "ticks": int(bcounts.shape[0]),
                  "state_bytes": _obs_probe.tree_nbytes(state)})
-        out = _drive(tick, key, state, model.init(), carry, batches, bcounts, on_tick)
+        state, params, *_, trace = _drive(tick, key, state, model.init(), carry, batches,
+                                          bcounts, on_tick)
         if finish is not None:
             finish()
-        return out
+        return state, params, trace
 
     return run
 
@@ -287,7 +318,7 @@ def make_run_farm(sampler: Sampler, model: ModelAdapter, *,
                                 retrain_every=retrain_every, controller=controller)
         dev = sampler.device
         carry = () if controller is None else (_stacked(controller.init(dev), trials),)
-        _, _, trace = _drive(tick, prng.key_rows(key, trials, dev),
+        *_, trace = _drive(tick, prng.key_rows(key, trials, dev),
                             _stacked(sampler.init(item_proto(batches)), trials),
                             [model.init() for _ in range(trials)], carry, batches, bcounts)
         return {k: v.movedim(0, 1) for k, v in trace.items()}
@@ -335,3 +366,233 @@ def materialize_stream(stream: Any, T: int, *, batch_size: int | Callable,
     else:
         batches = pad_stack(raw)
     return batches, torch.tensor(sizes, dtype=torch.int64).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# the sharded loops (paper Sec. 5): the same tick over a distributed sampler
+# ---------------------------------------------------------------------------
+def _check_sharded(sampler: Sampler) -> None:
+    if not sampler.distributed or sampler.extract_global is None:
+        raise ValueError(
+            f"sampler {sampler.scheme!r} is a local scheme: the sharded manage loop needs "
+            "per-shard step/extract_global closures (drtbs/dttbs) -- use make_run_loop "
+            "for local schemes")
+
+
+def _check_mesh(mesh, bcounts: torch.Tensor) -> int:
+    S = mesh.num_shards
+    if bcounts.shape[-1] != S:
+        raise ValueError(f"the mesh has {S} shards; the stream's bcounts have "
+                         f"{bcounts.shape[-1]} (shard_stream(..., num_shards={S}))")
+    return S
+
+
+def _effective_superbatch(superbatch: int | None, retrain_every: int) -> int:
+    """JAX's superbatch chunk G: the largest divisor of ``retrain_every``
+    not above the requested size (None: 1, JAX's default off the TPU). The
+    port runs no chunked scan, so G only sets where a resume may start."""
+    g = min(max(int(1 if superbatch is None else superbatch), 1), retrain_every)
+    while retrain_every % g:
+        g -= 1
+    return g
+
+
+def _psum_metric(model: ModelAdapter) -> Callable:
+    """The sharded loops' prequential metric: the |B_t|-weighted sum of the
+    shards' metrics over the shard dimension, NaN only when the GLOBAL tick
+    is empty. ``model.evaluate`` runs once a shard on its rows."""
+
+    def metric_of(params, batch_s, bcount):
+        S = bcount.shape[-1]
+        m_s = torch.stack([model.evaluate(params, pytree.tree_map(lambda a: a[s], batch_s),
+                                          bcount[s]) for s in range(S)], dim=-1)
+        w_s = bcount.to(torch.float32)
+        num = distributed.psum(torch.where(bcount > 0, m_s, 0.0) * w_s)
+        den = distributed.psum(w_s)
+        return torch.where(den > 0, num / torch.clamp(den, min=1.0), torch.nan)
+
+    return metric_of
+
+
+def make_sharded_manage_step(sampler: Sampler, model: ModelAdapter, mesh, *,
+                             retrain_every: int = 1, controller=None) -> Callable:
+    """ONE tick of the sharded loop: ``(key, t, state, params, batch_t,
+    bcount_t) -> (state, params, metrics)``, with a controller ``(key, t,
+    state, params, cstate, batch_t, bcount_t) -> (state, params, cstate,
+    metrics)``. ``state`` is the gathered snapshot (every leaf ``[S,
+    ...]``) the fused loop returns, ``batch_t`` leaves ``[S * bcap_s,
+    ...]``, ``bcount_t`` ``[S]``. The fused loop runs this tick, so per-tick
+    and fused runs are bit-identical."""
+    _check_sharded(sampler)
+    if controller is not None:
+        _check_controllable(sampler)
+    S = mesh.num_shards
+    body = _tick_body(sampler, retrain_every, controller, evaluate=_psum_metric(model),
+                      fit=model.fit, extract=sampler.extract_global, size=sampler.size_global)
+
+    def sharded(key, t: int, state, params, cstate, batch_items, bcount):
+        return body(key, t, state, params, cstate, distributed.split_batch(batch_items, S),
+                    bcount)
+
+    return _carry_form(sharded, controller)
+
+
+def init_sharded_state(sampler: Sampler, num_shards: int, proto: Any) -> Any:
+    """The t = 0 state in the gathered form the sharded loops take:
+    ``sampler.init(proto)`` stacked on a leading [S] dimension."""
+    return _stacked(sampler.init(proto), num_shards)
+
+
+def _shard0(state: Any) -> Any:
+    """Shard 0's view of a gathered state (the stream JAX's sharded
+    telemetry keeps)."""
+    return pytree.tree_map(lambda a: a[0], state)
+
+
+def make_sharded_run_loop(sampler: Sampler, model: ModelAdapter, mesh, *,
+                          retrain_every: int = 1, superbatch: int | None = None,
+                          controller=None, telemetry=None) -> Callable:
+    """The paper's loop over a sharded sampler: ``run(key, batches,
+    bcounts) -> (state, params, trace)``.
+
+      * ``batches``: leaves ``[T, S * bcap_s, ...]``, tick t's arrivals
+        co-partitioned (:func:`shard_stream`); ``bcounts`` ``[T, S]`` (empty
+        shards are fine: the schemes sum the global |B_t|);
+      * ``state``: the final gathered snapshot (every leaf ``[S, ...]``);
+      * ``params`` / ``trace``: as :func:`make_run_loop`'s.
+
+    ``controller`` threads the closed-loop decay controller, fed the
+    summed global metric; ``telemetry`` adds one stats row a tick, shard
+    0's gauges (JAX keeps shard 0's stream), the outputs bit-identical.
+    ``superbatch`` changes nothing (no compiled scan to chunk)."""
+    del superbatch
+    _check_sharded(sampler)
+    _check_telemetry(telemetry)
+    tick = make_sharded_manage_step(sampler, model, mesh, retrain_every=retrain_every,
+                                    controller=controller)
+    stats_fn = None
+    if telemetry is not None:
+        base = _make_loop_stats(sampler, controller, retrain_every)
+
+        def stats_fn(t, batch, bcount, state, carry, m):
+            return base(t, batch, bcount[0], _shard0(state), carry, m)
+
+    def run(key: prng.Key, batches: Any, bcounts: torch.Tensor):
+        S = _check_mesh(mesh, bcounts)
+        carry = () if controller is None else (controller.init(sampler.device),)
+        state = init_sharded_state(sampler, S, item_proto(batches))
+        on_tick = finish = None
+        if telemetry is not None:
+            on_tick, finish = _telemetry_hook(
+                telemetry, stats_fn, sampler.device,
+                {"scheme": sampler.scheme, "ticks": int(bcounts.shape[0]),
+                 "state_bytes": _obs_probe.tree_nbytes(state)})
+        state, params, *_, trace = _drive(tick, key, state, model.init(), carry, batches,
+                                          bcounts, on_tick)
+        if finish is not None:
+            finish()
+        return state, params, trace
+
+    return run
+
+
+def make_sharded_run_farm(sampler: Sampler, model: ModelAdapter, mesh, *,
+                          retrain_every: int = 1, superbatch: int | None = None,
+                          controller=None) -> Callable:
+    """Monte-Carlo farm of the sharded loop: ``farm(key, trials, batches,
+    bcounts) -> (states, params, trace)``, a leading [trials] dimension on
+    every output. Trials x shards are the two leading dimensions of one
+    state, so a tick steps every trial's every shard at once (one B1
+    launch); trial i runs with ``split(key, trials)[i]`` and the trials
+    share the stream. The model adapters take no trial dimension, so
+    ``evaluate`` and ``fit`` run once a trial (and a shard)."""
+    del superbatch
+    _check_sharded(sampler)
+    if controller is not None:
+        _check_controllable(sampler)
+
+    def farm(key: prng.Key, trials: int, batches: Any, bcounts: torch.Tensor):
+        S = _check_mesh(mesh, bcounts)
+        tick = make_sharded_manage_step(sampler, _per_trial(model, trials), mesh,
+                                        retrain_every=retrain_every, controller=controller)
+        dev = sampler.device
+        carry = () if controller is None else (_stacked(controller.init(dev), trials),)
+        state0 = _stacked(init_sharded_state(sampler, S, item_proto(batches)), trials)
+        states, params, *_, trace = _drive(
+            tick, prng.key_rows(key, trials, dev), state0,
+            [model.init() for _ in range(trials)], carry, batches, bcounts)
+        params = pytree.tree_map(lambda *xs: torch.stack(xs), *params)
+        return states, params, {k: v.movedim(0, 1) for k, v in trace.items()}
+
+    return farm
+
+
+def make_sharded_resume_loop(sampler: Sampler, model: ModelAdapter, mesh, *,
+                             retrain_every: int = 1, superbatch: int | None = None,
+                             controller=None) -> Callable:
+    """Continue a sharded run from its gathered snapshot: ``run(key,
+    snapshot, params, batches, bcounts, t0) -> (snapshot, params, trace)``
+    (with ``controller``: ``run(key, snapshot, params, cstate, batches,
+    bcounts, t0) -> (snapshot, params, cstate, trace)``). ``batches`` /
+    ``bcounts`` are the segment to consume and ``t0`` the global tick of
+    its first batch, so running ``[0, T)`` at once and ``[0, T1) + [T1,
+    T)`` through this entry point are bit-identical. ``t0`` must be a
+    multiple of JAX's superbatch chunk G (:func:`_effective_superbatch`),
+    as JAX requires."""
+    _check_sharded(sampler)
+    if controller is not None:
+        _check_controllable(sampler)
+    G = _effective_superbatch(superbatch, retrain_every)
+    tick = make_sharded_manage_step(sampler, model, mesh, retrain_every=retrain_every,
+                                    controller=controller)
+
+    def run(key: prng.Key, snapshot, params, *rest):
+        *carry, batches, bcounts, t0 = rest
+        if int(t0) % G:
+            raise ValueError(f"resume tick t0={int(t0)} must be a multiple of the superbatch "
+                             f"chunk G={G}, or chunk boundaries would drift off the retrain "
+                             "cadence")
+        _check_mesh(mesh, bcounts)
+        return _drive(tick, key, snapshot, params, tuple(carry), batches, bcounts,
+                      t0=int(t0))
+
+    return run
+
+
+def shard_stream(batches: Any, bcounts, num_shards: int, *, bcap_s: int | None = None,
+                 device=None):
+    """Re-pack a :func:`materialize_stream` output into the co-partitioned
+    layout the sharded loops consume (the JAX package's ``shard_stream``).
+
+    Tick t's ``bcounts[t]`` valid items are split contiguously and evenly
+    over ``num_shards`` (shard s of tick t gets ``floor(b/S) + (s < b mod
+    S)``; uneven and empty shards are fine). Returns ``(batches,
+    bcounts)`` on ``device`` (None: the CUDA card), leaves ``[T, S *
+    bcap_s, ...]`` zero-padded per shard segment and ``[T, S]`` int64;
+    ``bcap_s`` defaults to the largest per-shard count."""
+    dev = _device.resolve(device)
+    host = lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)  # noqa: E731
+    bcounts = host(bcounts)
+    T = bcounts.shape[0]
+    S = num_shards
+    counts = np.zeros((T, S), np.int64)
+    for t in range(T):
+        b = int(bcounts[t])
+        counts[t] = b // S + (np.arange(S) < b % S)
+    need = int(counts.max()) if T else 0
+    bcap_s = max(need, 1) if bcap_s is None else bcap_s
+    if need > bcap_s:
+        raise ValueError(f"per-shard batch {need} exceeds bcap_s={bcap_s}")
+
+    def repack(leaf):
+        leaf = host(leaf)
+        out = np.zeros((T, S * bcap_s) + leaf.shape[2:], leaf.dtype)
+        for t in range(T):
+            off = 0
+            for s in range(S):
+                c = int(counts[t, s])
+                out[t, s * bcap_s:s * bcap_s + c] = leaf[t, off:off + c]
+                off += c
+        return torch.from_numpy(out).to(dev)
+
+    return pytree.tree_map(repack, batches), torch.from_numpy(counts).to(dev)

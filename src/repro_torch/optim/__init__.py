@@ -1,5 +1,6 @@
 """repro_torch.optim -- AdamW and the LR schedule of the LM training path
-(the sharded path's gradient compression comes with ROADMAP A.7)."""
+(gradient compression for a sharded run over several cards, the JAX
+package's ``optim/compress.py``, waits: ROADMAP A.7)."""
 from .adamw import (  # noqa: F401
     AdamWConfig, adamw_init, adamw_update, clip_by_global_norm, global_norm,
 )

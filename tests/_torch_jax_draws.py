@@ -5,6 +5,8 @@ helpers draw exactly the bits and uniforms the JAX functions draw from a
 given ``jax.random`` key, so a test can feed them to the port and compare
 the results bit for bit.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,3 +100,39 @@ def ref_draws(key, cap, bcap):
     return trt.RefDraws(ds=exact_ds_draws(k_ds, cap), over=exact_ds_draws(k_over, cap + bcap),
                         u_m=uniform(k_m), u_vic=uniform(k_vic, (cap,)),
                         u_pick=uniform(k_pick, (bcap,)), sat_ds=exact_ds_draws(k_sds, cap))
+
+
+def _dist_ds_arrays(key, S):
+    k_u, k_split, k_donor, k_local = jax.random.split(key, 4)
+    u = lambda k: jax.random.uniform(k, (), jnp.float32)  # noqa: E731
+    return (u(k_u), jax.vmap(u)(jax.random.split(k_split, S)), u(k_donor),
+            jax.vmap(lambda s: jax.random.bits(jax.random.fold_in(k_local, s), (16, 2),
+                                               jnp.uint32))(jnp.arange(S)))
+
+
+@functools.lru_cache(maxsize=None)
+def _drtbs_arrays(S):
+    def draws(key):
+        k_ds, k_over, k_m, k_sv, k_si, k_loc = jax.random.split(key, 6)
+        u = lambda k: jax.random.uniform(k, (), jnp.float32)  # noqa: E731
+        loc = jax.vmap(lambda s: jax.random.split(jax.random.fold_in(k_loc, s)))(jnp.arange(S))
+        bits = jax.vmap(lambda k: jax.random.bits(k, (16, 2), jnp.uint32))
+        return (_dist_ds_arrays(k_ds, S), _dist_ds_arrays(k_over, S), u(k_m),
+                jax.vmap(u)(jax.random.split(k_sv, S)), jax.vmap(u)(jax.random.split(k_si, S)),
+                bits(loc[:, 0]), bits(loc[:, 1]))
+
+    return jax.jit(draws)
+
+
+def drtbs_draws(key, S):
+    """``distributed.drtbs_shard_step``'s draws: k_ds, k_over, k_m,
+    k_split_v, k_split_i, k_loc = split(key, 6); each downsample splits its
+    key k_u, k_split, k_donor, k_local; shard s's round words come from
+    fold_in(k_local, s), its victim and pick words from split(fold_in(k_loc,
+    s)); a split's uniforms from split(k_split, S)."""
+    from repro_torch.core import distributed as tdist
+
+    ds, over, u_m, sv, si, vic, pick = _drtbs_arrays(S)(key)
+    return tdist.DRTBSDraws(
+        ds=tdist.DownsampleDraws(*map(t, ds)), over=tdist.DownsampleDraws(*map(t, over)),
+        u_m=t(u_m), u_split_v=t(sv), u_split_i=t(si), rb_vic=t(vic), rb_pick=t(pick))

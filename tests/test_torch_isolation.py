@@ -51,6 +51,8 @@ MODULES = [
     "repro_torch.obs", "repro_torch.obs.sinks", "repro_torch.obs.monitors",
     "repro_torch.obs.probe", "repro_torch.obs.telemetry",
     "repro_torch.launch.train",
+    "repro_torch.core.distributed", "repro_torch.launch.mesh", "repro_torch.data",
+    "repro_torch.data.pipeline",
 ]
 
 
@@ -88,12 +90,15 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.bank import make_bank
     from repro_torch.config import get_smoke_config
     from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.manage import make_model, materialize_stream
     from repro_torch.models import zoo
 
     api = zoo.build(get_smoke_config("stablelm_12b"))
     ssm = zoo.build(get_smoke_config("mamba2_370m"))
     for call in (lambda: make_sampler("rtbs", n=4, lam=0.1),
+                 lambda: make_sampler("drtbs", n=4, lam=0.1, cap_s=8),
+                 lambda: make_data_mesh(4),
                  lambda: make_bank("rtbs", num_keys=4, n=2, lam=0.1),
                  lambda: make_bank("ttbs", num_keys=4, n=2, lam=0.1, batch_size=1.0),
                  lambda: make_model("linreg"),

@@ -214,8 +214,6 @@ def test_naive_bayes_loop_and_extract():
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="A.7"):
-        make_sampler("dttbs", n=4, lam=0.1, batch_size=4, device=CPU)
     with pytest.raises(ValueError, match="unknown"):
         make_sampler("nope", device=CPU)
     sampler = make_sampler("rtbs", n=4, lam=0.1, device=CPU)

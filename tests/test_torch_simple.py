@@ -257,10 +257,10 @@ def _ids(T=6, bcap=16, b=8):
 
 
 def test_registry_and_refusals():
-    assert set(available_schemes()) == set(LOCAL)
-    for scheme in ("dttbs", "drtbs"):
-        with pytest.raises(ValueError, match="A.7"):
-            make_sampler(scheme, n=4, lam=0.1, device=CPU)
+    assert set(available_schemes()) == set(LOCAL) | {"drtbs", "dttbs"}
+    assert make_sampler("drtbs", n=4, lam=0.1, cap_s=8, device=CPU).distributed
+    assert make_sampler("dttbs", n=4, lam=0.1, batch_size=4.0, device=CPU).distributed
+    assert not any(make_sampler(s, **LOCAL[s], device=CPU).distributed for s in LOCAL)
     with pytest.raises(ValueError, match="q ="):
         make_sampler("ttbs", n=100, lam=0.5, batch_size=8, device=CPU)
     s = make_sampler("ttbs", **LOCAL["ttbs"], device=CPU)

@@ -446,11 +446,25 @@ def test_checkpoint_restart_bit_exact(tmp_path, extra):
 
 @pytest.mark.parametrize("argv", [["--scheme", "drtbs"], ["--scheme", "dttbs"],
                                   ["--shards", "4"]])
-def test_driver_distributed_schemes_raise_naming_a7(argv):
+def test_driver_distributed_schemes_raise_naming_a7(argv, capsys):
+    """Once refused (naming ROADMAP A.7), now run on the CPU at smoke
+    size: the distributed schemes through the sharded loop over the
+    default 8 shards, the tick batch padded to a multiple of them;
+    ``--shards 4`` alone runs the local default, as in JAX."""
     from repro_torch.launch.train import main
 
-    with pytest.raises(SystemExit, match="A.7"):
-        main(["--arch", "mamba2_370m", "--ticks", "1"] + argv, device=CPU)
+    log = main(["--arch", "mamba2_370m", "--ticks", "2", "--batch-per-tick", "12",
+                "--reservoir", "24", "--retrain-every", "2", "--retrain-steps", "1",
+                "--train-batch", "4", "--seq-len", "16"] + argv, device=CPU)
+    out = capsys.readouterr().out
+    assert [r["tick"] for r in log] == [0, 1]
+    assert all(np.isfinite(r["eval_loss"]) for r in log)
+    if "--scheme" in argv:
+        assert "batch-per-tick 12 -> 16 (multiple of 8 shards)" in out
+        assert f"sharded {argv[1]} loop: 8 shards" in out
+        assert log[-1]["sample_size"] > 0
+    else:
+        assert "sharded" not in out and log[-1]["sample_size"] <= 24
 
 
 def test_driver_bank_mode_and_profile(tmp_path):
