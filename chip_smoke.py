@@ -9,7 +9,8 @@ schemes + linreg retrain + prequential eval through ``make_sampler`` /
 without the adaptive decay controller, Monte-Carlo farms through
 ``make_run_farm``, the keyed R-TBS and T-TBS sampler banks through
 ``make_bank`` / ``make_bank_run_loop``, and batched
-LM serving of the dense transformer and of Mamba2 through
+LM serving of every family of the zoo (dense, Mamba2, MoE, vlm, hybrid,
+encoder-decoder) through
 ``repro_torch.launch.serve.serve_batch``) at full state and model size, after
 building every CUDA kernel from ``src/repro_torch/kernels/csrc`` and holding
 each against its plain PyTorch version on the card. Imports neither JAX nor
@@ -157,10 +158,25 @@ the JAX package. Every check raises on failure; no phase catches its own.
      at cap_s 4,096 equal to its single runs, and the driver's ``--scheme
      drtbs --shards 8`` at phase 14's depth cut resumed from its checkpoint
      equal to the unbroken run byte for byte;
- 17. the ``kernels`` JSON line, the card line, and the result line.
+ 17. the rest of the LM zoo through ``serve_batch``, each at full width in
+     bf16 with 32 tokens generated: granite_moe_3b (MoE, 8 x 2,048), qwen2_vl_2b
+     (256 patch embeddings + 1,792 tokens, 8 prompts), zamba2_2p7b (54
+     Mamba2 layers and 9 invocations of the shared block, 8 x 8,192),
+     whisper_large_v3 (8 x 1,500 frames, 224-token prompts) and
+     mixtral_8x22b at a depth cut of 4 of its 56 layers (2 x 8,192, twice
+     its window): B4 (and B5) launched the expected number of times in each
+     prefill, all on the tensor cores, never in decode; a second prefill
+     equal to the first bit for bit; a profiled prefill by scope. (b) B4 at
+     each new served shape (hd 64, 80, 128; non-causal over 1,500 frames;
+     window 4,096 at 8,192) and B5 at zamba2's (H 80, N 64, P 64) against
+     their plain versions, timed beside their bounds, the plain versions
+     and (B4) ``scaled_dot_product_attention``. (c) card == CPU per family
+     in f32 at a depth cut of full width (MoE routes included) and
+     teacher-forced decode == forward;
+ 18. the ``kernels`` JSON line, the card line, and the result line.
 
-``python3 chip_smoke.py --only 13,13d,14,15,16`` runs only the listed phases
-of 13-16 (no kernels line, no result line).
+``python3 chip_smoke.py --only 13,13d,14,15,16,17`` runs only the listed
+phases of 13-17 (no kernels line, no result line).
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -1073,7 +1089,7 @@ def _row_rel_err(torch, got, want) -> float:
 
 
 def _b4_equal(torch, B, S, H, KV, hd, dtype, causal, window, atol, g, T=None,
-              fused=False):
+              fused=False, tag="[7]"):
     """B4 against its plain version on the card, with T keys (default S);
     ``fused``: q, k and v as views of one [B, S, (H + 2 KV) hd] projection.
     Checks the route (bf16 on the tensor cores, f32 on the CUDA cores) and,
@@ -1115,7 +1131,7 @@ def _b4_equal(torch, B, S, H, KV, hd, dtype, causal, window, atol, g, T=None,
         check(rerr <= B4_BF16_ROW_REL, f"B4 {what}: a row is {rerr} of its norm off the "
                                        f"f32 reference, > {B4_BF16_ROW_REL}")
         rel = f"; rows vs f32 reference {rerr:.3g} of their norm <= {B4_BF16_ROW_REL}"
-    print(f"[7] (b) B4 {what} ({'tensor' if tc else 'CUDA'} cores): max |diff| "
+    print(f"{tag} (b) B4 {what} ({'tensor' if tc else 'CUDA'} cores): max |diff| "
           f"{err:.3g} <= {atol}{rel}")
     return err
 
@@ -3382,6 +3398,377 @@ def phase_sharded(torch, np, kernels, timer, bw, rtbs_ticks_per_s):
             "profile": prof_res}
 
 
+# ---------------------------------------------------------------------------
+# the rest of the LM zoo (ROADMAP A.11b-c): MoE, vlm, hybrid and
+# encoder-decoder served at full width in bf16 through B4 and B5
+# (arch, depth cut or None, prompts, prompt tokens, expected B4 and B5
+# launches a prefill); qwen2-vl's prompts are VLM_PATCHES patch embeddings
+# and 1,792 tokens (2,048 positions), whisper's 1,500 stubbed frames and a
+# 224-token prompt; mixtral is cut to 4 of its 56 layers at full width
+# (20.8 GB of bf16 weights), its 8,192-token prompts twice its window, so
+# decode runs the ring buffer
+ZOO_GEN = 32
+ZOO_CELLS = (("granite_moe_3b", None, 8, 2048, 32, 0),
+             ("qwen2_vl_2b", None, 8, 2048, 28, 0),
+             ("zamba2_2p7b", None, 8, 8192, 9, 54),
+             ("whisper_large_v3", None, 8, 224, 64, 0),
+             ("mixtral_8x22b", 4, 2, 8192, 4, 0))
+_ZOO_SCOPES = ("lm.embed", "lm.norm", "lm.qkv", "lm.rope", "lm.attn", "lm.cross_attn",
+               "lm.attn_out", "lm.mlp", "lm.moe_route", "lm.moe_experts", "lm.moe_combine",
+               "lm.ssm_in", "lm.conv", "lm.ssd", "lm.ssm_out", "lm.logits")
+# B4's plain version and f32 reference are held on whole rows in slices of
+# at most this many score elements (the served S = 8,192 shapes' full
+# scores would take 26-39 GB)
+_B4_SLICE_SCORES = 1 << 30
+
+
+def _zoo_batch(torch, zoo, cfg, gen, prompts, seq):
+    """The cell's batch: ``make_demo_batch``'s, but qwen2-vl's prompts are
+    ``zoo.VLM_PATCHES`` patch embeddings and ``seq - VLM_PATCHES`` tokens,
+    as the JAX package's ``input_specs`` lays out a vlm prefill."""
+    if cfg.family != "vlm":
+        return zoo.make_demo_batch(cfg, gen, prompts, seq)
+    n = zoo.VLM_PATCHES
+    b = zoo.make_demo_batch(cfg, gen, prompts, seq - n)
+    fe = torch.randn((prompts, n, cfg.d_model), generator=gen, device=gen.device) * 0.02
+    return {"tokens": b["tokens"], "frontend_embeds": fe.to(getattr(torch, cfg.dtype))}
+
+
+def _zoo_cfg(arch, layers, **kw):
+    import dataclasses
+
+    from repro_torch.config import get_config
+
+    over = dict(attention_impl="pallas", param_dtype="bfloat16", **kw)
+    if layers is not None:
+        over["num_layers"] = layers
+    return dataclasses.replace(get_config(arch), **over)
+
+
+def _tensors_equal(torch, a, b) -> bool:
+    """Two trees of caches (lists, tuples, dicts, KVCache / SSMCache
+    dataclasses, tensors, host ints) equal bit for bit."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and _tensors_equal(torch, vars(a), vars(b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tensors_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tensors_equal(torch, x, y) for x, y in zip(a, b))
+    return torch.equal(a, b) if torch.is_tensor(a) else a == b
+
+
+def _zoo_serve(torch, np, kernels, bw, arch, layers, prompts, seq, n_b4, n_b5) -> dict:
+    """(a) one cell: bf16 weights made on the card, a short warm-up, the
+    measured ``serve_batch``, a profiled prefill and a second one equal to
+    it bit for bit, with B4 (and B5) launched the expected number of times
+    in each prefill, all on their tensor-core routes, and never in decode."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ss_ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import zoo
+
+    torch.cuda.empty_cache()
+    cfg = _zoo_cfg(arch, layers)
+    api = zoo.build(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(0)
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params))
+    cut = f" (cut to {layers} of {_zoo_cfg(arch, None).num_layers} layers)" if layers else ""
+    print(f"[17] (a) {arch}: {cfg.family}, {cfg.num_layers} layers{cut}, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}; weights {w_bytes / 1e9:.3f} GB bf16, made on the card "
+          f"in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    serve_batch(api, params, _zoo_batch(torch, zoo, cfg, gen, prompts, min(seq, 512)), 2)
+    batch = _zoo_batch(torch, zoo, cfg, gen, prompts, seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    tc4, tc5 = fa_ops.flash_attention.tensor_core_launches, ss_ops.ssd_scan.tensor_core_launches
+    res = serve_batch(api, params, batch, ZOO_GEN)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = kernels.launches()
+    pre, dec = res.prefill_launches, res.decode_launches
+    tc4 = fa_ops.flash_attention.tensor_core_launches - tc4
+    tc5 = ss_ops.ssd_scan.tensor_core_launches - tc5
+    step_ms = 1e3 * res.decode_s / ZOO_GEN
+    print(f"[17] (a) {arch}: {prompts} x {seq} prompts, {ZOO_GEN} generated: prefill "
+          f"{res.prefill_s:.3f} s = {prompts * seq / res.prefill_s:.0f} prompt tokens/s; "
+          f"decode {step_ms:.2f} ms a step = {prompts * ZOO_GEN / res.decode_s:.1f} tokens/s "
+          f"(byte bound {w_bytes / bw * 1e3:.2f} ms: the weights once); peak memory "
+          f"{peak_gb:.2f} GB; launches: prefill B4 {pre['flash_attention']} (tensor cores "
+          f"{tc4}), B5 {pre['ssd_scan']} (tensor cores {tc5}); decode {dec}")
+    check(pre["flash_attention"] == n_b4, f"{arch}: B4 launched {pre['flash_attention']} "
+                                          f"times in the prefill, not {n_b4}")
+    check(pre["ssd_scan"] == n_b5, f"{arch}: B5 launched {pre['ssd_scan']} times in the "
+                                   f"prefill, not {n_b5}")
+    check(tc4 == n_b4 and tc5 == n_b5, f"{arch}: prefill launches missed the tensor cores")
+    check(launches == dict.fromkeys(launches, 0) | {"flash_attention": n_b4, "ssd_scan": n_b5},
+          f"{arch}: launches of the run {launches}")
+    toks = res.tokens
+    check(toks.shape == (prompts, ZOO_GEN + 1) and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
+          f"{arch}: tokens {toks.shape} outside [0, {cfg.vocab_size})")
+    print(f"[17] (a) {arch}: first sequence {toks[0].tolist()}")
+
+    # a profiled prefill, then a second one: equal bit for bit (the MoE
+    # combine's ordered sum, the sort-based dispatch, B4 and B5 are
+    # deterministic), each launching the kernels once more
+    max_len = seq + ZOO_GEN + 1
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    named = (("B4 kernel", "flash_attention_tc_kernel"), ("B5 kernel", "ssd_scan_tc_kernel"))
+    with torch.no_grad():
+        n0 = kernels.launches()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            l1, c1 = api.prefill(params, batch, max_len)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        prof_res = _breakdown(torch, prof, wall, "[17]", _ZOO_SCOPES, named,
+                              what=f"{arch} prefill")
+        l2, c2 = api.prefill(params, batch, max_len)
+        torch.cuda.synchronize()
+        n2 = kernels.launches()
+    check(torch.isfinite(l1.float()).all().item(), f"{arch}: non-finite prefill logits")
+    check(n2["flash_attention"] - n0["flash_attention"] == 2 * n_b4
+          and n2["ssd_scan"] - n0["ssd_scan"] == 2 * n_b5, f"{arch}: launches of 2 prefills")
+    check(torch.equal(l1, l2) and _tensors_equal(torch, c1, c2),
+          f"{arch}: a second prefill differs from the first")
+    print(f"[17] (a) {arch}: a second prefill equals the first bit for bit (logits and "
+          f"every cache tensor)")
+    del l1, l2, c1, c2, params, batch
+    torch.cuda.empty_cache()
+    return dict(arch=arch, layers=cfg.num_layers, prompts=prompts, seq=seq,
+                weights_gb=w_bytes / 1e9, prefill_s=res.prefill_s, decode_ms=step_ms,
+                peak_gb=peak_gb, b4=n_b4, b5=n_b5,
+                prefill_device_ms=prof_res["device_ms"], b4_ms=prof_res["B4 kernel"],
+                b5_ms=prof_res["B5 kernel"])
+
+
+def _b4_served(torch, timer, bw, what, B, S, H, KV, hd, causal, window, g) -> dict:
+    """(b) B4 at a served shape (bf16, the tensor cores): the kernel on the
+    whole batch; its first and last prompt held, in slices of whole rows,
+    against the plain version (2e-2) and each row against the f32
+    reference (B4_BF16_ROW_REL); its time beside its bound, the plain
+    version's and ``scaled_dot_product_attention``'s (its flash kernel; the
+    window as a boolean mask over kv heads expanded to H, which its
+    memory-efficient kernel takes)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+    bf = torch.bfloat16
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(bf)
+    k = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(bf)
+    v = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(bf)
+    n0, t0 = fa_ops.flash_attention.launches, fa_ops.flash_attention.tensor_core_launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(fa_ops.flash_attention.launches == n0 + 1
+          and fa_ops.flash_attention.tensor_core_launches == t0 + 1,
+          f"B4 {what}: not launched on the tensor cores")
+    G = H // KV
+    kc = max(1, min(KV, _B4_SLICE_SCORES // (G * S * S)))
+    err = rel = 0.0
+    for b in sorted({0, B - 1}):
+        for k0 in range(0, KV, kc):
+            sl = (slice(b, b + 1), slice(None), slice(k0 * G, (k0 + kc) * G))
+            ks = (slice(b, b + 1), slice(None), slice(k0, k0 + kc))
+            want = fa_ref.attention_ref(q[sl], k[ks], v[ks], causal=causal, window=window)
+            err = max(err, max_abs_err(torch, out[sl], want))
+            del want
+            want32 = fa_ref.attention_ref(q[sl].float(), k[ks].float(), v[ks].float(),
+                                          causal=causal, window=window)
+            rel = max(rel, _row_rel_err(torch, out[sl], want32))
+            del want32
+    check(err <= 2e-2, f"B4 {what}: |diff| {err} to its plain version > 2e-2")
+    check(rel <= B4_BF16_ROW_REL, f"B4 {what}: a row is {rel} of its norm off the f32 "
+                                  f"reference, > {B4_BF16_ROW_REL}")
+    del out
+    ms = timer(lambda: fa_ops.flash_attention(q, k, v, causal=causal, window=window), 10)
+    pb = B if B * H * S * S <= _B4_SLICE_SCORES else 1     # the plain version's prompts
+    plain_ms = timer(lambda: fa_ref.attention_ref(q[:pb], k[:pb], v[:pb], causal=causal,
+                                                  window=window), 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.permute(0, 2, 1, 3)
+    if window:
+        kt, vt = (x.repeat_interleave(G, dim=2).permute(0, 2, 1, 3) for x in (k, v))
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        lib = lambda: sdpa(qt, kt, vt, attn_mask=mask)  # noqa: E731
+    else:
+        kt, vt = (x.permute(0, 2, 1, 3) for x in (k, v))
+        lib = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
+    lib_ms = timer(lib, 10)
+    bound, by, flops, nbytes = _b4_bound_ms(q, k, causal, window, bw)
+    print(f"[17] (b) B4 {what} [B, S, H, KV, hd] = [{B}, {S}, {H}, {KV}, {hd}] bf16 "
+          f"causal={causal} window={window}: prompts 0 and {B - 1} vs the plain version max "
+          f"|diff| {err:.3g} <= 2e-2, rows vs the f32 reference {rel:.3g} of their norm <= "
+          f"{B4_BF16_ROW_REL}; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{ms / bound:.2f}x its bound, {ms / lib_ms:.2f}x scaled_dot_product_attention)  "
+          f"plain {plain_ms:.3f} ms on {pb} prompt(s)  scaled_dot_product_attention "
+          f"{lib_ms:.3f} ms  bound {bound:.4f} ms by {by}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(what=what, shape=[B, S, H, KV, hd], causal=causal, window=window, ms=ms,
+                plain_ms=plain_ms, plain_prompts=pb, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, max_abs_err=err)
+
+
+def _b5_served(torch, timer, bw, B, S, H, G, N, P, Q, g) -> dict:
+    """(b) B5 at zamba2's served shape (bf16, the tensor cores, the conv
+    output's views and the Mamba2 layer's statistics at init) against its
+    plain version, its last prompt's rows against the f32 recurrence, and
+    its time beside its bound and the plain version's."""
+    from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
+
+    x, dt, a, Bm, Cm = _b5_operands(torch, B, S, H, G, N, P, torch.bfloat16, g,
+                                    strided=True, model=True)
+    n0, t0 = ss_ops.ssd_scan.launches, ss_ops.ssd_scan.tensor_core_launches
+    y, st = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
+    want_y, want_st = ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q)
+    torch.cuda.synchronize()
+    check(ss_ops.ssd_scan.launches == n0 + 1 and ss_ops.ssd_scan.tensor_core_launches == t0 + 1,
+          "B5 at zamba2's shape: not launched on the tensor cores")
+    what = f"zamba2 [B, S, H, G, N, P, Q] = [{B}, {S}, {H}, {G}, {N}, {P}, {Q}] bf16 strided"
+    err = max(_b5_close(torch, y, want_y, B5_BF16_TOL, what),
+              _b5_close(torch, st, want_st, B5_BF16_TOL, what + " state"))
+    del want_y, want_st
+    last = slice(B - 1, B)
+    rel = _b5_rows(torch, y[last], x[last], dt[last], a, Bm[last], Cm[last], what)
+    del y, st
+    ms = timer(lambda: ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q), 10)
+    plain_ms = timer(lambda: ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q), 3)
+    bound, by, flops, nbytes = _b5_bound_ms(x, Bm, Q, bw)
+    print(f"[17] (b) B5 {what}: vs its plain version max |diff| {err:.3g} (atol = rtol = "
+          f"{B5_BF16_TOL}); last prompt's rows vs the f32 recurrence {rel:.3g} of their norm "
+          f"<= {B5_BF16_ROW_REL}; kernel {ms:.3f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
+          f"{ms / bound:.2f}x its bound)  plain {plain_ms:.3f} ms  bound {bound:.4f} ms by "
+          f"{by}; no single PyTorch call computes this function")
+    del x, dt, a, Bm, Cm
+    torch.cuda.empty_cache()
+    return dict(what="zamba2", shape=[B, S, H, G, N, P, Q], ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=err)
+
+
+def _zoo_parity(torch, np, kernels, arch, over, batch_np, n_b4, n_b5, split, note) -> None:
+    """(c) one family at a depth cut of full width in f32 (bf16 weights cast
+    to f32 at each use): the same params (through ``convert``) and batch on
+    the card and the CPU, prefill logits within LM_F32_ATOL and the greedy
+    tokens equal, B4 / B5 launched on the card only; then on the card the
+    prefill of the first ``split`` tokens plus teacher-forced decode of the
+    rest against the forward (within LM_F32_ATOL)."""
+    from repro_torch import convert
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import zoo
+
+    cfg = _zoo_cfg(arch, None, dtype="float32", **over)
+    api = zoo.build(cfg)
+    tree = convert.lm_params_to_numpy(api.init_params(2))
+    params = {dev: convert.lm_params_from_numpy(cfg, tree, device=dev) for dev in ("cuda", "cpu")}
+    del tree
+    out = {}
+    for dev, p in params.items():
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        kernels.reset_launches()
+        with torch.no_grad():
+            logits, _ = api.prefill(p, b, batch_np["tokens"].shape[1] + 9
+                                    + (b["frontend_embeds"].shape[1]
+                                       if cfg.family == "vlm" else 0))
+        served = serve_batch(api, p, b, 8)
+        n = kernels.launches()
+        out[dev] = (logits.float().cpu(), served.tokens, n["flash_attention"], n["ssd_scan"])
+    (lg, tg, g4, g5), (lc, tcpu, c4, c5) = out["cuda"], out["cpu"]
+    check((g4, g5, c4, c5) == (2 * n_b4, 2 * n_b5, 0, 0),
+          f"{arch} parity: launches card B4 {g4} B5 {g5}, CPU {c4} {c5}")
+    dl = float((lg - lc).abs().max())
+    check(dl <= LM_F32_ATOL, f"{arch}: prefill logits card vs CPU |diff| {dl} > {LM_F32_ATOL}")
+    check(np.array_equal(tg, tcpu), f"{arch}: greedy tokens card {tg.tolist()} != CPU "
+                                    f"{tcpu.tolist()}")
+    print(f"[17] (c) {arch} {note}, f32: prefill logits card vs CPU max |diff| {dl:.3g} <= "
+          f"{LM_F32_ATOL}; the 9 greedy tokens of every sequence equal: {tg[0].tolist()}")
+    if cfg.num_experts:
+        # the route of the first MoE layer on one input, card vs CPU
+        from repro_torch.models import layers as L
+        from repro_torch.models import moe as M
+
+        x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (1, 512, cfg.d_model), dtype=np.float32))
+        routes = []
+        for dev, p in params.items():
+            blk = p["blocks"][0]
+            with torch.no_grad():
+                routes.append(M.route(cfg, blk["moe"], L.apply_norm(cfg, blk["ln2"], x.to(dev))))
+        rg, rc = routes
+        for f in ("eidx", "order", "dest", "keep"):
+            check(torch.equal(getattr(rg, f).cpu(), getattr(rc, f)),
+                  f"{arch}: route {f} card != CPU")
+        dg = float((rg.gates.cpu() - rc.gates).abs().max())
+        print(f"[17] (c) {arch}: layer 0's route of 512 tokens card == CPU (eidx, order, "
+              f"dest, keep bit for bit; {int(rc.keep.sum())} of {rc.keep.numel()} "
+              f"assignments kept; gates max |diff| {dg:.3g})")
+    del params["cpu"]
+    p = params["cuda"]
+    b = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    toks = b["tokens"]
+    with torch.no_grad():
+        full = api.forward(p, b).float()
+        lp, caches = api.prefill(p, dict(b, tokens=toks[:, :split]), toks.shape[1] + 1
+                                 + (b["frontend_embeds"].shape[1] if cfg.family == "vlm" else 0))
+        steps = [lp[:, 0].float()]
+        for t in range(split, toks.shape[1]):
+            lt, caches = api.decode_step(p, caches, toks[:, t:t + 1])
+            steps.append(lt[:, 0].float())
+    dec = torch.stack(steps, dim=1)
+    dd = float((full[:, full.shape[1] - dec.shape[1]:] - dec).abs().max())
+    check(dd <= LM_F32_ATOL, f"{arch}: teacher-forced decode vs forward |diff| {dd} > "
+                             f"{LM_F32_ATOL}")
+    print(f"[17] (c) {arch}: prefill of {split} tokens + {toks.shape[1] - split} "
+          f"teacher-forced decode steps vs the forward: max |diff| {dd:.3g} <= {LM_F32_ATOL}")
+    del p, params, caches
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(torch, np, kernels, timer, bw) -> dict:
+    """Phase 17: the MoE, vlm, hybrid and encoder-decoder families served at
+    full width in bf16 (a), B4 and B5 at their new served shapes (b), and
+    card == CPU per family in f32 (c)."""
+    cells = [_zoo_serve(torch, np, kernels, bw, *c) for c in ZOO_CELLS]
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    b4 = [_b4_served(torch, timer, bw, "granite_moe_3b", 8, 2048, 24, 8, 64, True, 0, g),
+          _b4_served(torch, timer, bw, "qwen2_vl_2b", 8, 2048, 12, 2, 128, True, 0, g),
+          _b4_served(torch, timer, bw, "zamba2_2p7b", 8, 8192, 32, 32, 80, True, 0, g),
+          _b4_served(torch, timer, bw, "whisper encoder", 8, 1500, 20, 20, 64, False, 0, g),
+          _b4_served(torch, timer, bw, "whisper decoder", 8, 224, 20, 20, 64, True, 0, g),
+          _b4_served(torch, timer, bw, "mixtral_8x22b", 2, 8192, 48, 8, 128, True, 4096, g)]
+    # the f32 route (the CUDA-core kernel) at the head dims (c) runs in f32
+    f32 = [_b4_equal(torch, 1, 512, 8, 8, 80, torch.float32, True, 0, 2e-5, g, tag="[17]"),
+           _b4_equal(torch, 2, 1500, 4, 4, 64, torch.float32, False, 0, 2e-5, g, tag="[17]")]
+    b5 = _b5_served(torch, timer, bw, 8, 8192, 80, 1, 64, 64, 256, g)
+
+    rng = np.random.default_rng(3)
+    toks = lambda n, vocab: rng.integers(0, vocab, (2, n))  # noqa: E731
+    frames = lambda n, d: (rng.standard_normal((2, n, d)) * 0.02).astype(np.float32)  # noqa: E731
+    # MoE at a capacity (E / K) that drops nothing, so the forward over
+    # 2 x 256 tokens and one-token decode steps route alike
+    _zoo_parity(torch, np, kernels, "granite_moe_3b", dict(num_layers=2, moe_capacity_factor=5.0),
+                {"tokens": toks(256, 49155)}, 2, 0, 192, "at 2 layers of full width")
+    _zoo_parity(torch, np, kernels, "qwen2_vl_2b", dict(num_layers=2),
+                {"tokens": toks(248, 151936), "frontend_embeds": frames(8, 1536)}, 2, 0, 192,
+                "at 2 layers, 8 patches + 248 tokens")
+    _zoo_parity(torch, np, kernels, "zamba2_2p7b", dict(num_layers=6),
+                {"tokens": toks(512, 32000)}, 1, 6, 256,
+                "at one group (6 Mamba2 layers + the shared block), 2 x 512 tokens")
+    _zoo_parity(torch, np, kernels, "whisper_large_v3", dict(num_layers=2, encoder_layers=2),
+                {"tokens": toks(64, 51866), "frontend_embeds": frames(1500, 1280)}, 4, 0, 32,
+                "at 2 encoder + 2 decoder layers over 1,500 frames")
+    return dict(cells=cells, b4=b4, b4_f32_err=max(f32), b5=b5)
+
+
 def main() -> int:
     import torch
 
@@ -3425,7 +3812,8 @@ def main() -> int:
                        ("14", lambda: phase_bank_train(torch, np, kernels)),
                        ("15", lambda: phase_telemetry(torch, np, kernels)),
                        ("16", lambda: phase_sharded(torch, np, kernels, timer, bw,
-                                                    float("nan")))):
+                                                    float("nan"))),
+                       ("17", lambda: phase_zoo(torch, np, kernels, timer, bw))):
             if ph in only:
                 fn()
         print(f"chip_smoke: phases {only} only; no kernels line, no result line")
@@ -3454,8 +3842,11 @@ def main() -> int:
     phase_telemetry(torch, np, kernels)
     t_sh = time.perf_counter()
     shard_res = phase_sharded(torch, np, kernels, timer, bw, main_res["ticks_per_s"])
-    print(f"[17] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 "
-          f"{time.perf_counter() - t_sh:.1f} s, of {time.perf_counter() - t_all:.1f} s")
+    t_zoo = time.perf_counter()
+    zoo_res = phase_zoo(torch, np, kernels, timer, bw)
+    print(f"[18] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 {t_zoo - t_sh:.1f} s, "
+          f"phase 17 {time.perf_counter() - t_zoo:.1f} s, of "
+          f"{time.perf_counter() - t_all:.1f} s")
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -3532,6 +3923,16 @@ def main() -> int:
                         ("binomial", shard_res["dttbs_launches"]["binomial"], "dttbs")):
         rows[list(kres).index(k)]["sharded"] = {"launches": n_, "ticks": SH_T,
                                                 "shards": SH_S, "scheme": path}
+    # the rest of the LM zoo (phase 17): each cell's B4 / B5 launches a
+    # prefill, and the kernels at its served shapes
+    zoo_launches = {c["arch"]: {"flash_attention": c["b4"], "ssd_scan": c["b5"]}
+                    for c in zoo_res["cells"]}
+    rows[list(kres).index("flash_attention")]["lm_zoo"] = {
+        "prefill_launches": {a: n["flash_attention"] for a, n in zoo_launches.items()},
+        "shapes": zoo_res["b4"], "f32_max_abs_err": zoo_res["b4_f32_err"]}
+    rows[list(kres).index("ssd_scan")]["lm_zoo"] = {
+        "prefill_launches": {a: n["ssd_scan"] for a, n in zoo_launches.items() if n["ssd_scan"]},
+        "shapes": [zoo_res["b5"]]}
     print(json.dumps({"kernels": rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

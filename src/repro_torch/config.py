@@ -3,10 +3,10 @@ the JAX package's ``repro/config.py`` with the same fields, defaults and
 derived properties, so a config compares 1:1 with its JAX twin.
 
 Every assigned architecture is a ``ModelConfig``; ``get_config(name)``
-resolves it from ``repro_torch/configs/<id>.py``. The port builds the dense
-and ssm families so far: the four dense configs and mamba2_370m are here,
-and the other families' names raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+resolves it from ``repro_torch/configs/<id>.py``. All ten architectures
+are here and build: dense, moe and vlm through ``models/transformer.py``,
+ssm through ``mamba_lm.py``, hybrid through ``hybrid.py`` and audio through
+``encdec.py``.
 Shapes (the assignment's per-arch input shapes) are ``ShapeConfig``s. The
 dry-run grid ``cells()`` waits for the dry-run slice (ROADMAP A.12).
 
@@ -207,28 +207,8 @@ ALIASES = {
 }
 
 
-# the families the port does not build yet -> the ROADMAP item that ports them
-FAMILY_SLICE = {
-    "moe": "ROADMAP A.11b (moe and vlm serving)",
-    "vlm": "ROADMAP A.11b (moe and vlm serving)",
-    "hybrid": "ROADMAP A.11c (hybrid and encdec)",
-    "audio": "ROADMAP A.11c (hybrid and encdec)",
-}
-# the architectures of those families (their configs are not copied yet)
-NOT_PORTED = {"granite_moe_3b": "moe", "mixtral_8x22b": "moe",
-              "qwen2_vl_2b": "vlm", "zamba2_2p7b": "hybrid", "whisper_large_v3": "audio"}
-
-
-def not_ported(name: str, family: str) -> NotImplementedError:
-    return NotImplementedError(f"{name}: the {family} family is not ported to "
-                               f"repro_torch yet ({FAMILY_SLICE[family]})")
-
-
 def _module(name: str):
-    mod_name = ALIASES.get(name, name)
-    if mod_name in NOT_PORTED:
-        raise not_ported(mod_name, NOT_PORTED[mod_name])
-    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return importlib.import_module(f"repro_torch.configs.{ALIASES.get(name, name)}")
 
 
 def get_config(name: str) -> ModelConfig:

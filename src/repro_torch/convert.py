@@ -13,11 +13,17 @@ pytree (leaves [K, cap, ...]) and the [K] columns ``nfull``, ``weight``,
 ``total_weight``, ``pending`` and ``overflow`` (constant-rate schedules
 only: their ``dstate`` is None). Adapter params: linreg ``[dim+1]``,
 naive_bayes ``(log_prior, log_like)``, knn ``{x, y, valid}``. LM params:
-the JAX pytree with ``blocks`` stacked on a leading layer axis, to and from
-the port's dictionaries with a list of per-layer ``blocks`` (dense and
-Mamba2 trees alike). Mamba2 decode state: JAX's stacked ``SSMCache``
-(``conv`` [L, B, W-1, conv_dim], ``state`` [L, B, H, N, P]) to and from the
-port's list of per-layer :class:`~repro_torch.models.ssm.SSMCache`.
+the JAX pytree with its per-layer stacks (``blocks``; hybrid's ``mamba``;
+encdec's ``enc`` and ``dec``) on a leading layer axis, to and from the
+port's dictionaries with a list of per-layer trees for each (every family
+alike; hybrid's ``shared`` block is one tree in both). Decode state: JAX's
+stacked ``SSMCache`` (``conv`` [L, B, W-1, conv_dim], ``state`` [L, B, H,
+N, P]) and ``KVCache`` (``k``, ``v`` [L, B, T, KV, hd], ``length`` [L]) to
+and from the port's per-layer lists of
+:class:`~repro_torch.models.ssm.SSMCache` and
+:class:`~repro_torch.models.attention.KVCache`; hybrid's (SSM leaves [G,
+attn_every, ...], KV leaves [G, ...]) and encdec's (``kv`` and the cross
+K/V pair [L, ...]) from those.
 AdamW state: ``{"count", "m", "v"}`` with the moments in the LM params'
 layout. The SGD adapter's state ``{"opt", "params"}`` and the LM driver's
 whole checkpoint tree ``(sgd state, sampler state[, controller state],
@@ -38,6 +44,7 @@ from repro_torch.core import latent as lt
 from repro_torch.core.distributed import DRTBSShard
 from repro_torch.core.rtbs import RTBSState
 from repro_torch.core.simple import BufferState
+from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SSMCache
 
 
@@ -159,29 +166,35 @@ def _to_np(t: torch.Tensor) -> np.ndarray:
     return a.copy() if on_cpu else a    # a card tensor's .cpu() is already a copy
 
 
+# the LM trees' per-layer stacks: JAX stacks their leaves on a leading layer
+# axis, the port keeps a list of per-layer dicts (transformer and Mamba2
+# ``blocks``, hybrid's ``mamba``, encdec's ``enc`` and ``dec``); every other
+# entry (hybrid's ``shared`` block too) is one tree in both
+_STACKS = ("blocks", "mamba", "enc", "dec")
+
+
 def lm_params_from_numpy(cfg, tree: dict, *, device=None) -> dict:
-    """The JAX LM parameter pytree as numpy (nested dicts; ``blocks`` leaves
-    stacked on a leading [num_layers] axis) -> the port's params (``blocks``
-    a list of per-layer dicts) with the same numbers, in
+    """The JAX LM parameter pytree as numpy (nested dicts; the leaves of
+    each stack in ``_STACKS`` on a leading layer axis) -> the port's params
+    (each stack a list of per-layer dicts) with the same numbers, in
     ``cfg.param_dtype``, on ``device``."""
     dev = _device.resolve(device)
     pd = getattr(torch, cfg.param_dtype)
-    top = {k: v for k, v in tree.items() if k != "blocks"}
-    out = pytree.tree_map(lambda a: _np_to_torch(a, dev, pd), top)
-    out["blocks"] = [pytree.tree_map(lambda a: _np_to_torch(np.asarray(a)[i], dev, pd),
-                                     tree["blocks"]) for i in range(cfg.num_layers)]
+    conv = lambda a: _np_to_torch(a, dev, pd)  # noqa: E731
+    out = pytree.tree_map(conv, {k: v for k, v in tree.items() if k not in _STACKS})
+    for key in _STACKS:
+        if key in tree:
+            n = np.asarray(pytree.tree_leaves(tree[key])[0]).shape[0]
+            out[key] = [pytree.tree_map(lambda a: conv(np.asarray(a)[i]), tree[key])
+                        for i in range(n)]
     return out
 
 
 def lm_params_to_numpy(params: dict) -> dict:
-    """The port's LM params -> the JAX layout as numpy, ``blocks`` leaves
-    stacked on a leading layer axis. numpy has no bfloat16, so bfloat16
-    leaves come back as float32, which :func:`lm_params_from_numpy` casts
-    back exactly."""
-    out = pytree.tree_map(_to_np, {k: v for k, v in params.items() if k != "blocks"})
-    layers = [pytree.tree_map(_to_np, b) for b in params["blocks"]]
-    out["blocks"] = pytree.tree_map(lambda *xs: np.stack(xs), *layers)
-    return out
+    """The port's LM params -> the JAX layout as numpy, each stack's leaves
+    on a leading layer axis. numpy has no bfloat16, so bfloat16 leaves come
+    back as float32, which :func:`lm_params_from_numpy` casts back exactly."""
+    return _lm_layout(params, _to_np, np.stack)
 
 
 def ssm_caches_from_numpy(cfg, conv, state, *, device=None) -> list[SSMCache]:
@@ -206,11 +219,72 @@ def ssm_caches_to_numpy(caches: list[SSMCache]) -> dict:
 
 
 def _lm_layout(params: dict, leaf, stack) -> dict:
-    """The JAX layout of the port's LM params: ``leaf`` maps each top-level
-    tensor, ``stack`` each per-layer list of one block parameter."""
-    out = pytree.tree_map(leaf, {k: v for k, v in params.items() if k != "blocks"})
-    out["blocks"] = pytree.tree_map(lambda *xs: stack(xs), *params["blocks"])
+    """The JAX layout of the port's LM params: ``leaf`` maps each tensor,
+    ``stack`` each per-layer list of one stacked parameter."""
+    out = pytree.tree_map(leaf, {k: v for k, v in params.items() if k not in _STACKS})
+    for key in _STACKS:
+        if key in params:
+            out[key] = pytree.tree_map(lambda *xs: stack([leaf(x) for x in xs]),
+                                       *params[key])
     return out
+
+
+def kv_caches_from_numpy(cfg, k, v, length, *, device=None) -> list[KVCache]:
+    """JAX's stacked ``KVCache`` fields as numpy (``k``, ``v`` [L, B, T, KV,
+    hd], ``length`` [L]) -> the port's per-layer list, ``k`` and ``v`` in
+    ``cfg.dtype``, lengths as host ints."""
+    dev = _device.resolve(device)
+    dt = getattr(torch, cfg.dtype)
+    k, v, length = np.asarray(k), np.asarray(v), np.asarray(length)
+    return [KVCache(k=_np_to_torch(k[i], dev, dt), v=_np_to_torch(v[i], dev, dt),
+                    length=int(length[i])) for i in range(k.shape[0])]
+
+
+def kv_caches_to_numpy(caches: list[KVCache]) -> dict:
+    """The port's per-layer KV caches -> ``{"k", "v", "length"}`` stacked on
+    a leading layer axis (``length`` int32), as JAX keeps them."""
+    return {"k": np.stack([_to_np(c.k) for c in caches]),
+            "v": np.stack([_to_np(c.v) for c in caches]),
+            "length": np.asarray([c.length for c in caches], np.int32)}
+
+
+def hybrid_caches_from_numpy(cfg, ssm: dict, kv: dict, *, device=None) -> dict:
+    """JAX's hybrid decode state as numpy -- ``ssm`` ``{"conv", "state"}``
+    with leaves [G, attn_every, B, ...], ``kv`` ``{"k", "v", "length"}``
+    with leaves [G, ...] -- -> the port's ``{"ssm": [G][attn_every]
+    SSMCache, "kv": [G] KVCache}``."""
+    conv, state = np.asarray(ssm["conv"]), np.asarray(ssm["state"])
+    return {"ssm": [ssm_caches_from_numpy(cfg, conv[g], state[g], device=device)
+                    for g in range(conv.shape[0])],
+            "kv": kv_caches_from_numpy(cfg, kv["k"], kv["v"], kv["length"], device=device)}
+
+
+def hybrid_caches_to_numpy(caches: dict) -> dict:
+    """The port's hybrid decode state -> ``{"ssm": {"conv", "state"} [G,
+    attn_every, ...], "kv": {"k", "v", "length"} [G, ...]}``, JAX's layout."""
+    groups = [ssm_caches_to_numpy(g) for g in caches["ssm"]]
+    return {"ssm": {f: np.stack([g[f] for g in groups]) for f in ("conv", "state")},
+            "kv": kv_caches_to_numpy(caches["kv"])}
+
+
+def encdec_caches_from_numpy(cfg, kv: dict, cross, *, device=None) -> dict:
+    """JAX's encdec decode state as numpy -- ``kv`` ``{"k", "v", "length"}``
+    [L, ...] and ``cross`` a pair (k, v) [L, B, T_enc, KV, hd] -- -> the
+    port's ``{"kv": [L] KVCache, "cross": [L] (k, v)}`` in ``cfg.dtype``."""
+    dev = _device.resolve(device)
+    dt = getattr(torch, cfg.dtype)
+    ck, cv = (np.asarray(a) for a in cross)
+    return {"kv": kv_caches_from_numpy(cfg, kv["k"], kv["v"], kv["length"], device=dev),
+            "cross": [(_np_to_torch(ck[i], dev, dt), _np_to_torch(cv[i], dev, dt))
+                      for i in range(ck.shape[0])]}
+
+
+def encdec_caches_to_numpy(caches: dict) -> dict:
+    """The port's encdec decode state -> ``{"kv": {"k", "v", "length"},
+    "cross": (k, v)}`` stacked on a leading layer axis, JAX's layout."""
+    return {"kv": kv_caches_to_numpy(caches["kv"]),
+            "cross": tuple(np.stack([_to_np(c[i]) for c in caches["cross"]])
+                           for i in (0, 1))}
 
 
 def adamw_state_to_numpy(opt: dict) -> dict:

@@ -3,9 +3,13 @@
 The port of the JAX package's ``launch/serve.py``: the same flags and the
 same printed lines. It runs on the CUDA card unless ``device="cpu"`` is
 passed to :func:`main`. :func:`serve_batch` is the prefill + decode body,
-which ``main`` and ``chip_smoke.py`` both call. It serves the dense archs
-(KV caches, kernel B4 under ``attention_impl="pallas"``) and the default
-``mamba2_370m`` (per-layer SSM state; kernel B5 in every prefill).
+which ``main`` and ``chip_smoke.py`` both call. It serves every arch of
+``repro_torch.config.ARCH_IDS``: the dense and MoE transformers (KV caches,
+kernel B4 under ``attention_impl="pallas"``), qwen2-vl (stubbed patch
+embeddings prepended to the prompt), the default ``mamba2_370m`` (per-layer
+SSM state; kernel B5 in every prefill), zamba2 (B5 a Mamba2 layer, B4 an
+invocation of the shared block) and whisper (stubbed audio frames; the
+encoder runs inside the prefill).
 
 With ``--telemetry-dir`` / ``--telemetry-stdout`` (or a
 :class:`repro_torch.obs.Telemetry` handle passed as ``telemetry=``) the
@@ -19,6 +23,8 @@ Examples (on the card):
       --prompts 4 --prompt-len 4096 --gen 32          # mamba2_370m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_12b \\
       --preset smoke --prompts 4 --prompt-len 16 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_3b \\
+      --preset full --prompts 8 --prompt-len 2048 --gen 32
 """
 from __future__ import annotations
 
@@ -58,14 +64,18 @@ def _delta(after: dict, before: dict) -> dict:
 
 @torch.no_grad()
 def serve_batch(api, params, batch: dict, gen: int) -> Served:
-    """Prefill ``batch`` (``{"tokens": [prompts, prompt_len]}``) into caches of
-    ``prompt_len + gen + 1`` slots (a KV cache's length; SSM state ignores
-    it), take the greedy token, then decode ``gen`` more greedily. Waits for
-    the device at the end of each phase, so the times are wall times of
-    finished work."""
+    """Prefill ``batch`` (``{"tokens": [prompts, n]}``, plus
+    ``frontend_embeds`` for vlm and audio) into caches of ``prompt_len + gen
+    + 1`` slots (a KV cache's length; SSM state ignores it), where
+    ``prompt_len`` is n plus a vlm batch's patches, take the greedy token,
+    then decode ``gen`` more greedily. Waits for the device at the end of
+    each phase, so the times are wall times of finished work."""
     tokens = batch["tokens"]
     dev = tokens.device
-    max_len = tokens.shape[1] + gen + 1
+    prompt_len = tokens.shape[1]
+    if api.cfg.family == "vlm" and batch.get("frontend_embeds") is not None:
+        prompt_len += batch["frontend_embeds"].shape[1]
+    max_len = prompt_len + gen + 1
     n0 = launches()
     t0 = time.perf_counter()
     with scope("serve.prefill"):

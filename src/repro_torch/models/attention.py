@@ -7,8 +7,9 @@ selected by ``cfg.attention_impl``: ``xla`` (plain torch: :func:`sdpa`, and
 which here is kernel B4 (``repro_torch.kernels.flash_attention``, the
 hand-written CUDA flash attention; its plain version on CPU tensors). B4
 takes full self-attention (no ``k_valid``, as many queries as keys): the
-prefill and the forward. Decode attends over the cache through :func:`sdpa`.
-``cross_attention`` / ``encode_cross_kv`` come with the audio slice.
+prefill and the forward, causal or not (whisper's encoder). Decode attends
+over the cache, and whisper's decoder over the encoder's K/V
+(:func:`cross_attention`), through :func:`sdpa`, as in JAX.
 """
 from __future__ import annotations
 
@@ -248,3 +249,27 @@ def prefill_attention(cfg, p, x, positions, max_len=None):
         vc[:, :S] = v
         cache = KVCache(k=kc, v=vc, length=S)
     return y, cache
+
+
+def cross_attention(cfg, p, x, enc_kv):
+    """Cross-attention against precomputed encoder K/V (whisper decoder):
+    x [B,S,d], enc_kv = (k, v) [B,T,KV,hd]; the plain :func:`sdpa`, no mask."""
+    with scope("lm.qkv"):
+        q = _proj(x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"].to(x.dtype)
+    k, v = enc_kv
+    with scope("lm.cross_attn"):
+        out = sdpa(cfg, q, k, v, causal=False)
+    with scope("lm.attn_out"):
+        return _out_proj(out, p["wo"])
+
+
+def encode_cross_kv(cfg, p, enc_out):
+    """The encoder output's K and V for one decoder layer's cross-attention."""
+    with scope("lm.qkv"):
+        k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+        if "bk" in p:
+            k = k + p["bk"].to(enc_out.dtype)
+            v = v + p["bv"].to(enc_out.dtype)
+    return k, v

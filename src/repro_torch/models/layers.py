@@ -1,4 +1,5 @@
-"""Shared layers: norms, embeddings, rotary (RoPE + M-RoPE), MLPs, init.
+"""Shared layers: norms, embeddings, rotary (RoPE + M-RoPE), sinusoidal
+positions, MLPs, init.
 
 The port of the JAX package's ``models/layers.py``. Initializers draw from a
 ``torch.Generator`` on the device the parameters live on; their numbers are
@@ -106,6 +107,19 @@ def apply_rope(x, positions, theta, mrope_sections=()):
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(dt)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, offset: int = 0, *,
+                         device=None) -> torch.Tensor:
+    """[seq_len, d_model] f32 absolute positions (whisper): sin then cos of
+    (offset + t) / 10000 ** (i / half), the power taken in f32 as JAX
+    takes it."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device) + offset
+    half = d_model // 2
+    ex = torch.arange(half, dtype=torch.float32, device=device) / half
+    inv = 1.0 / torch.pow(torch.tensor(10000.0, dtype=torch.float32, device=device), ex)
+    ang = pos[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

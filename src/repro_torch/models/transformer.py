@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM, dense family (stablelm, granite-20b,
-command-r, mistral-large): GQA/MQA/SWA attention, RMSNorm, SwiGLU.
+"""Decoder-only transformer LM: dense / GQA / MQA / SWA / MoE / M-RoPE
+(stablelm, granite-20b, command-r, mistral-large; granite-moe, mixtral;
+qwen2-vl): attention, RMSNorm, SwiGLU or a MoE layer.
 
 The port of the JAX package's ``models/transformer.py``. Parameters are plain
 dictionaries, as the JAX pytree is: ``{"embed", "blocks", "final_norm"}``
@@ -8,7 +9,9 @@ dictionaries ``{"ln1", "attn", "ln2", "mlp"}`` in place of JAX's leaves
 stacked on a leading layer axis; ``lax.scan`` over the stack becomes a
 Python loop over the list. ``remat`` has no meaning in a no-grad forward.
 Decode caches are a list of per-layer :class:`~.attention.KVCache`.
-MoE blocks (``num_experts > 0``) come with the moe slice (ROADMAP A.11b).
+A block holds ``"moe"`` (:mod:`.moe`) in place of ``"mlp"`` when
+``cfg.num_experts > 0``. A vlm batch's ``frontend_embeds`` (stubbed patch
+embeddings) are prepended to the token embeddings.
 """
 from __future__ import annotations
 
@@ -18,24 +21,21 @@ from repro_torch.obs.profile import scope
 
 from . import attention as A
 from . import layers as L
-
-
-def _dense_only(cfg) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported to repro_torch yet "
-            f"(ROADMAP A.11b, moe and vlm serving)")
+from . import moe as M
 
 
 def init_block_params(cfg, gen: torch.Generator) -> dict:
-    _dense_only(cfg)
     dev = gen.device
-    return {
+    p = {
         "ln1": L.norm_params(cfg, cfg.d_model, dev),
         "attn": A.attn_params(cfg, gen),
         "ln2": L.norm_params(cfg, cfg.d_model, dev),
-        "mlp": L.mlp_params(cfg, gen, cfg.d_model, cfg.d_ff),
     }
+    if cfg.num_experts:
+        p["moe"] = M.moe_params(cfg, gen)
+    else:
+        p["mlp"] = L.mlp_params(cfg, gen, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def init_params(cfg, gen: torch.Generator) -> dict:
@@ -60,23 +60,26 @@ def _block_fwd(cfg, p, x, positions):
 
 
 def _ffn(cfg, p, h):
-    _dense_only(cfg)
+    """The block's second half on ``h``: its ln2 norm, then the MLP or the
+    MoE layer."""
     with scope("lm.norm"):
         hn = L.apply_norm(cfg, p["ln2"], h)
+    if "moe" in p:
+        return M.apply_moe(cfg, p["moe"], hn)
     with scope("lm.mlp"):
         return L.apply_mlp(cfg, p["mlp"], hn)
 
 
 def _embed_inputs(cfg, params, batch):
-    """Token embeddings -> (x [B,S,D], positions [B,S]). Frontend
-    embeddings (vlm / audio) come with their slices."""
-    if batch.get("frontend_embeds") is not None:
-        raise NotImplementedError("frontend embeddings come with the vlm and "
-                                  "audio slices (ROADMAP A.11b, A.11c)")
+    """Token embeddings, with optional stubbed frontend embeddings PREPENDED
+    (qwen2-vl patch embeds). Returns (x [B,S,D], positions [B,S], or the
+    batch's ``positions``, [B,S] or M-RoPE's [3,B,S])."""
     dt = L.compute_dtype(cfg)
     tokens = batch["tokens"]
     with scope("lm.embed"):
         x = params["embed"][tokens].to(dt)
+        if batch.get("frontend_embeds") is not None:
+            x = torch.cat([batch["frontend_embeds"].to(dt), x], dim=1)
     B, S, _ = x.shape
     positions = batch.get("positions")
     if positions is None:

@@ -2,9 +2,10 @@
 ``models/zoo.py`` (``ModelAPI`` with its ``loss``, ``build``, ``precast``,
 ``loss_fn``, ``make_demo_batch``).
 
-The dense family (``transformer``) and the ssm family (``mamba_lm``) are
-built so far; the other families raise naming their slice. ``input_specs``
-serves the dry run and comes with it (ROADMAP A.12). Where JAX takes a ``jax.random`` key, the port takes a seed
+Every family builds: dense, moe and vlm through ``transformer``, ssm
+through ``mamba_lm``, hybrid through ``hybrid`` and audio through
+``encdec``. ``input_specs`` serves the dry run and comes with it (ROADMAP
+A.12). Where JAX takes a ``jax.random`` key, the port takes a seed
 (``init_params``) or a ``torch.Generator`` (``make_demo_batch``)."""
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import _device
-from repro_torch.config import FAMILY_SLICE, ModelConfig, not_ported
+from repro_torch.config import ModelConfig
 
-from . import mamba_lm, transformer
+from . import encdec, hybrid, mamba_lm, transformer
+
+VLM_PATCHES = 256  # stubbed vision prefix length (qwen2-vl dynamic-res stub)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +38,14 @@ class ModelAPI:
 
 def build(cfg: ModelConfig) -> ModelAPI:
     fam = cfg.family
-    if fam in FAMILY_SLICE:
-        raise not_ported(cfg.name, fam)
-    if fam == "dense":
+    if fam in ("dense", "moe", "vlm"):
         mod = transformer
     elif fam == "ssm":
         mod = mamba_lm
+    elif fam == "hybrid":
+        mod = hybrid
+    elif fam == "audio":
+        mod = encdec
     else:
         raise ValueError(fam)
 
@@ -98,7 +103,19 @@ def loss_fn(cfg, forward, params, batch):
 
 def make_demo_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
                     seq: int) -> dict:
-    """Concrete random token batch on ``gen``'s device (the dense family's
-    batch; the vlm / audio frontend stubs come with their slices)."""
-    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
-                                    device=gen.device, dtype=torch.int64)}
+    """Concrete random batch on ``gen``'s device: ``tokens`` [batch, seq];
+    a vlm batch's first ``min(8, seq // 2)`` positions are stubbed patch
+    embeddings (``frontend_embeds``, normal * 0.02 in ``cfg.dtype``) and its
+    tokens the rest; an audio batch adds ``frontend_embeds`` [batch,
+    encoder_seq, d_model], the stubbed frames."""
+    dev = gen.device
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                                   device=dev, dtype=torch.int64)}
+    dt = getattr(torch, cfg.dtype)
+    frames = {"vlm": min(8, seq // 2), "audio": cfg.encoder_seq}.get(cfg.family)
+    if frames is not None:
+        if cfg.family == "vlm":
+            out["tokens"] = out["tokens"][:, : seq - frames]
+        out["frontend_embeds"] = (torch.randn((batch, frames, cfg.d_model), generator=gen,
+                                              device=dev) * 0.02).to(dt)
+    return out

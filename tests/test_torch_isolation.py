@@ -53,6 +53,10 @@ MODULES = [
     "repro_torch.launch.train",
     "repro_torch.core.distributed", "repro_torch.launch.mesh", "repro_torch.data",
     "repro_torch.data.pipeline",
+    "repro_torch.configs.granite_moe_3b", "repro_torch.configs.mixtral_8x22b",
+    "repro_torch.configs.qwen2_vl_2b", "repro_torch.configs.zamba2_2p7b",
+    "repro_torch.configs.whisper_large_v3", "repro_torch.models.moe",
+    "repro_torch.models.hybrid", "repro_torch.models.encdec",
 ]
 
 
@@ -96,6 +100,9 @@ def test_entry_points_raise_without_a_card():
 
     api = zoo.build(get_smoke_config("stablelm_12b"))
     ssm = zoo.build(get_smoke_config("mamba2_370m"))
+    zoo_rest = [zoo.build(get_smoke_config(a)) for a in
+                ("granite_moe_3b", "qwen2_vl_2b", "zamba2_2p7b", "whisper_large_v3")]
+    kv = {"k": [[[[[0.0]]]]], "v": [[[[[0.0]]]]], "length": [0]}
     for call in (lambda: make_sampler("rtbs", n=4, lam=0.1),
                  lambda: make_sampler("drtbs", n=4, lam=0.1, cap_s=8),
                  lambda: make_data_mesh(4),
@@ -112,7 +119,16 @@ def test_entry_points_raise_without_a_card():
                  lambda: convert.ssm_caches_from_numpy(ssm.cfg, [[[[0.0]]]], [[[[[0.0]]]]]),
                  lambda: serve.main(["--gen", "1"]),
                  lambda: serve.main(["--arch", "stablelm_12b", "--gen", "1"]),
-                 lambda: train.main(["--arch", "mamba2_370m", "--ticks", "1"])):
+                 lambda: train.main(["--arch", "mamba2_370m", "--ticks", "1"]),
+                 lambda: convert.kv_caches_from_numpy(api.cfg, **kv),
+                 lambda: convert.encdec_caches_from_numpy(api.cfg, kv, ([0.0], [0.0])),
+                 lambda: convert.hybrid_caches_from_numpy(
+                     ssm.cfg, {"conv": [[[[[0.0]]]]], "state": [[[[[[0.0]]]]]]}, kv),
+                 *(lambda m=m: m.init_params(0) for m in zoo_rest),
+                 *(lambda m=m: m.init_decode_state(2, 8) for m in zoo_rest),
+                 *(lambda a=a: serve.main(["--arch", a, "--gen", "1"]) for a in
+                   ("granite_moe_3b", "mixtral_8x22b", "qwen2_vl_2b", "zamba2_2p7b",
+                    "whisper_large_v3"))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 

@@ -71,7 +71,7 @@ def _close(got, want, **tol):
 # ---------------------------------------------------------------------------
 # config
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", jconfig.ARCH_IDS)
 def test_config_equals_jax_field_for_field(arch):
     for get in ("get_config", "get_smoke_config"):
         j, t = getattr(jconfig, get)(arch), getattr(tconfig, get)(arch)
@@ -81,20 +81,31 @@ def test_config_equals_jax_field_for_field(arch):
 
 
 def test_registry_equals_jax_and_unported_families_raise():
+    """Once the refusals of the unported families; now every one of the ten
+    ARCH_IDS (and each alias) resolves to JAX's config and builds in both
+    packages with the same parameter tree, and ``num_experts > 0`` builds
+    MoE blocks in place of MLPs."""
     assert tconfig.ARCH_IDS == jconfig.ARCH_IDS
     assert tconfig.ALIASES == jconfig.ALIASES
     assert {k: dataclasses.asdict(v) for k, v in tconfig.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfig.SHAPES.items()}
     assert tconfig.get_config("stablelm-12b") == tconfig.get_config("stablelm_12b")
-    for arch in set(tconfig.ARCH_IDS) - set(DENSE) - {"mamba2_370m"}:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-            tconfig.get_config(arch)
-    moe = dataclasses.replace(tconfig.get_smoke_config("stablelm_12b"), family="moe")
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        tzoo.build(moe)
-    experts = dataclasses.replace(tconfig.get_smoke_config("stablelm_12b"), num_experts=2)
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        tzoo.build(experts).init_params(0, device="cpu")
+    for alias, arch in tconfig.ALIASES.items():
+        assert dataclasses.asdict(tconfig.get_config(alias)) == \
+            dataclasses.asdict(jconfig.get_config(arch))
+    for arch in tconfig.ARCH_IDS:
+        jcfg, tcfg = jconfig.get_smoke_config(arch), tconfig.get_smoke_config(arch)
+        japi, tapi = jzoo.build(jcfg), tzoo.build(tcfg)
+        jshape = jax.eval_shape(japi.init_params, jax.random.key(0))
+        tree = convert.lm_params_to_numpy(tapi.init_params(0, device="cpu"))
+        assert jax.tree_util.tree_structure(tree) == jax.tree_util.tree_structure(jshape)
+        for a, b in zip(jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(jshape)):
+            assert a.shape == b.shape, arch
+    experts = dataclasses.replace(tconfig.get_smoke_config("stablelm_12b"), num_experts=2,
+                                  num_experts_per_tok=1)
+    blocks = tzoo.build(experts).init_params(0, device="cpu")["blocks"]
+    assert all("moe" in b and "mlp" not in b for b in blocks)
+    assert tuple(blocks[0]["moe"]["wg"].shape) == (2, 64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +291,143 @@ def test_precast_casts_once_and_keeps_the_numbers():
     assert params["blocks"][0]["mlp"]["wg"].dtype == torch.float32
     assert torch.equal(once.forward(params, {"tokens": toks}),
                        tapi.forward(params, {"tokens": toks}))
+
+
+# ---------------------------------------------------------------------------
+# vlm: qwen2-vl's stubbed patch embeddings prepended, M-RoPE, qkv bias
+# ---------------------------------------------------------------------------
+VLM = "qwen2_vl_2b"
+NPATCH = min(8, S // 2)
+
+
+def _vlm_batch(cfg, seed=0, positions=False):
+    """``zoo.make_demo_batch``'s vlm shapes as numpy: S - 8 tokens after 8
+    patch embeddings; ``positions``: M-RoPE's [3, B, S] (t, h, w) streams,
+    the patches on a 2 x 4 grid at t = 0 and the text after them."""
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S - NPATCH), dtype=np.int32),
+         "frontend_embeds": (rng.standard_normal((B, NPATCH, cfg.d_model)) * 0.5
+                             ).astype(np.float32)}
+    if positions:
+        t = np.concatenate([np.zeros(NPATCH), np.arange(S - NPATCH) + 4])
+        h = np.concatenate([np.arange(NPATCH) // 4, np.arange(S - NPATCH) + 4])
+        w = np.concatenate([np.arange(NPATCH) % 4, np.arange(S - NPATCH) + 4])
+        b["positions"] = np.broadcast_to(np.stack([t, h, w])[:, None], (3, B, S)).astype(np.int32)
+    return b
+
+
+def _vlm_tb(b):
+    return {k: torch.from_numpy(np.array(v)).long() if v.dtype == np.int32
+            else torch.from_numpy(np.array(v)) for k, v in b.items()}
+
+
+def _vlm_jb(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("positions", [False, True])
+@pytest.mark.parametrize("impl", IMPLS)
+def test_vlm_forward_matches_jax(impl, positions):
+    japi, jparams, tapi, tparams = _models(VLM, impl)
+    b = _vlm_batch(japi.cfg, positions=positions)
+    got = tapi.forward(tparams, _vlm_tb(b))
+    assert got.shape == (B, S, japi.cfg.padded_vocab)
+    _close(got, jax.jit(japi.forward)(jparams, _vlm_jb(b)))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_vlm_prefill_and_decode_steps_match_jax(impl):
+    """The prefill over patches + text, then 4 greedy decode steps: logits
+    and caches (S positions after the prefill, patches included)."""
+    japi, jparams, tapi, tparams = _models(VLM, impl)
+    b = _vlm_batch(japi.cfg, seed=4)
+    max_len = S + GEN + 1
+    jpre, jdec = jax.jit(japi.prefill, static_argnums=2), jax.jit(japi.decode_step)
+    jlog, jc = jpre(jparams, _vlm_jb(b), max_len)
+    tlog, tc = tapi.prefill(tparams, _vlm_tb(b), max_len)
+    _close(tlog, jlog)
+    _check_caches(tc, jc, S)
+    for _ in range(GEN):
+        nxt = np.array(jnp.argmax(jlog[:, :, : japi.cfg.vocab_size], -1), np.int32)
+        jlog, jc = jdec(jparams, jc, jnp.asarray(nxt))
+        tlog, tc = tapi.decode_step(tparams, tc, torch.from_numpy(nxt).long())
+        _close(tlog, jlog)
+    _check_caches(tc, jc, S + GEN)
+
+
+def test_vlm_greedy_tokens_match_jax():
+    """``serve_batch`` sizes the caches for the patches too (S + GEN + 1)."""
+    japi, jparams, tapi, tparams = _models(VLM, "pallas")
+    b = _vlm_batch(japi.cfg, seed=11)
+    jlog, jc = jax.jit(japi.prefill, static_argnums=2)(jparams, _vlm_jb(b), S + GEN + 1)
+    jt = jnp.argmax(jlog[:, :, : japi.cfg.vocab_size], -1).astype(jnp.int32)
+    jstep = jax.jit(j_make_decode_step(japi))
+    jout = [np.asarray(jt)]
+    for _ in range(GEN):
+        jt, jc = jstep(jparams, jc, jt)
+        jout.append(np.asarray(jt))
+    res = serve.serve_batch(tapi, tparams, _vlm_tb(b), GEN)
+    np.testing.assert_array_equal(res.tokens, np.concatenate(jout, axis=1))
+
+
+def test_vlm_teacher_forced_decode_matches_forward():
+    """Prefill the patches and the first 2 tokens, then decode the rest one
+    at a time: each step's logits equal the forward's at its position."""
+    _, tcfg = _cfgs(VLM, "pallas")
+    tapi = tzoo.build(tcfg)
+    params = tapi.init_params(0, device="cpu")
+    b = _vlm_tb(_vlm_batch(tcfg, seed=3))
+    full = tapi.forward(params, b)
+    toks = b["tokens"]
+    logits, caches = tapi.prefill(params, {"tokens": toks[:, :2],
+                                           "frontend_embeds": b["frontend_embeds"]}, S + 1)
+    outs = [logits[:, 0]]
+    for t in range(2, toks.shape[1]):
+        logits, caches = tapi.decode_step(params, caches, toks[:, t:t + 1])
+        outs.append(logits[:, 0])
+    torch.testing.assert_close(torch.stack(outs, 1), full[:, NPATCH + 1:], **TOL)
+
+
+def test_vlm_loss_and_grads_match_jax():
+    """The loss over the text positions only (the prefix dropped), and its
+    gradients, against JAX's jitted ``value_and_grad``."""
+    from torch.utils import _pytree as pytree
+
+    japi, jparams, tapi, tparams = _models(VLM)
+    b = _vlm_batch(japi.cfg, seed=2)
+    jl, jg = jax.jit(jax.value_and_grad(japi.loss))(jparams, _vlm_jb(b))
+    leaves, spec = pytree.tree_flatten(tparams)
+    live = [x.requires_grad_(True) for x in leaves]
+    tl = tapi.loss(pytree.tree_unflatten(live, spec), _vlm_tb(b))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    grads = convert.lm_params_to_numpy(pytree.tree_unflatten(
+        list(torch.autograd.grad(tl, live)), spec))
+    for g, w in zip(jax.tree_util.tree_leaves(grads), jax.tree_util.tree_leaves(jg)):
+        np.testing.assert_allclose(g, np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_vl_2b", "whisper_large_v3", "granite_moe_3b"])
+def test_make_demo_batch_shapes_as_jax(arch):
+    jcfg, tcfg = _cfgs(arch, dtype="bfloat16")
+    want = jzoo.make_demo_batch(jcfg, jax.random.key(0), 3, 20)
+    got = tzoo.make_demo_batch(tcfg, torch.Generator().manual_seed(0), 3, 20)
+    assert set(got) == set(want)
+    for k in want:
+        assert tuple(got[k].shape) == want[k].shape, k
+    assert got["tokens"].dtype == torch.int64 and int(got["tokens"].max()) < tcfg.vocab_size
+    if "frontend_embeds" in got:
+        assert got["frontend_embeds"].dtype == torch.bfloat16
+        assert 0.01 < float(got["frontend_embeds"].float().std()) < 0.03
+
+
+@pytest.mark.parametrize("arch", ["qwen2_vl_2b", "mixtral_8x22b"])
+def test_serve_main_serves_vlm_and_moe_on_cpu(arch, capsys):
+    argv = ["--arch", arch, "--preset", "smoke", "--prompts", "2", "--prompt-len", "8",
+            "--gen", "3"]
+    gen = serve.main(argv, device="cpu")
+    assert gen.shape == (2, 4) and ((gen >= 0) & (gen < 512)).all()
+    assert "[serve] decoded 3 tokens x 2 seqs" in capsys.readouterr().out
+    np.testing.assert_array_equal(gen, serve.main(argv, device="cpu"))
 
 
 # ---------------------------------------------------------------------------
