@@ -8,7 +8,8 @@ schemes + linreg retrain + prequential eval through ``make_sampler`` /
 ``make_model`` / ``materialize_stream`` / ``make_run_loop``, with and
 without the adaptive decay controller, Monte-Carlo farms through
 ``make_run_farm``, the keyed R-TBS and T-TBS sampler banks through
-``make_bank`` / ``make_bank_run_loop``, and batched
+``make_bank`` / ``make_bank_run_loop``, the key-sharded bank through
+``shard_keyed_stream`` / ``make_sharded_bank_loop``, and batched
 LM serving of every family of the zoo (dense, Mamba2, MoE, vlm, hybrid,
 encoder-decoder) through
 ``repro_torch.launch.serve.serve_batch``) at full state and model size, after
@@ -173,10 +174,30 @@ the JAX package. Every check raises on failure; no phase catches its own.
      and (B4) ``scaled_dot_product_attention``. (c) card == CPU per family
      in f32 at a depth cut of full width (MoE routes included) and
      teacher-forced decode == forward;
- 18. the ``kernels`` JSON line, the card line, and the result line.
+ 18. the key-sharded bank loop (``shard_keyed_stream`` /
+     ``make_sharded_bank_loop``): (a) phase 6's bank split by key ownership
+     over KS_S = 8 shards of K_s = 2^17 keys (K = 2^20) on phase 6's Zipf
+     stream, 32 ticks of 65,536 arrivals, timed in paired turns with phase
+     6's local bank loop on the same stream (local, sharded, sharded,
+     local): ticks and keyed items per second, each shard's mean arrivals
+     a tick, bcap_s, the rows routed a tick, peak memory; B3 exactly once
+     a tick for all shards, H1 on its rows route, sizes <= n, the overflow
+     summed over shards equal to phase 6's tick by tick, the metric finite
+     after tick 0 and equal on every shard, each tick's arrivals over the
+     shards equal to the stream's; a profiled retrain tick by scope, a
+     tick under ``set_sync_debug_mode("error")``, one step's routed rows
+     accounted (accepted + dropped + invalid = the tick). (b) card == CPU
+     at K = 4,096 over 4 shards for rtbs and ttbs, shared and per key
+     (state, sizes and overflow bit for bit; params and metric within 1e-4,
+     or bit for bit where they are); S = 1 equal to ``make_bank_run_loop``
+     bit for bit; two shards fed the same sub-stream bit-identical (ROADMAP
+     C.18). (c) ``compress_grads`` over mamba2_370m's parameter shapes card
+     == CPU bit for bit; the four ``examples_torch/`` scripts run on the
+     card as subprocesses, all started together, each exiting 0;
+ 19. the ``kernels`` JSON line, the card line, and the result line.
 
-``python3 chip_smoke.py --only 13,13d,14,15,16,17`` runs only the listed
-phases of 13-17 (no kernels line, no result line).
+``python3 chip_smoke.py --only 13,13d,14,15,16,17,18`` runs only the listed
+phases of 13-18 (no kernels line, no result line).
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -3768,6 +3789,288 @@ def phase_zoo(torch, np, kernels, timer, bw) -> dict:
                 "at 2 encoder + 2 decoder layers over 1,500 frames")
     return dict(cells=cells, b4=b4, b4_f32_err=max(f32), b5=b5)
 
+# ---------------------------------------------------------------------------
+# the key-sharded bank loop (ROADMAP A.7): phase 6's bank split by key
+# ownership over KS_S shards of K_BANK / KS_S keys, one bank step a tick
+# for all shards; compression and the examples
+KS_S = 8
+EXAMPLES = ("quickstart", "lm_online_management", "serve_batched", "distributed_reservoir")
+
+
+def _keyed_parity_stream(torch, dev, S, K=4096):
+    from repro_torch.data.streams import KeyedStream, LinRegStream
+    from repro_torch.manage import materialize_stream, shard_keyed_stream
+
+    batches, bcounts = materialize_stream(
+        KeyedStream(LinRegStream(seed=1), num_keys=K, alpha=1.1, flip_every=50),
+        8, batch_size=2048, fields=("key", "x", "y"), device=dev)
+    return (batches, bcounts), shard_keyed_stream(batches, bcounts, S, K, device=dev)
+
+
+def _run_examples() -> dict:
+    """The four ``examples_torch/`` scripts as subprocesses at their default
+    device (the card), all started together; each must exit 0."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    procs = {}
+    t0 = time.perf_counter()
+    for name in EXAMPLES:
+        procs[name] = subprocess.Popen(
+            [sys.executable, str(HERE / "examples_torch" / f"{name}.py")], cwd=HERE,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    walls = {}
+    for name, p in procs.items():
+        try:
+            out, _ = p.communicate(timeout=400)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            raise
+        walls[name] = time.perf_counter() - t0
+        tail = out.strip().splitlines()[-2:]
+        print(f"[18] (c) examples_torch/{name}.py exited {p.returncode} after "
+              f"{walls[name]:.1f} s: {' | '.join(tail)}")
+        check(p.returncode == 0, f"[18] (c) examples_torch/{name}.py exited {p.returncode}:"
+                                 f"\n{out[-3000:]}")
+    return walls
+
+
+def phase_key_sharded(torch, np, kernels) -> dict:
+    """Phase 18: the key-sharded bank loop at K = 2^20 over KS_S shards (a),
+    its parities (b), gradient compression and the examples (c)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.bank import make_bank, shard_bank
+    from repro_torch.config import get_config
+    from repro_torch.core import prng
+    from repro_torch.data.streams import KeyedStream, LinRegStream
+    from repro_torch.kernels.swap_delete import ops as sd_ops
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.manage import (make_bank_run_loop, make_model, make_sharded_bank_loop,
+                                    make_sharded_bank_manage_step, materialize_stream,
+                                    shard_keyed_stream)
+    from repro_torch.models import zoo
+    from repro_torch.optim import compress_grads, ef_init
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    S, K, n, b, bcap, T, Q = KS_S, K_BANK, N_BANK, B_BANK, BCAP_BANK, T_BANK, Q_BANK
+    K_s = K // S
+    batches, bcounts = materialize_stream(
+        KeyedStream(LinRegStream(seed=0), num_keys=K, alpha=1.1, flip_every=50), T,
+        batch_size=b, fields=("key", "x", "y"))
+    t0 = time.perf_counter()
+    sb, sc = shard_keyed_stream(batches, bcounts, S, K)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+    check(torch.equal(sc.sum(-1), bcounts), "[18] (a) the shards' arrivals != the stream's")
+    bcap_s = sb["key"].shape[1] // S
+    rows = int(sc.sum(-1).max())
+    share = sc.double().mean(0) / b
+    print(f"[18] (a) shard_keyed_stream: {T} ticks x {b} arrivals over K = {K} keys -> {S} "
+          f"shards of K_s = {K_s} in {t_shard:.2f} s; bcap_s {bcap_s} (S x bcap_s = "
+          f"{S * bcap_s} rows a tick); mean arrivals a tick by shard "
+          f"{[round(float(x), 1) for x in sc.double().mean(0)]} (shares "
+          f"{[round(100 * float(x), 2) for x in share]} %); rows routed a tick {rows} "
+          f"(the tick's {b} arrivals; {S * bcap_s} if every row were routed)")
+
+    model = make_model("linreg", dim=2)
+    key = prng.key(0)
+    local_bank = make_bank("rtbs", num_keys=K, n=n, lam=LAM_BANK, bcap=bcap)
+    bank = make_bank("rtbs", num_keys=K_s, n=n, lam=LAM_BANK, bcap=bcap)
+    mesh = make_data_mesh(S)
+    local = make_bank_run_loop(local_bank, model, retrain_every=RETRAIN_EVERY,
+                               train_keys=range(Q))
+    sharded = make_sharded_bank_loop(bank, model, mesh, retrain_every=RETRAIN_EVERY,
+                                     train_keys=range(Q))
+    local(key, {f: v[:2] for f, v in batches.items()}, bcounts[:2])      # warm-up
+    sharded(key, {f: v[:2] for f, v in sb.items()}, sc[:2])
+    torch.cuda.synchronize()
+
+    walls = {"local": [], "sharded": []}
+    out, peak = {}, {}
+    for which in ("local", "sharded", "sharded", "local"):       # paired turns
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = (local(key, batches, bcounts) if which == "local" else sharded(key, sb, sc))
+        torch.cuda.synchronize()
+        walls[which].append(time.perf_counter() - t0)
+        peak[which] = (torch.cuda.max_memory_allocated() - before) / 1e9   # the run's own
+        if which not in out:
+            out[which] = (res, kernels.launches(), sd_ops.swap_delete.forest_launches)
+        del res
+    (state, params, trace), launches, forest = out["sharded"]
+    (_, _, ltrace), llaunch, _ = out["local"]
+    tps = {k: [T / w for w in v] for k, v in walls.items()}
+    check(launches["tbs_step_apply_banked"] == T,
+          f"[18] (a) B3 launched {launches['tbs_step_apply_banked']} times, not once a tick")
+    check(launches["swap_delete"] >= T and forest == 0, "[18] (a) H1 left its rows route")
+    for k in ("tbs_step_apply", "reservoir_compact", "binomial", "hypergeometric"):
+        check(launches[k] == 0, f"[18] (a) {k} launched on the key-sharded bank's path")
+    sizes = trace["size"].cpu().numpy()
+    metric = trace["metric"].cpu().numpy()
+    check(state.items["x"].shape == (S, K_s, n + 1, 2), "[18] (a) state's shape")
+    check(sizes.shape == (S, T, Q) and (sizes <= n).all(), "[18] (a) size > n")
+    check(np.isfinite(metric[:, 1:]).all(), "[18] (a) metric not finite after tick 0")
+    check((metric == metric[:1]).all(), "[18] (a) the metric rows differ across shards")
+    check(torch.isfinite(params).all().item() and params.shape == (S, 3), "[18] (a) params")
+    check(torch.equal(trace["overflow"].sum(0), ltrace["overflow"]),
+          "[18] (a) the overflow summed over shards != phase 6's, tick by tick")
+    print(f"[18] (a) key-sharded bank loop: {S} shards x K_s = {K_s} (K = {K}, n {n}, bcap "
+          f"{bcap}, {state.items['x'].numel() * 4 / 1e6 + state.items['y'].numel() * 4 / 1e6:.1f}"
+          f" MB of items), {T} ticks, train keys range({Q}) on every shard; paired turns "
+          f"local, sharded, sharded, local: sharded {[round(x, 2) for x in tps['sharded']]} "
+          f"ticks/s = {[round(T * b / w) for w in walls['sharded']]} keyed items/s, phase "
+          f"6's local bank {[round(x, 2) for x in tps['local']]} ticks/s = "
+          f"{[round(T * b / w) for w in walls['local']]} keyed items/s; peak memory of a run "
+          f"(above what it found allocated) sharded {peak['sharded']:.3f} GB, local "
+          f"{peak['local']:.3f} GB; launches {launches} (local: {llaunch})")
+    print(f"[18] (a) B3 once a tick for all {S} shards, H1 on its rows route; sizes <= {n}; "
+          f"metric finite from tick 1 and equal on every shard (first/last "
+          f"{metric[0, 0]:.4f}/{metric[0, -1]:.4f}); overflow summed over shards == phase "
+          f"6's on every tick ({trace['overflow'].sum(0).tolist()[:4]}...); each tick's "
+          f"arrivals over the shards == the stream's bcounts")
+
+    # one retrain tick profiled, one non-retrain tick under sync debug, and
+    # one step's routed rows accounted, on the run's final state
+    tick = make_sharded_bank_manage_step(bank, model, mesh, retrain_every=RETRAIN_EVERY,
+                                         train_keys=range(Q), rows=rows)
+    bt = {f: v[T - 1] for f, v in sb.items()}
+    prof_t = 4 * RETRAIN_EVERY - 1
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, params, _ = tick(key, prof_t, state, params, bt, sc[T - 1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile = _breakdown(torch, prof, wall_ms, "[18] (a)", _BANK_SCOPES,
+                         (("B3 kernel", "tbs_step_banked_kernel"), ("H1 kernels", H1_KERNELS)))
+    check((T + 1) % RETRAIN_EVERY != 0, "[18] sync-check tick must not retrain")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, params, _ = tick(key, T, state, params, bt, sc[T - 1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(kernels.launches()["tbs_step_apply_banked"] == 1, "[18] sync-check tick: B3")
+    sbank = shard_bank(bank, S)
+    state, st = sbank.step_stats(key, state, bt["key"], {"x": bt["x"], "y": bt["y"]},
+                                 sc[T - 1], rows=rows)
+    r = st["routing"]
+    routed = int(r.counts.sum() + r.dropped.sum() + st["invalid"].sum())
+    check(routed == int(bcounts[T - 1]), f"[18] (a) routed {routed} != {int(bcounts[T - 1])}")
+    check(torch.equal(st["ntouched"].sum(), r.ntouched), "[18] (a) ntouched by shard")
+    print(f"[18] (a) a non-retrain tick under set_sync_debug_mode('error'): no host sync; one "
+          f"step routes {r.order.shape[0]} rows: {int(r.counts.sum())} accepted + "
+          f"{int(r.dropped.sum())} dropped + {int(st['invalid'].sum())} invalid = the tick's "
+          f"{int(bcounts[T - 1])}; touched keys by shard {st['ntouched'].tolist()}")
+    del state, params, st, r, out, batches, sb
+    torch.cuda.empty_cache()
+
+    # (b) card == CPU at K = 4096 over 4 shards, both banks, shared and per key
+    hyp = {"rtbs": dict(n=n, lam=LAM_BANK, bcap=bcap),
+           "ttbs": dict(n=N_TTBS_BANK, lam=LAM_BANK, bcap=bcap, batch_size=2.0)}
+    streams = {dev: _keyed_parity_stream(torch, dev, 4) for dev in ("cuda", "cpu")}
+    diffs = []
+    for scheme in ("rtbs", "ttbs"):
+        for per_key in (False, True):
+            res = {}
+            for dev in ("cuda", "cpu"):
+                _, (pb, pc) = streams[dev]
+                res[dev] = make_sharded_bank_loop(
+                    make_bank(scheme, num_keys=1024, **hyp[scheme], device=dev),
+                    make_model("linreg", dim=2, device=dev), make_data_mesh(4, device=dev),
+                    retrain_every=RETRAIN_EVERY, train_keys=range(Q),
+                    per_key=per_key)(prng.key(3), pb, pc)
+            (sg, pg, tg), (s_c, pc_, tc) = res["cuda"], res["cpu"]
+            what = f"[18] (b) {scheme} {'per key' if per_key else 'shared'}"
+            check(_leaves_equal(torch, pytree.tree_map(lambda a: a.cpu(), sg), s_c),
+                  f"{what}: state card != CPU")
+            for f in ("size", "overflow"):
+                check(torch.equal(tg[f].cpu(), tc[f]), f"{what}: trace {f} card != CPU")
+            same = (_leaves_equal(torch, pg.cpu(), pc_)
+                    and _leaves_equal(torch, tg["metric"].cpu(), tc["metric"]))
+            check(torch.equal(tg["metric"].isnan().cpu(), tc["metric"].isnan()),
+                  f"{what}: the metric's NaNs")
+            dm = float((tg["metric"].cpu() - tc["metric"]).abs().nan_to_num().max())
+            dp = float((pg.cpu() - pc_).abs().nan_to_num().max())
+            # f32 sums in two BLAS libraries' orders: the shared fit on the pooled
+            # extract, and per key shard 0's fits (its train keys hold 7 or more
+            # items at every retrain; shards 1-3's mostly 0-2, underdetermined)
+            held = slice(None) if not per_key else slice(0, 1)
+            check(torch.allclose(pg[held].cpu(), pc_[held], rtol=1e-4, atol=1e-5)
+                  and torch.allclose(tg["metric"][held].cpu(), tc["metric"][held], rtol=1e-4,
+                                     atol=1e-5, equal_nan=True),
+                  f"{what}: params / metric beyond 1e-4")
+            diffs.append((scheme, per_key, same, dm, dp))
+            print(f"{what} at K = 4096 over 4 shards, 8 ticks: card == CPU bit for bit "
+                  f"(every state leaf, sizes, overflow, the metric's NaNs); params and metric "
+                  f"{'bit for bit too' if same else 'within rtol 1e-4'}"
+                  f"{' on shard 0 (the others fit 0-2 items a key)' if per_key else ''} "
+                  f"(max |diff| over all shards: metric {dm:.3g}, params {dp:.3g})")
+    (lb, lc), (pb, pc) = streams["cuda"]
+    del streams
+    # S = 1 equals the local loop, on the card
+    for per_key in (False, True):
+        b1 = make_bank("rtbs", num_keys=4096, **hyp["rtbs"])
+        s1b, s1c = shard_keyed_stream(lb, lc, 1, 4096)
+        one = make_sharded_bank_loop(b1, model, make_data_mesh(1), retrain_every=RETRAIN_EVERY,
+                                     train_keys=range(Q), per_key=per_key)(prng.key(3), s1b, s1c)
+        loc = make_bank_run_loop(b1, model, retrain_every=RETRAIN_EVERY, train_keys=range(Q),
+                                 per_key=per_key)(prng.key(3), lb, lc)
+        check(_leaves_equal(torch, pytree.tree_map(lambda a: a[0], one), loc),
+              f"[18] (b) S = 1 {'per key' if per_key else 'shared'} != make_bank_run_loop")
+    print("[18] (b) S = 1: the key-sharded loop == make_bank_run_loop bit for bit (state, "
+          "params, trace), shared and per key, on the card")
+    # C.18: two shards fed shard 0's sub-stream end bit-identical
+    b_s = pb["key"].shape[1] // 4
+    twin = {f: torch.cat([v[:, :b_s], v[:, :b_s]], dim=1) for f, v in pb.items()}
+    tc2 = torch.stack([pc[:, 0], pc[:, 0]], dim=-1)
+    st2, p2, t2 = make_sharded_bank_loop(make_bank("rtbs", num_keys=1024, **hyp["rtbs"]), model,
+                                         make_data_mesh(2), retrain_every=RETRAIN_EVERY,
+                                         train_keys=range(Q), per_key=True)(prng.key(3), twin, tc2)
+    check(_leaves_equal(torch, pytree.tree_map(lambda a: a[0], (st2, p2, t2)),
+                        pytree.tree_map(lambda a: a[1], (st2, p2, t2))),
+          "[18] (b) two shards fed the same sub-stream differ (ROADMAP C.18)")
+    print(f"[18] (b) two shards fed the same sub-stream ({int(tc2[:, 0].sum())} arrivals) end "
+          f"bit-identical: state, per-key params and trace (ROADMAP C.18)")
+
+    # (c) compress_grads over mamba2_370m's parameter shapes, card == CPU
+    shapes = [tuple(a.shape) for a in pytree.tree_leaves(
+        zoo.build(get_config("mamba2_370m")).init_params(0))]
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(18)
+    grads = [torch.randn(s, generator=g) for s in shapes]
+    ef = [0.01 * torch.randn(s, generator=g) for s in shapes]
+    (q_c, s_c), e_c = compress_grads(grads, ef)
+    t0 = time.perf_counter()
+    (q_g, s_g), e_g = compress_grads([x.cuda() for x in grads], [x.cuda() for x in ef])
+    torch.cuda.synchronize()
+    c_ms = (time.perf_counter() - t0) * 1e3
+    check(_leaves_equal(torch, [x.cpu() for x in q_g + s_g + e_g], q_c + s_c + e_c),
+          "[18] (c) compress_grads card != CPU")
+    nparam = sum(x.numel() for x in grads)
+    print(f"[18] (c) compress_grads over mamba2_370m's {len(shapes)} parameter shapes "
+          f"({nparam} f32 values, random from a seed, with a random ef): card == CPU bit for bit "
+          f"(int8 q, scales, f32 residuals); {c_ms:.1f} ms on the card with the copies in")
+    del grads, ef, q_c, s_c, e_c, q_g, s_g, e_g
+    torch.cuda.empty_cache()
+
+    ex = _run_examples()
+    wall = time.perf_counter() - t_phase
+    print(f"[18] phase wall time {wall:.1f} s")
+    return {"launches": launches["tbs_step_apply_banked"], "ticks_per_s": tps,
+            "rows": rows, "bcap_s": bcap_s, "profile": profile, "examples": ex,
+            "parity": diffs, "peak_gb": peak}
+
 
 def main() -> int:
     import torch
@@ -3813,7 +4116,8 @@ def main() -> int:
                        ("15", lambda: phase_telemetry(torch, np, kernels)),
                        ("16", lambda: phase_sharded(torch, np, kernels, timer, bw,
                                                     float("nan"))),
-                       ("17", lambda: phase_zoo(torch, np, kernels, timer, bw))):
+                       ("17", lambda: phase_zoo(torch, np, kernels, timer, bw)),
+                       ("18", lambda: phase_key_sharded(torch, np, kernels))):
             if ph in only:
                 fn()
         print(f"chip_smoke: phases {only} only; no kernels line, no result line")
@@ -3844,8 +4148,10 @@ def main() -> int:
     shard_res = phase_sharded(torch, np, kernels, timer, bw, main_res["ticks_per_s"])
     t_zoo = time.perf_counter()
     zoo_res = phase_zoo(torch, np, kernels, timer, bw)
-    print(f"[18] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 {t_zoo - t_sh:.1f} s, "
-          f"phase 17 {time.perf_counter() - t_zoo:.1f} s, of "
+    t_ks = time.perf_counter()
+    ks_res = phase_key_sharded(torch, np, kernels)
+    print(f"[19] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 {t_zoo - t_sh:.1f} s, "
+          f"phase 17 {t_ks - t_zoo:.1f} s, phase 18 {time.perf_counter() - t_ks:.1f} s, of "
           f"{time.perf_counter() - t_all:.1f} s")
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
@@ -3923,6 +4229,10 @@ def main() -> int:
                         ("binomial", shard_res["dttbs_launches"]["binomial"], "dttbs")):
         rows[list(kres).index(k)]["sharded"] = {"launches": n_, "ticks": SH_T,
                                                 "shards": SH_S, "scheme": path}
+    # B3 on the key-sharded bank loop (phase 18): one launch a tick for all shards
+    rows[list(kres).index("tbs_step_apply_banked")]["key_sharded"] = {
+        "launches": ks_res["launches"], "ticks": T_BANK, "shards": KS_S,
+        "rows_routed": ks_res["rows"], "bcap_s": ks_res["bcap_s"]}
     # the rest of the LM zoo (phase 17): each cell's B4 / B5 launches a
     # prefill, and the kernels at its served shapes
     zoo_launches = {c["arch"]: {"flash_attention": c["b4"], "ssd_scan": c["b5"]}

@@ -23,6 +23,12 @@ capacity ``bcap``: a key receiving more keeps its FIRST ``bcap`` items
 
 Index tensors are int64 (torch's index type); the values equal JAX's int32
 ones.
+
+A key-sharded bank (:func:`repro_torch.bank.shard_bank`) takes its tick in
+the co-partitioned layout of :func:`repro_torch.manage.shard_keyed_stream`
+(S segments of ``b_s`` rows, local key ids, a count a shard).
+:func:`compact_shards` moves each shard's valid rows into one batch with
+global ids, so that one :func:`route` buckets every shard's arrivals.
 """
 from __future__ import annotations
 
@@ -104,6 +110,54 @@ def route(keys: torch.Tensor, bcount, *, num_keys: int, bcap: int) -> Routing:
     counts = torch.clamp(raw, max=bcap)
     return Routing(order=order, touched=touched, ntouched=nt, starts=starts,
                    counts=counts, dropped=raw - counts, invalid=invalid)
+
+
+@dataclasses.dataclass
+class ShardedBatch:
+    """A co-partitioned tick compacted for :func:`route`: ``rows`` [R] are
+    the source rows of the R routed rows (the shards' valid rows in shard
+    order, each shard's in arrival order; rows past ``count`` repeat row 0),
+    ``keys`` [R] their GLOBAL ids (local id + s K_s; -1 for a local id
+    outside [0, K_s), which ``route`` discards), ``count`` [] the tick's
+    valid rows and ``invalid`` [S] each shard's valid rows with an
+    out-of-range local id."""
+
+    rows: torch.Tensor      # [R]
+    keys: torch.Tensor      # [R]
+    count: torch.Tensor     # []
+    invalid: torch.Tensor   # [S]
+
+
+pytree.register_dataclass(ShardedBatch)
+
+
+def compact_shards(keys: torch.Tensor, bcount: torch.Tensor, *, num_keys: int,
+                   rows: int | None = None) -> ShardedBatch:
+    """Compact one co-partitioned tick: ``keys`` [S * b_s] local ids, shard
+    s owning rows [s b_s, (s + 1) b_s) of which the first ``bcount[s]`` are
+    valid; ``num_keys`` is K_s, the keys of one shard. The result has
+    ``rows`` rows (default S * b_s), which must be at least the tick's
+    valid count: a valid row past them is dropped. Nothing is read on the
+    host."""
+    S = bcount.shape[-1]
+    b_s = keys.shape[0] // S
+    R = S * b_s if rows is None else int(rows)
+    dev = keys.device
+    k = keys.to(_I64).reshape(S, b_s)
+    bc = bcount.to(_I64)
+    pos = torch.arange(b_s, dtype=_I64, device=dev)
+    valid = pos < bc.unsqueeze(-1)                                   # [S, b_s]
+    in_range = (k >= 0) & (k < num_keys)
+    base = torch.arange(S, dtype=_I64, device=dev).unsqueeze(-1) * num_keys
+    gk = torch.where(in_range, k + base, -1)
+    start = torch.cumsum(bc, 0) - bc                                 # each shard's offset
+    dest = torch.where(valid, start.unsqueeze(-1) + pos, R).clamp(max=R).reshape(-1)
+    src = torch.zeros((R + 1,), dtype=_I64, device=dev).scatter_(
+        0, dest, torch.arange(S * b_s, dtype=_I64, device=dev))[:R]
+    gkeys = torch.full((R + 1,), -1, dtype=_I64, device=dev).scatter_(
+        0, dest, gk.reshape(-1))[:R]
+    return ShardedBatch(rows=src, keys=gkeys, count=bc.sum(),
+                        invalid=(valid & ~in_range).sum(-1))
 
 
 def subbatches(r: Routing, payload, *, bcap: int):

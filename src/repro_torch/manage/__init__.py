@@ -2,13 +2,17 @@
 -> a :class:`repro_torch.core.api.Sampler` -> periodic retraining ->
 prequential eval (:mod:`.loop`, with the sharded loops of the
 distributed schemes), its keyed twin over a
-:class:`repro_torch.bank.SamplerBank` (:mod:`.bank_loop`), and the
+:class:`repro_torch.bank.SamplerBank` (:mod:`.bank_loop`, with the
+key-sharded loop), and the
 model adapters (:mod:`.models`), closed-form and SGD."""
 from .bank_loop import (  # noqa: F401
     keyed_item_proto,
     make_bank_manage_step,
     make_bank_run_loop,
+    make_sharded_bank_loop,
+    make_sharded_bank_manage_step,
     pooled_view,
+    shard_keyed_stream,
 )
 from .loop import (  # noqa: F401
     init_sharded_state,

@@ -30,8 +30,18 @@ the retrain decision are host ints; nothing else is read on the host.
 ``telemetry=`` adds JAX's bank row a tick (:func:`_make_bank_stats`:
 routing gauges, the probed tenant's Thm 4.1 columns, the laziest key's
 pending decay, the controller's gauges), drained as in :mod:`.loop`; the
-outputs stay bit-identical. Not ported yet: the key-sharded loop and
-``shard_keyed_stream`` (ROADMAP A.7).
+outputs stay bit-identical.
+
+The key-sharded loop (:func:`make_sharded_bank_loop`, JAX's
+``make_sharded_bank_loop``) splits the KEYS over S shards instead of the
+batch: shard s owns the contiguous key range [s K_s, (s + 1) K_s) with its
+own local bank and model (farm), the stream co-partitioned by key
+ownership (:func:`shard_keyed_stream`). The S banks are one key-sharded
+bank (:func:`repro_torch.bank.shard_bank`) whose state carries a leading
+[S] dimension, so one bank step a tick covers every shard (one B3 launch);
+the tick routes only the tick's valid rows, at most the stream's largest
+tick (read on the host once, before the first tick). Each shard's models
+are evaluated and fit on its own rows and keys.
 """
 from __future__ import annotations
 
@@ -41,11 +51,12 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.bank import Routing, SamplerBank
-from repro_torch.core import prng
+from repro_torch import _device
+from repro_torch.bank import Routing, SamplerBank, shard_bank
+from repro_torch.core import distributed, prng
 from repro_torch.core.api import SampleView
-from repro_torch.manage.loop import (_check_telemetry, _drive, _stacked, _telemetry_hook,
-                                     item_proto, tick_keys)
+from repro_torch.manage.loop import (_check_mesh, _check_telemetry, _drive, _shard0,
+                                     _stacked, _telemetry_hook, item_proto, tick_keys)
 from repro_torch.manage.models import ModelAdapter
 from repro_torch.obs import probe as _obs_probe
 from repro_torch.obs.profile import scope as _scope
@@ -284,3 +295,219 @@ def _make_bank_stats(bank: SamplerBank, controller, per_key: bool,
         return row
 
     return stats_fn
+
+
+# ---------------------------------------------------------------------------
+# the key-sharded loop: keys split over S shards, one bank step for all
+# ---------------------------------------------------------------------------
+def _shard_of(tree: Any, s: int) -> Any:
+    return pytree.tree_map(lambda a: a[s], tree)
+
+
+def _stack_shards(trees: list) -> Any:
+    return pytree.tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _shards_metric(model: ModelAdapter) -> Callable:
+    """The key-sharded loop's shared metric: shard s's model evaluated on
+    shard s's rows, the shards' metrics weighted by their shares of the
+    tick's arrivals ``w_s / sum(w)``, NaN only when the GLOBAL tick is
+    empty. JAX divides the weighted sum by ``sum(w)`` instead
+    (``loop.py:_psum_metric``); taking the shares first keeps one shard's
+    metric exact, so at S = 1 the metric is the local loop's bit for bit
+    (ROADMAP C.19)."""
+
+    def metric_of(params, batch_s, bcount):
+        S = bcount.shape[-1]
+        m_s = torch.stack([model.evaluate(_shard_of(params, s), _shard_of(batch_s, s),
+                                          bcount[s]) for s in range(S)])
+        w_s = bcount.to(torch.float32)
+        den = w_s.sum()
+        share = w_s / torch.clamp(den, min=1.0)
+        return torch.where(den > 0, (torch.where(bcount > 0, m_s, 0.0) * share).sum(),
+                           torch.nan)
+
+    return metric_of
+
+
+def make_sharded_bank_manage_step(bank: SamplerBank, model: ModelAdapter, mesh, *,
+                                  retrain_every: int = 1, train_keys,
+                                  per_key: bool = False, rows: int | None = None,
+                                  _with_obs: bool = False) -> Callable:
+    """ONE tick of the key-sharded loop: ``(key, t, state, params, batch,
+    bcount) -> (state, params, metrics)``, the tick :func:`make_sharded_bank_loop`
+    runs. ``state`` is the gathered key-sharded bank state (leaves [S, K_s,
+    ...]), ``params`` [S, ...] ([S, Q, ...] per key), ``batch`` a
+    co-partitioned keyed tick (``"key"`` [S * b_s], local ids) and
+    ``bcount`` [S]. ``metrics``: ``"metric"`` [S] (the global metric on
+    every shard; [S, Q] per key, shard-local), ``"size"`` [S, Q],
+    ``"overflow"`` [S]. ``rows`` is the routed batch size (default S *
+    b_s), at least the tick's valid count. Consumes ``state``."""
+    S = mesh.num_shards
+    sbank = shard_bank(bank, S)
+    tk = _as_train_keys(train_keys, bank.num_keys, bank.device)
+    Q = tk.shape[0]
+    gk = (torch.arange(S, device=bank.device).unsqueeze(-1) * bank.num_keys + tk).reshape(-1)
+    v_eval = torch.func.vmap(model.evaluate)
+    v_fit = torch.func.vmap(model.fit)
+    shared_metric = _shards_metric(model)
+
+    def tick(key, t: int, state, params, batch, bcount):
+        k_step, k_extract, k_fit = tick_keys(key, t)
+        keys_t, payload = _split_keyed(batch)
+        do_fit = (t + 1) % retrain_every == 0
+        with _scope("manage.sampler_step"):
+            state, bstats = sbank.step_stats(k_step, state, keys_t, payload, bcount,
+                                             rows=rows)
+        with _scope("manage.eval"):
+            if per_key:
+                windows, counts = _train_windows(bstats["routing"], bstats["payload"],
+                                                 bank.bcap, gk)
+                windows = pytree.tree_map(lambda a: a.reshape((S, Q) + tuple(a.shape[1:])),
+                                          windows)
+                counts = counts.reshape(S, Q)
+                metric = torch.stack([v_eval(_shard_of(params, s), _shard_of(windows, s),
+                                             counts[s]) for s in range(S)])
+            else:
+                metric = shared_metric(params, distributed.split_batch(payload, S),
+                                       bcount).expand(S)
+        if do_fit:
+            with _scope("manage.retrain"):
+                view = sbank.extract(k_extract, state, tk)
+                if per_key:
+                    ks = prng.key_rows(k_fit, Q, bank.device)
+                    params = _stack_shards([v_fit(ks, _shard_of(params, s), _shard_of(view, s))
+                                            for s in range(S)])
+                else:
+                    params = _stack_shards([model.fit(k_fit, _shard_of(params, s),
+                                                      pooled_view(_shard_of(view, s)))
+                                            for s in range(S)])
+        with _scope("manage.size"):
+            metrics = {"metric": metric, "size": sbank.size(k_extract, state, tk),
+                       "overflow": bstats["overflow"]}
+        if _with_obs:
+            metrics["_obs"] = {k: bstats[k] for k in ("ntouched", "invalid", "decay")}
+        return state, params, metrics
+
+    return tick
+
+
+def make_sharded_bank_loop(bank: SamplerBank, model: ModelAdapter, mesh, *,
+                           retrain_every: int = 1, train_keys,
+                           per_key: bool = False, superbatch: int | None = None,
+                           telemetry=None) -> Callable:
+    """The key-sharded bank loop (module docstring): ``run(key, batches,
+    bcounts) -> (state, params, trace)``.
+
+      * ``bank`` is the LOCAL bank of one shard (``num_keys`` = K_s = K /
+        S), ``mesh`` the port's :func:`repro_torch.launch.mesh.make_data_mesh`
+        of S shards;
+      * ``batches`` / ``bcounts``: the co-partitioned keyed stream of
+        :func:`shard_keyed_stream` (leaves [T, S * b_s, ...], local key
+        ids; [T, S]);
+      * ``train_keys``: LOCAL ids, the same subset on every shard; every
+        shard uses tick t's same keys (:func:`.loop.tick_keys`), and each
+        key draws from them with its local id folded in (ROADMAP C.18);
+      * outputs in JAX's gathered form: ``state`` leaves [S, K_s, ...],
+        ``params`` [S, ...] (per key [S, Q, ...]), every ``trace`` leaf
+        [S, T, ...]: ``"metric"`` (shared: the |B_t|-weighted global
+        metric, the same row on every shard; per key: each shard's keys'
+        own), ``"size"`` [S, T, Q], ``"overflow"`` [S, T].
+
+    ``bcounts`` is read on the host once, before the first tick, to size
+    the routed batch (the largest tick). ``telemetry`` drains shard 0's
+    view (its bank, its key range, its rows), as
+    :func:`.loop.make_sharded_run_loop` does; the outputs stay
+    bit-identical. ``superbatch`` is accepted for JAX's signature and
+    changes nothing."""
+    del superbatch
+    _check_telemetry(telemetry)
+    train_keys = list(train_keys)
+    stats_fn = None
+    if telemetry is not None:
+        pk = telemetry.probe_key if telemetry.probe_key is not None else 0
+        base = _make_bank_stats(bank, None, per_key, retrain_every, pk)
+
+        def stats_fn(t, batch, bcount, state, carry, m):
+            b_s = batch[KEY_FIELD].shape[0] // bcount.shape[-1]
+            m0 = {k: m[k][0] for k in ("metric", "size", "overflow")}
+            m0["_obs"] = {"ntouched": m["_obs"]["ntouched"][0],
+                          "invalid": m["_obs"]["invalid"][0], "decay": m["_obs"]["decay"]}
+            return base(t, {f: v[:b_s] for f, v in batch.items()}, bcount[0],
+                        _shard0(state), carry, m0)
+
+    def run(key: prng.Key, batches: Any, bcounts: torch.Tensor):
+        S = _check_mesh(mesh, bcounts)
+        rows = max(int(bcounts.sum(-1).max()), 1)   # the one host read
+        tick = make_sharded_bank_manage_step(
+            bank, model, mesh, retrain_every=retrain_every, train_keys=train_keys,
+            per_key=per_key, rows=rows, _with_obs=telemetry is not None)
+        params = _stacked(model.init(), len(train_keys)) if per_key else model.init()
+        params = _stacked(params, S)
+        state = shard_bank(bank, S).init(keyed_item_proto(batches))
+        on_tick = finish = None
+        if telemetry is not None:
+            on_tick, finish = _telemetry_hook(
+                telemetry, stats_fn, bank.device,
+                {"scheme": f"bank.{bank.scheme}", "ticks": int(bcounts.shape[0]),
+                 "state_bytes": _obs_probe.tree_nbytes(_shard0(state))})
+        state, params, trace = _drive(tick, key, state, params, (), batches, bcounts,
+                                      on_tick)
+        if finish is not None:
+            finish()
+        return state, params, {k: v.movedim(0, 1) for k, v in trace.items()}
+
+    return run
+
+
+def shard_keyed_stream(batches: Any, bcounts, num_shards: int, num_keys: int, *,
+                       bcap_s: int | None = None, device=None):
+    """Re-pack a materialized KEYED stream into the key-ownership layout
+    :func:`make_sharded_bank_loop` consumes (the JAX package's
+    ``shard_keyed_stream``).
+
+    Keys are split into ``num_shards`` contiguous ranges of ``num_keys //
+    num_shards`` (which must divide; an id past the last range belongs to
+    the last shard, a negative one to the first); tick t's valid items
+    move into their owning shard's segment in arrival order, key ids
+    LOCALIZED to the shard's range. Returns ``(batches, bcounts)`` on
+    ``device`` (None: the CUDA card): leaves [T, S * bcap_s, ...]
+    zero-padded per segment and [T, S] int64; ``bcap_s`` defaults to the
+    largest per-shard count."""
+    if num_keys % num_shards:
+        raise ValueError(f"num_keys={num_keys} must divide evenly over "
+                         f"num_shards={num_shards} contiguous key ranges")
+    dev = _device.resolve(device)
+    host = lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)  # noqa: E731
+    ks = num_keys // num_shards
+    keys = host(batches[KEY_FIELD])
+    bcounts = host(bcounts)
+    T, S = bcounts.shape[0], num_shards
+    counts = np.zeros((T, S), np.int64)
+    sel = []
+    for t in range(T):
+        owner = np.clip(keys[t, :int(bcounts[t])] // ks, 0, S - 1)
+        order = np.argsort(owner, kind="stable")      # arrival order within a shard
+        counts[t] = np.bincount(owner, minlength=S)
+        sel.append(order)
+    need = int(counts.max()) if T else 0
+    bcap_s = max(need, 1) if bcap_s is None else bcap_s
+    if need > bcap_s:
+        raise ValueError(f"per-shard keyed batch {need} exceeds bcap_s={bcap_s}")
+
+    def repack(leaf, localize=False):
+        leaf = host(leaf)
+        out = np.zeros((T, S * bcap_s) + leaf.shape[2:], leaf.dtype)
+        for t in range(T):
+            off = 0
+            for s in range(S):
+                c = int(counts[t, s])
+                seg = leaf[t, sel[t][off:off + c]]
+                if localize:
+                    seg = seg - leaf.dtype.type(s * ks)
+                out[t, s * bcap_s:s * bcap_s + c] = seg
+                off += c
+        return torch.from_numpy(out).to(dev)
+
+    out = {f: repack(v, localize=(f == KEY_FIELD)) for f, v in batches.items()}
+    return out, torch.from_numpy(counts).to(dev)

@@ -68,3 +68,15 @@ def nb_predict(params, query_counts) -> torch.Tensor:
     log_prior, log_like = params
     scores = query_counts @ log_like.T + log_prior[None]
     return torch.argmax(scores, dim=-1).to(torch.int32)
+
+
+def expected_shortfall(values, frac: float) -> float:
+    """z% ES: the mean of the worst ``max(1, round(frac n))`` of ``n``
+    values, largest first (paper Sec. 6.2, [27]); on the host, in numpy."""
+    import numpy as np
+
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    v = np.sort(np.asarray(values))[::-1]   # worst (largest error) first
+    k = max(1, int(round(frac * len(v))))
+    return float(v[:k].mean())

@@ -47,6 +47,7 @@ MODULES = [
     "repro_torch.models.ssm",
     "repro_torch.models.mamba_lm",
     "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+    "repro_torch.optim.compress",
     "repro_torch.checkpoint", "repro_torch.checkpoint.store",
     "repro_torch.obs", "repro_torch.obs.sinks", "repro_torch.obs.monitors",
     "repro_torch.obs.probe", "repro_torch.obs.telemetry",
