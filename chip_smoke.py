@@ -12,8 +12,9 @@ without the adaptive decay controller, Monte-Carlo farms through
 ``shard_keyed_stream`` / ``make_sharded_bank_loop``, and batched
 LM serving of every family of the zoo (dense, Mamba2, MoE, vlm, hybrid,
 encoder-decoder) through
-``repro_torch.launch.serve.serve_batch``) at full state and model size, after
-building every CUDA kernel from ``src/repro_torch/kernels/csrc`` and holding
+``repro_torch.launch.serve.serve_batch``) at full state and model size, and
+the dry run of the (arch x shape) grid with four of its cells checked
+against real steps, after building every CUDA kernel from ``src/repro_torch/kernels/csrc`` and holding
 each against its plain PyTorch version on the card. Imports neither JAX nor
 the JAX package. Every check raises on failure; no phase catches its own.
 
@@ -194,10 +195,31 @@ the JAX package. Every check raises on failure; no phase catches its own.
      C.18). (c) ``compress_grads`` over mamba2_370m's parameter shapes card
      == CPU bit for bit; the four ``examples_torch/`` scripts run on the
      card as subprocesses, all started together, each exiting 0;
- 19. the ``kernels`` JSON line, the card line, and the result line.
+ 19. the dry run (``repro_torch.launch.dryrun``) and the card against it:
+     (a) ``python -m repro_torch.launch.dryrun --all --mesh single`` as a
+     CPU subprocess on meta tensors: all 40 (arch x shape) cells, 33
+     counted on the 16 x 16 mesh and 7 skipped, one line a cell (FLOPs a
+     device, memory, the dominant term, whether it fits), the records in
+     ``results/dryrun_torch/``; (b) four cells cut to the card (mamba2_370m
+     train_4k at batch 16, stablelm_12b prefill_32k through B4 at batch 8,
+     mamba2_370m prefill_32k through B5, stablelm_12b decode_32k at batch
+     32; each cut printed beside what twice the batch would need) run at
+     full width at ``cost_depths``' two depths: FlopCounterMode's total on
+     the card equal to the meta count op by op, the extrapolation of the
+     card's two counts equal to the meta count at full depth,
+     ``max_memory_allocated`` within max(5 %, 1 GiB) of the meta
+     ``peak_est_bytes`` on a 1 x 1 mesh, the median of five steps beside
+     max(t_compute, t_memory) (and with B4's calls at the pairs their masks
+     keep), one step profiled; (c) B4 and B5 through their registered ops
+     bit for bit against a direct launch on the same inputs, the launch
+     counters, and the host time a call of the wrapper, the op and a bare
+     launch. (c) and (b)'s timed steps run first, while no subprocess of
+     this script runs; the CPU counts then overlap the card's untimed
+     counts at the deeper depth;
+ 20. the ``kernels`` JSON line, the card line, and the result line.
 
-``python3 chip_smoke.py --only 13,13d,14,15,16,17,18`` runs only the listed
-phases of 13-18 (no kernels line, no result line).
+``python3 chip_smoke.py --only 13,13d,14,15,16,17,18,19`` runs only the
+listed phases of 13-19 (no kernels line, no result line).
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -214,14 +236,10 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 # spec-sheet dense peaks (FLOP/s) of an H100 / H200 SXM: bf16 on the tensor
-# cores, f32 on the CUDA cores (the port's f32 runs no TF32)
-PEAK = {"bfloat16": 989e12, "float32": 67e12}
-
-# spec-sheet device-memory bandwidth (bytes/s) by the name nvidia-smi reports
-_HBM = [("H200", 4.8e12, "H200 SXM spec sheet, 4.8 TB/s"),
-        ("H100 NVL", 3.9e12, "H100 NVL spec sheet, 3.9 TB/s"),
-        ("H100 PCIe", 2.0e12, "H100 PCIe spec sheet, 2.0 TB/s"),
-        ("H100", 3.35e12, "H100 SXM spec sheet, 3.35 TB/s")]
+# cores, f32 on the CUDA cores (the port's f32 runs no TF32); filled from
+# repro_torch/launch/hw.py, the one home of the spec-sheet numbers, once the
+# checkout is on the path
+PEAK: dict[str, float] = {}
 
 N_MAIN, BCAP_MAIN, LAM = 1_048_575, 65_536, 0.03
 RETRAIN_EVERY = 4
@@ -237,10 +255,11 @@ def check(cond, msg: str) -> None:
 
 
 def hbm_for(name: str):
-    for key, bw, label in _HBM:
-        if key in name:
-            return bw, label
-    return 3.35e12, "H100 SXM spec sheet, 3.35 TB/s (card not in table)"
+    """Spec-sheet device-memory bandwidth (bytes/s) and its label, by the
+    name nvidia-smi reports (``hw.hbm_bw_for``)."""
+    from repro_torch.launch import hw
+
+    return hw.hbm_bw_for(name)
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -4072,6 +4091,341 @@ def phase_key_sharded(torch, np, kernels) -> dict:
             "parity": diffs, "peak_gb": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dry run and the card against it
+# ---------------------------------------------------------------------------
+# (name, arch, shape, config overrides, the batch cut): each cut halves the
+# batch until the deeper cost depth's meta peak_est fits in 0.75 of the card
+# (what the doubled batch would need is printed beside it)
+DRY_CHECKS = (("train", "mamba2_370m", "train_4k", {}, 16),
+              ("prefill B4", "stablelm_12b", "prefill_32k", {"attention_impl": "pallas"}, 8),
+              ("prefill B5", "mamba2_370m", "prefill_32k", {}, None),
+              ("decode", "stablelm_12b", "decode_32k", {}, 32))
+DRY_TIMED = 5           # timed steps after a warm-up, at the shallower depth
+DRY_MEM_TOL = (0.05, 1 << 30)   # |card - meta| <= max(5 % of meta, 1 GiB)
+
+
+def _spawn(args, out_path, children: list):
+    """A CPU-only subprocess of this checkout writing to ``out_path``,
+    appended to ``children``; (proc, file, path)."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    f = open(out_path, "w")
+    proc = subprocess.Popen([sys.executable] + args, cwd=HERE, env=env, stdout=f,
+                            stderr=subprocess.STDOUT, text=True)
+    children.append((proc, f))
+    return proc, f, out_path
+
+
+def _host_check(name: str, tmp: Path, doubled: bool, children: list):
+    """``dryrun.host_check`` of DRY_CHECKS' ``name`` in a subprocess."""
+    _, arch, shape, over, batch = next(c for c in DRY_CHECKS if c[0] == name)
+    spec = json.dumps(dict(arch=arch, shape_name=shape, overrides=over, global_batch=batch,
+                           doubled=doubled))
+    code = ("import json, sys; from repro_torch.launch import dryrun; "
+            "print(json.dumps(dryrun.host_check(**json.loads(sys.argv[1]))))")
+    return _spawn(["-c", code, spec], tmp / f"{name.replace(' ', '_')}.log", children)
+
+
+def _wait(handle, what, timeout):
+    proc, f, out_path = handle
+    proc.wait(timeout=timeout)
+    f.close()
+    text = Path(out_path).read_text()
+    check(proc.returncode == 0, f"[19] {what} exited {proc.returncode}:\n{text[-4000:]}")
+    return text
+
+
+def _ops_diff(a: dict, b: dict) -> dict:
+    return {k: (a.get(k, 0), b.get(k, 0)) for k in sorted(set(a) | set(b))
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+def _dry_card_step(torch, kernels, name, arch, shape, over, batch, L, timed: bool) -> dict:
+    """One cut cell at ``L`` layers on the card: counted once (FlopCounterMode
+    and the byte tracker, as on meta) with its peak device memory above what
+    was allocated before its params, its launches; ``timed``: the median
+    host-clock step over DRY_TIMED synchronized steps after a warm-up, and
+    one more step under the profiler (device busy time, idle share, scopes
+    and top kernels)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cfg, shp, step, args, mb = dryrun.build_cell(
+        arch, shape, make_host_mesh(1, 1), overrides={**dryrun.BASE_OVERRIDES, **over,
+                                                      "num_layers": L},
+        device="cuda", global_batch=batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    c = dryrun.count_step(step, args)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() - base
+    launches = {k: v for k, v in kernels.launches().items() if v}
+    ms = None
+    if timed:
+        step(*args)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(DRY_TIMED):
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(ts)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        scopes = _SSM_SCOPES if arch.startswith("mamba2") else _LM_SCOPES
+        prof_res = _breakdown(torch, prof, wall, "[19] (b)", scopes,
+                              (("B4 kernel", "flash_attention"), ("B5 kernel", "ssd_scan")),
+                              what=f"{name} step at {L} layers")
+        del prof
+    del args, step
+    torch.cuda.empty_cache()
+    return {"flops": c["flops"], "flops_by_op": c["flops_by_op"],
+            "flops_masked": c["flops_masked"], "mem": mem, "tracker_peak": c["peak"],
+            "launches": launches, "ms": ms, "profile": prof_res if timed else None,
+            "count_s": c["seconds"], "mb": mb, "batch": shp.global_batch}
+
+
+def _b4_b5_through_ops(torch, timer) -> dict:
+    """(c) B4's and B5's outputs through the registered ops bit for bit
+    against a direct launch of the same kernel on the same inputs, the
+    launch counters, and the host time a call (the wrapper, the op alone,
+    its CUDA implementation called as a function, the bare launch)."""
+    from repro_torch.kernels._common import tma_strides
+    from repro_torch.kernels.flash_attention import kernel as fk, ops as fa
+    from repro_torch.kernels.ssd_scan import kernel as sk, ops as ss
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    out = {}
+    for dt, shape, route in ((torch.bfloat16, (8, 2048, 32, 8, 160), "tensor_core"),
+                             (torch.float32, (2, 512, 8, 2, 64), "cuda_core")):
+        B, S, H, KV, hd = shape
+        q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
+        k = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
+        v = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
+        n0, t0 = fa.flash_attention.launches, fa.flash_attention.tensor_core_launches
+        got = fa.flash_attention(q, k, v)
+        direct = torch.empty_like(q)
+        if route == "tensor_core":
+            fk.flash_attention_tc(q, k, v, direct, True, 0,
+                                  tuple(tma_strides(x.shape, x.stride()) for x in (q, k, v)))
+        else:
+            fk.flash_attention(q, k, v, direct, True, 0)
+        torch.cuda.synchronize()
+        check(torch.equal(got, direct), f"[19] (c) B4 {route}: the op != a direct launch")
+        check(fa.flash_attention.launches == n0 + 1 and fa.flash_attention.tensor_core_launches
+              == t0 + (route == "tensor_core"), f"[19] (c) B4 {route}: counters off")
+        print(f"[19] (c) B4 {route} {list(shape)} {str(dt)[6:]}: through "
+              f"torch.ops.repro_torch.flash_attention == a direct launch, bit for bit; "
+              f"launches +1 (tensor-core +{int(route == 'tensor_core')})")
+        out[f"b4_{route}_equal"] = True
+    for dt, route in ((torch.bfloat16, "tensor_core"), (torch.float32, "cuda_core")):
+        B, S, H, G, N, P, Q = (4, 4096, 32, 1, 128, 64, 256) if dt == torch.bfloat16 \
+            else (2, 512, 8, 1, 64, 32, 64)
+        x, dtt, a, Bm, Cm = _b5_operands(torch, B, S, H, G, N, P, dt, g, strided=True,
+                                         model=True)
+        n0, t0 = ss.ssd_scan.launches, ss.ssd_scan.tensor_core_launches
+        y, st = ss.ssd_scan(x, dtt, a, Bm, Cm, chunk=Q)
+        yd, sd = torch.empty_like(y), torch.empty_like(st)
+        if route == "tensor_core":
+            sk.ssd_scan_tc(x, dtt, a, Bm, Cm, None, yd, sd, Q,
+                           tuple(tma_strides(t.shape, t.stride()) for t in (x, Bm, Cm)))
+        else:
+            sk.ssd_scan(x, dtt, a, Bm, Cm, None, yd, sd, Q)
+        torch.cuda.synchronize()
+        check(torch.equal(y, yd) and torch.equal(st, sd),
+              f"[19] (c) B5 {route}: the op != a direct launch")
+        check(ss.ssd_scan.launches == n0 + 1 and ss.ssd_scan.tensor_core_launches
+              == t0 + (route == "tensor_core"), f"[19] (c) B5 {route}: counters off")
+        print(f"[19] (c) B5 {route} [B, S, H, G, N, P, Q] = {[B, S, H, G, N, P, Q]} "
+              f"{str(dt)[6:]} (the conv output's views): through torch.ops.repro_torch.ssd_scan "
+              f"== a direct launch, y and state bit for bit; launches +1")
+        out[f"b5_{route}_equal"] = True
+    # host time a call at a small shape (the device idle behind a queued sleep)
+    bf = torch.bfloat16
+    q = torch.randn((1, 128, 2, 64), generator=g, device="cuda").to(bf)
+    o = torch.empty_like(q)
+    st = tuple(tma_strides(q.shape, q.stride()) for _ in range(3))
+    b4 = {"wrapper": timer.host(lambda: fa.flash_attention(q, q, q), 200),
+          "op": timer.host(lambda: fa.attend(q, q, q, True, 0, "tensor_core"), 200),
+          "impl": timer.host(lambda: fa._attend_cuda(q, q, q, True, 0, "tensor_core"), 200),
+          "launch": timer.host(lambda: fk.flash_attention_tc(q, q, q, o, True, 0, st), 200)}
+    x, dtt, a, Bm, Cm = _b5_operands(torch, 1, 256, 2, 1, 16, 16, bf, g, strided=False,
+                                     model=True)
+    y, s_ = torch.empty_like(x), torch.empty((1, 2, 16, 16), device="cuda")
+    sts = tuple(tma_strides(t.shape, t.stride()) for t in (x, Bm, Cm))
+    b5 = {"wrapper": timer.host(lambda: ss.ssd_scan(x, dtt, a, Bm, Cm, chunk=64), 200),
+          "op": timer.host(lambda: ss.scan(x, dtt, a, Bm, Cm, None, 64, "tensor_core"), 200),
+          "impl": timer.host(lambda: ss._scan_cuda(x, dtt, a, Bm, Cm, None, 64,
+                                                   "tensor_core"), 200),
+          "launch": timer.host(lambda: sk.ssd_scan_tc(x, dtt, a, Bm, Cm, None, y, s_, 64, sts),
+                               200)}
+    for name, h in (("B4", b4), ("B5", b5)):
+        print(f"[19] (c) {name} host ms a call (median of 200): wrapper {h['wrapper']:.4f}, "
+              f"the op {h['op']:.4f}, its CUDA implementation as a function "
+              f"{h['impl']:.4f}, the bare ctypes launch {h['launch']:.4f}: the op's dispatch "
+              f"{h['op'] - h['impl']:.4f} ms, the wrapper over a direct launch "
+              f"{h['wrapper'] - h['launch']:.4f} ms")
+    out["b4_host_ms"], out["b5_host_ms"] = b4, b5
+    return out
+
+
+def _dry_compare(name, arch, shape, over, batch, meta, card, total) -> dict:
+    """(b) one cut cell: the card's counts, memory and time against the meta
+    side (``dryrun.host_check``); raises on a FLOP gap, on memory past
+    DRY_MEM_TOL, on an inexact extrapolation, or on a cut deeper than the
+    card's memory forces."""
+    from repro_torch.config import SHAPES
+    from repro_torch.launch import dryrun
+
+    u1, u2, u_full = card["u"]
+    cut = f"batch {meta['l1']['global_batch']} of {SHAPES[shape].global_batch}" if batch \
+        else "the full batch"
+    print(f"[19] (b) {name}: {arch}/{shape} {over or ''} at {u1} and {u2} of {u_full} "
+          f"layers, {cut}")
+    if "l2_doubled" in meta:
+        d = meta["l2_doubled"]
+        print(f"[19] (b)   cut: meta peak_est at {u2} layers "
+              f"{meta['l2']['peak_est_bytes'] / 1e9:.2f} GB; with batch {d['global_batch']} "
+              f"{d['peak_est_bytes'] / 1e9:.2f} GB, past 0.75 of the card's "
+              f"{total / 1e9:.2f} GB")
+        check(d["peak_est_bytes"] > 0.75 * total,
+              f"[19] (b) {name}: the batch cut is deeper than the card's memory forces")
+    res = {"arch": arch, "shape": shape, "overrides": over,
+           "batch": meta["l1"]["global_batch"], "depths": [u1, u2, u_full]}
+    for lv in ("l1", "l2"):
+        c, m = card[lv], meta[lv]
+        diff = _ops_diff(c["flops_by_op"], m["flops_by_op"])
+        tol = max(DRY_MEM_TOL[0] * m["peak_est_bytes"], DRY_MEM_TOL[1])
+        print(f"[19] (b)   {m['num_layers']} layers: FLOPs card {c['flops']:.6e} meta "
+              f"{m['flops']:.6e} ({'equal' if c['flops'] == m['flops'] else 'DIFFER'}; by op "
+              f"{c['flops_by_op']}); memory card {c['mem'] / 1e9:.3f} GB "
+              f"(max_memory_allocated above the baseline) vs meta peak_est "
+              f"{m['peak_est_bytes'] / 1e9:.3f} GB "
+              f"({(c['mem'] / m['peak_est_bytes'] - 1) * 100:+.2f} %, tolerance "
+              f"{tol / 1e9:.3f} GB); the tracker on the card {c['tracker_peak'] / 1e9:.3f} GB "
+              f"vs on meta {m['peak'] / 1e9:.3f} GB; launches {c['launches']}; counted in "
+              f"{c['count_s']:.1f} s (meta {m['count_s']:.1f} s)")
+        check(not diff and c["flops"] == m["flops"],
+              f"[19] (b) {name} at {m['num_layers']} layers: card FLOPs != meta, by op "
+              f"(card, meta) {diff}")
+        check(abs(c["mem"] - m["peak_est_bytes"]) <= tol,
+              f"[19] (b) {name} at {m['num_layers']} layers: card memory {c['mem']} vs "
+              f"meta peak_est {m['peak_est_bytes']}, past {tol:.0f}")
+        res[lv] = {"flops": c["flops"], "meta_flops": m["flops"], "mem": c["mem"],
+                   "peak_est": m["peak_est_bytes"], "tracker_card": c["tracker_peak"],
+                   "tracker_meta": m["peak"], "launches": c["launches"]}
+    ext = dryrun._extrapolate({"flops": card["l1"]["flops"], "bytes": 0.0, "coll": {}},
+                              {"flops": card["l2"]["flops"], "bytes": 0.0, "coll": {}},
+                              u1, u2, u_full)["flops"]
+    full_meta = meta["full"]["flops"]
+    print(f"[19] (b)   extrapolated from the card's two depths to {u_full} layers: "
+          f"{ext:.6e}; meta at full depth {full_meta:.6e} (difference {ext - full_meta:.6g})")
+    check(abs(ext - full_meta) <= 1e-12 * full_meta,
+          f"[19] (b) {name}: extrapolation {ext} != meta full depth {full_meta}")
+    c1, m1 = card["l1"], meta["l1"]
+    check(c1["flops_masked"] == m1["flops_masked"],
+          f"[19] (b) {name}: the masked count on the card != meta")
+    bound = max(m1["t_compute"], m1["t_memory"]) * 1e3
+    by = "t_compute" if m1["t_compute"] >= m1["t_memory"] else "t_memory"
+    bound_m = max(m1["t_compute_masked"], m1["t_memory"]) * 1e3
+    print(f"[19] (b)   time at {m1['num_layers']} layers: median step {c1['ms']:.3f} ms over "
+          f"{DRY_TIMED} after a warm-up; max(t_compute, t_memory) {bound:.3f} ms ({by}; "
+          f"t_compute {m1['t_compute'] * 1e3:.3f}, t_memory {m1['t_memory'] * 1e3:.3f}): "
+          f"the bound is {bound / c1['ms'] * 100:.1f} % of the step; with B4's calls at the "
+          f"pairs their masks keep, t_compute {m1['t_compute_masked'] * 1e3:.3f} ms and the "
+          f"bound {bound_m:.3f} ms, {bound_m / c1['ms'] * 100:.1f} % of the step")
+    res.update(extrapolated=ext, meta_full=full_meta, ms=c1["ms"], bound_ms=bound,
+               bound_by=by, bound_masked_ms=bound_m, profile=c1["profile"])
+    return res
+
+
+def phase_dryrun(torch, np, kernels, timer) -> dict:
+    """Phase 19, in two parts. While the host runs nothing else of this
+    script: (c) B4 and B5 through their registered ops (bit for bit, the
+    counters, host ms a call), and (b) each cut cell at its shallower depth
+    on the card: counted, timed and profiled. Then (a) the dry run of all 40
+    cells on the 16 x 16 mesh and (b)'s meta counts run in CPU subprocesses
+    while the card counts each cell at its deeper depth (untimed)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels._bench import card
+    from repro_torch.launch import dryrun, hw
+
+    t_phase = time.perf_counter()
+    smi = card()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[19] card: {smi}; total_memory {total} B ({total / 1e9:.2f} GB) against hw's "
+          f"{hw.HBM_PER_CHIP / 1e9:.0f} GB (H100 SXM spec sheet); the dry run's constants: "
+          f"{hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16, {hw.HBM_BW / 1e12:.2f} TB/s (spec "
+          f"sheet); host: {os.cpu_count()} cores, {len(os.sched_getaffinity(0))} usable")
+
+    # the host's timings first, with no subprocess of this script running
+    ops_res = _b4_b5_through_ops(torch, timer)
+    cards = {}
+    for name, arch, shape, over, batch in DRY_CHECKS:
+        o1, o2, u_full, u1, u2 = dryrun.cost_depths(get_config(arch))
+        cards[name] = {"u": (u1, u2, u_full), "o2": o2,
+                       "l1": _dry_card_step(torch, kernels, name, arch, shape, over, batch,
+                                            o1["num_layers"], True)}
+    t_quiet = time.perf_counter() - t_phase
+
+    out_dir = HERE / "results" / "dryrun_torch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    children = []
+    try:
+        grid = _spawn(["-m", "repro_torch.launch.dryrun", "--all", "--mesh", "single",
+                       "--jobs", "6", "--out", str(out_dir)], tmp / "grid.log", children)
+        metas = {name: _host_check(name, tmp, batch is not None, children)
+                 for name, _, _, _, batch in DRY_CHECKS}
+        for name, arch, shape, over, batch in DRY_CHECKS:
+            cards[name]["l2"] = _dry_card_step(torch, kernels, name, arch, shape, over, batch,
+                                               cards[name]["o2"]["num_layers"], False)
+        t_card = time.perf_counter() - t_phase
+        results = {}
+        for name, arch, shape, over, batch in DRY_CHECKS:
+            meta = json.loads(_wait(metas[name], f"host_check {name}", 600)
+                              .strip().splitlines()[-1])
+            results[name] = _dry_compare(name, arch, shape, over, batch, meta, cards[name],
+                                         total)
+        text = _wait(grid, "the dry run", 900)
+    finally:                    # a failed check leaves no subprocess behind
+        for proc, f in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    lines = [ln for ln in text.splitlines() if ln.startswith("[dryrun]")]
+    counted = [ln for ln in lines if "fits=" in ln]
+    skipped = [ln for ln in lines if "SKIPPED" in ln]
+    for ln in lines:
+        print(f"[19] (a) {ln}")
+    recs = sorted(out_dir.glob("*.json"))
+    check(len(counted) == 33 and len(skipped) == 7 and len(recs) == 40,
+          f"[19] (a) {len(counted)} counted lines, {len(skipped)} skipped, {len(recs)} records")
+    shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[19] (a) 33 cells counted and 7 skipped, {len(recs)} records in "
+          f"{out_dir.relative_to(HERE)}; phase wall time {wall:.1f} s (the quiet part "
+          f"{t_quiet:.1f} s, the card's part {t_card:.1f} s)")
+    return {"checks": results, "ops": ops_res, "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -4090,6 +4444,9 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels import _build
     from repro_torch.kernels._bench import Timer, card
+    from repro_torch.launch import hw
+
+    PEAK.update(bfloat16=hw.PEAK_FLOPS_BF16, float32=hw.PEAK_FLOPS_F32)
 
     smi = card()
     name = torch.cuda.get_device_name(0)
@@ -4117,7 +4474,8 @@ def main() -> int:
                        ("16", lambda: phase_sharded(torch, np, kernels, timer, bw,
                                                     float("nan"))),
                        ("17", lambda: phase_zoo(torch, np, kernels, timer, bw)),
-                       ("18", lambda: phase_key_sharded(torch, np, kernels))):
+                       ("18", lambda: phase_key_sharded(torch, np, kernels)),
+                       ("19", lambda: phase_dryrun(torch, np, kernels, timer))):
             if ph in only:
                 fn()
         print(f"chip_smoke: phases {only} only; no kernels line, no result line")
@@ -4150,9 +4508,11 @@ def main() -> int:
     zoo_res = phase_zoo(torch, np, kernels, timer, bw)
     t_ks = time.perf_counter()
     ks_res = phase_key_sharded(torch, np, kernels)
-    print(f"[19] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 {t_zoo - t_sh:.1f} s, "
-          f"phase 17 {t_ks - t_zoo:.1f} s, phase 18 {time.perf_counter() - t_ks:.1f} s, of "
-          f"{time.perf_counter() - t_all:.1f} s")
+    t_dry = time.perf_counter()
+    dry_res = phase_dryrun(torch, np, kernels, timer)
+    print(f"[20] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 {t_zoo - t_sh:.1f} s, "
+          f"phase 17 {t_ks - t_zoo:.1f} s, phase 18 {t_dry - t_ks:.1f} s, phase 19 "
+          f"{time.perf_counter() - t_dry:.1f} s, of {time.perf_counter() - t_all:.1f} s")
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -4243,6 +4603,15 @@ def main() -> int:
     rows[list(kres).index("ssd_scan")]["lm_zoo"] = {
         "prefill_launches": {a: n["ssd_scan"] for a, n in zoo_launches.items() if n["ssd_scan"]},
         "shapes": [zoo_res["b5"]]}
+    # B4 and B5 through their registered ops (phase 19): host ms a call, and
+    # their launches in each cut cell run on the card against the dry run
+    for k, tag in (("flash_attention", "b4"), ("ssd_scan", "b5")):
+        rows[list(kres).index(k)]["registered_op"] = {
+            "bit_equal_to_direct_launch": all(v for kk, v in dry_res["ops"].items()
+                                              if kk.startswith(tag) and kk.endswith("_equal")),
+            "host_ms": dry_res["ops"][f"{tag}_host_ms"],
+            "dryrun_cells": {name: {d: r[d]["launches"].get(k, 0) for d in ("l1", "l2")}
+                             for name, r in dry_res["checks"].items()}}
     print(json.dumps({"kernels": rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,8 +7,9 @@ resolves it from ``repro_torch/configs/<id>.py``. All ten architectures
 are here and build: dense, moe and vlm through ``models/transformer.py``,
 ssm through ``mamba_lm.py``, hybrid through ``hybrid.py`` and audio through
 ``encdec.py``.
-Shapes (the assignment's per-arch input shapes) are ``ShapeConfig``s. The
-dry-run grid ``cells()`` waits for the dry-run slice (ROADMAP A.12).
+Shapes (the assignment's per-arch input shapes) are ``ShapeConfig``s;
+``cells()`` is the dry run's (arch x shape) grid
+(:mod:`repro_torch.launch.dryrun`), JAX's list in JAX's order.
 
 ``attention_impl`` keeps the JAX values: ``"xla"`` is the plain torch path
 (:func:`repro_torch.models.attention.sdpa` / ``chunked_sdpa``) and
@@ -218,3 +219,18 @@ def get_config(name: str) -> ModelConfig:
 def get_smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     return _module(name).SMOKE
+
+
+def cells(include_skipped: bool = False):
+    """The assignment's (arch x shape) grid. Yields (arch_id, shape_name,
+    skip_reason|None). long_500k is skipped for pure full-attention archs and
+    decode shapes are kept for all (every assigned arch autoregressively
+    decodes; whisper decodes with its decoder)."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            skip = None
+            if shape.name == "long_500k" and not cfg.subquadratic:
+                skip = "full attention: 500k KV decode is infeasible (DESIGN.md §5)"
+            if skip is None or include_skipped:
+                yield arch, shape.name, skip

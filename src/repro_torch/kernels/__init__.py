@@ -28,7 +28,11 @@ PyTorch version of the same function.
                          the CUDA cores.
 
 Each ``ops`` wrapper launches its kernel for CUDA tensors (or raises) and
-runs the plain version for CPU tensors only. The kernels are compiled from
+runs the plain version for CPU tensors only. B4 and B5 launch through
+registered ops (``torch.ops.repro_torch.flash_attention`` / ``.ssd_scan``)
+that also give their outputs' shapes on the meta device and a FLOP formula,
+so the dry run (``repro_torch.launch.dryrun``) counts them as the card runs
+them. The kernels are compiled from
 ``csrc/*.cu`` at first use (:mod:`._build`); ``csrc/hopper.cuh`` holds the
 Hopper building blocks (mbarriers, TMA, wgmma) the tensor-core kernels share.
 """

@@ -164,10 +164,11 @@ def main(argv=None) -> int:
         raise SystemExit("bench: no CUDA device")
     from repro_torch.core import latent
     from repro_torch.kernels.reservoir_compact import ops
+    from repro_torch.launch import hw
 
     helper = _bench_helper()
     timer = helper.Timer()
-    bw = 3.35e12                                     # H100 SXM spec sheet
+    bw = hw.HBM_BW                                   # H100 SXM spec sheet, 3.35 TB/s
     g = torch.Generator(device="cuda").manual_seed(0)
     res, host, split, bound, info = {}, {}, {}, {}, {}
 

@@ -20,10 +20,22 @@ saved inputs and returns that form's gradients, the gradient JAX takes (JAX
 has no backward kernel either). Saving only the inputs keeps a layer's
 [B, nc, H, Q, Q] f32 intermediates out of memory between the forward and
 the backward; each layer recomputes its own in the backward.
+
+The launch is the registered op ``torch.ops.repro_torch.ssd_scan``
+(:func:`scan`), so one call is counted the same on every device: its CUDA
+implementation launches the kernel :func:`route` chose, its CPU
+implementation is the plain version, its fake implementation gives the
+outputs' shapes on the meta device (the dry run), and its FLOP formula
+(:func:`flops`) is nc chunk bodies, JAX's dry-run count. The checks, the
+route, the launch counters and the autograd Function stay here, around the
+op; a call that needs gradients goes through the Function on every device.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _common
 from . import kernel, ref
@@ -78,6 +90,53 @@ def route(dtype: torch.dtype, shapes, strides, bases) -> str:
     return "tensor_core"
 
 
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(), device_types="cpu")
+def scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+         Cm: torch.Tensor, init_state: Optional[torch.Tensor], chunk: int,
+         which: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered op: B5 on inputs as the wrapper checked them, by
+    chunks of ``chunk`` tokens. On the CPU the plain version (``which``
+    unread)."""
+    return ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=chunk, init_state=init_state)
+
+
+@scan.register_kernel("cuda")
+def _scan_cuda(x, dt, a, Bm, Cm, init_state, chunk, which):
+    """The kernel ``which`` names (:func:`route`), into new outputs."""
+    B, S, H, P = x.shape
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    state = torch.empty((B, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
+    if which == "tensor_core":
+        kernel.ssd_scan_tc(x, dt, a, Bm, Cm, init_state, y, state, chunk,
+                           tuple(_common.tma_strides(t.shape, t.stride()) for t in (x, Bm, Cm)))
+    elif which == "cuda_core":
+        kernel.ssd_scan(x, dt, a, Bm, Cm, init_state, y, state, chunk)
+    else:
+        raise ValueError(f"ssd_scan: unknown route {which!r}")
+    return y, state
+
+
+@scan.register_fake
+def _scan_fake(x, dt, a, Bm, Cm, init_state, chunk, which):
+    B, S, H, P = x.shape
+    return x.new_empty((B, S, H, P)), x.new_empty((B, H, Bm.shape[3], P),
+                                                  dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def flops(x_shape, dt_shape, a_shape, b_shape, c_shape, init_shape, chunk, *args,
+          out_shape=None, **kwargs) -> int:
+    """nc = S / Q chunk bodies, each the four products of JAX's dry-run
+    body (``launch/dryrun.py``'s ``inner_scan_correction``): C.B scores 2
+    Q^2 G N, the intra-chunk output 2 Q^2 H P, the inter-chunk output and
+    the state update 2 Q H N P each, per sequence."""
+    B, S, H, P = x_shape
+    G, N = b_shape[2], b_shape[3]
+    Q = chunk
+    body = B * (2 * Q * Q * G * N + 2 * Q * Q * H * P + 2 * Q * H * N * P + 2 * Q * H * N * P)
+    return (S // Q) * body
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int = 256,
              init_state: torch.Tensor | None = None):
@@ -85,19 +144,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tenso
     [B,S,G,N] -> (y [B,S,H,P] in x's dtype, final state [B,H,N,P] f32), by
     chunks of Q = min(chunk, S) tokens; head h reads group h // (H // G)."""
     Q = _check(x, dt, a, Bm, Cm, chunk, init_state)
-    if x.device.type == "cpu":
-        return ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q, init_state=init_state)
-    tensors = (x, dt, a, Bm, Cm) + (() if init_state is None else (init_state,))
-    _common.check_cuda("ssd_scan", *tensors)
-    if x.shape[0] > _MAX_GRID_Y:
-        raise ValueError(f"ssd_scan: batch {x.shape[0]} must be at most {_MAX_GRID_Y}")
-    x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm))
-    a = a.contiguous()
-    if init_state is not None:
-        init_state = init_state.contiguous()
-    xbc = (x, Bm, Cm)
-    which = route(x.dtype, [t.shape for t in xbc], [t.stride() for t in xbc],
-                  [t.data_ptr() for t in xbc])
+    which = "plain"
+    if x.device.type not in ("cpu", "meta"):
+        tensors = (x, dt, a, Bm, Cm) + (() if init_state is None else (init_state,))
+        _common.check_cuda("ssd_scan", *tensors)
+        if x.shape[0] > _MAX_GRID_Y:
+            raise ValueError(f"ssd_scan: batch {x.shape[0]} must be at most {_MAX_GRID_Y}")
+        x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm))
+        a = a.contiguous()
+        if init_state is not None:
+            init_state = init_state.contiguous()
+        xbc = (x, Bm, Cm)
+        which = route(x.dtype, [t.shape for t in xbc], [t.stride() for t in xbc],
+                      [t.data_ptr() for t in xbc])
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, a, Bm, Cm, init_state)):
         return _SSDScan.apply(x, dt, a, Bm, Cm, init_state, Q, which)
@@ -105,17 +164,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tenso
 
 
 def _launch(x, dt, a, Bm, Cm, init_state, Q: int, which: str):
-    xbc = (x, Bm, Cm)
-    B, S, H, P = x.shape
-    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
-    state = torch.empty((B, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
-    if which == "tensor_core":
-        kernel.ssd_scan_tc(x, dt, a, Bm, Cm, init_state, y, state, Q,
-                           tuple(_common.tma_strides(t.shape, t.stride()) for t in xbc))
-        ssd_scan.tensor_core_launches += 1
-    else:
-        kernel.ssd_scan(x, dt, a, Bm, Cm, init_state, y, state, Q)
-    ssd_scan.launches += 1
+    """The op, counted as a launch unless ``which`` is ``"plain"`` (a CPU or
+    meta call)."""
+    y, state = scan(x, dt, a, Bm, Cm, init_state, Q, which)
+    if which != "plain":
+        if which == "tensor_core":
+            ssd_scan.tensor_core_launches += 1
+        ssd_scan.launches += 1
     return y, state
 
 

@@ -1,15 +1,26 @@
-"""The data mesh of the sharded manage loop (the JAX package's
-``launch/mesh.py:make_data_mesh``).
+"""Meshes: the data mesh of the sharded manage loop, and the logical meshes
+of the dry run (the JAX package's ``launch/mesh.py``).
 
 JAX lays the reservoir shards over devices along the ``data`` mesh axis.
 The port keeps the S shards as a leading dimension of one device's state
-(:mod:`repro_torch.core.distributed`), so its mesh is only the shard count
-and the device: the sharded builders keep JAX's ``(sampler, model, mesh,
-...)`` signature and read both from it.
+(:mod:`repro_torch.core.distributed`), so its data mesh is only the shard
+count and the device: the sharded builders keep JAX's ``(sampler, model,
+mesh, ...)`` signature and read both from it.
+
+:func:`make_mesh`, :func:`make_production_mesh` and :func:`make_host_mesh`
+build a :class:`Mesh`: axis names and sizes with no devices behind them,
+which is what :func:`repro_torch.sharding.mesh_info` reads and what the dry
+run (:mod:`repro_torch.launch.dryrun`) divides its counts by. The shapes are
+JAX's, (16, 16) over ``data`` x ``model`` and (2, 16, 16) with ``pod``, so
+every per-device number compares 1:1 with JAX's sharding. On H100 nodes of
+8 cards a ``model`` (TP) axis of 16 spans two NVLink domains: half of each
+tensor-parallel group's partners sit behind the NIC (``hw.DCN_BW``), not on
+NVLink (``hw.ICI_BW``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -33,3 +44,37 @@ def make_data_mesh(shards: int, device=None) -> ShardMesh:
     if int(shards) < 1:
         raise ValueError(f"make_data_mesh: shards must be at least 1; got {shards}")
     return ShardMesh(num_shards=int(shards), device=_device.resolve(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A logical device mesh: ``shape[i]`` devices along ``axis_names[i]``."""
+
+    shape: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def make_mesh(shape, axes) -> Mesh:
+    """A logical mesh of ``shape`` over the axes ``axes`` (one name a dim)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or min(shape, default=1) < 1:
+        raise ValueError(f"make_mesh: one size >= 1 an axis expected, got {shape}, {axes}")
+    return Mesh(shape=shape, axis_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16 x 16 = 256 cards over (data = DP/FSDP, model = TP/EP); multi-pod
+    adds a leading ``pod`` axis of 2 (512 cards), crossed only by the
+    gradients."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
+    """A small ``data`` x ``model`` mesh (tests; ``1 x 1`` is one card)."""
+    return make_mesh((data, model), ("data", "model"))

@@ -4,9 +4,11 @@
 
 Every family builds: dense, moe and vlm through ``transformer``, ssm
 through ``mamba_lm``, hybrid through ``hybrid`` and audio through
-``encdec``. ``input_specs`` serves the dry run and comes with it (ROADMAP
-A.12). Where JAX takes a ``jax.random`` key, the port takes a seed
-(``init_params``) or a ``torch.Generator`` (``make_demo_batch``)."""
+``encdec``. ``input_specs`` gives the dry run's inputs
+(:mod:`repro_torch.launch.dryrun`) as tensors on the meta device, and
+``init_params`` / ``init_decode_state`` take ``device="meta"`` for its
+parameters and caches. Where JAX takes a ``jax.random`` key, the port takes
+a seed (``init_params``) or a ``torch.Generator`` (``make_demo_batch``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,11 +18,21 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import _device
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 
 from . import encdec, hybrid, mamba_lm, transformer
 
 VLM_PATCHES = 256  # stubbed vision prefix length (qwen2-vl dynamic-res stub)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is the meta device: the initializers
+    draw on ``gen.device``, and a meta draw takes a CPU generator but a
+    meta one cannot be built (the meta device is no accelerator)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +63,10 @@ def build(cfg: ModelConfig) -> ModelAPI:
 
     def init_params(seed: int, *, device=None):
         """Random parameters from a seeded generator on ``device`` (the card
-        unless ``device="cpu"``)."""
+        unless ``device="cpu"``; ``"meta"``: shapes and dtypes only)."""
         dev = _device.resolve(device)
-        return mod.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        gen = _MetaGenerator() if dev.type == "meta" else torch.Generator(device=dev)
+        return mod.init_params(cfg, gen.manual_seed(seed))
 
     def init_decode_state(batch, max_len, prefill_len=0, *, device=None):
         return mod.init_decode_state(cfg, batch, max_len, prefill_len,
@@ -99,6 +112,32 @@ def loss_fn(cfg, forward, params, batch):
         m = mask[:, 1:].float()
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
     return torch.mean(nll)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """One global batch of this (arch, shape) cell as meta tensors, JAX's
+    ``ShapeDtypeStruct`` stand-ins: int32 ``tokens`` [B, S] ([B, 1] for a
+    decode step).
+
+    [vlm]/[audio] entries: the modality frontend is a STUB -- precomputed
+    patch/frame embeddings (``frontend_embeds`` in ``cfg.dtype``) are model
+    inputs: a vlm batch's S positions are VLM_PATCHES patches and S -
+    VLM_PATCHES tokens, an audio batch adds ``encoder_seq`` frames."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": meta((B, 1), torch.int32)}
+    if cfg.family == "vlm":
+        return {"tokens": meta((B, S - VLM_PATCHES), torch.int32),
+                "frontend_embeds": meta((B, VLM_PATCHES, cfg.d_model), dt)}
+    if cfg.family == "audio":
+        return {"tokens": meta((B, S), torch.int32),
+                "frontend_embeds": meta((B, cfg.encoder_seq, cfg.d_model), dt)}
+    return {"tokens": meta((B, S), torch.int32)}
 
 
 def make_demo_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,

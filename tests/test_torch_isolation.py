@@ -58,6 +58,7 @@ MODULES = [
     "repro_torch.configs.qwen2_vl_2b", "repro_torch.configs.zamba2_2p7b",
     "repro_torch.configs.whisper_large_v3", "repro_torch.models.moe",
     "repro_torch.models.hybrid", "repro_torch.models.encdec",
+    "repro_torch.sharding", "repro_torch.launch.hw", "repro_torch.launch.dryrun",
 ]
 
 
@@ -172,3 +173,54 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
                                   "reservoir_compact": 0, "swap_delete": 0,
                                   "binomial": 0, "hypergeometric": 0,
                                   "flash_attention": 0, "ssd_scan": 0}
+
+
+def test_registered_ops_reach_ref_only_on_the_cpu(monkeypatch):
+    """B4's and B5's registered ops: a CPU, a CUDA and a meta kernel each.
+    Only the CPU implementation reaches ``ref.py``; the CUDA implementation
+    (driven here on stand-in tensors, its launches recorded) launches the
+    kernel its route names or raises; a meta call runs the fake
+    implementation and reaches neither."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk, ops as fa, ref as fref
+    from repro_torch.kernels.ssd_scan import kernel as sk, ops as ss, ref as sref
+
+    for name in ("repro_torch::flash_attention", "repro_torch::ssd_scan"):
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(name, key), (name, key)
+    refs, launched = [], []
+    real_attn, real_scan = fref.attention_ref, sref.ssd_scan_ref
+    monkeypatch.setattr(fref, "attention_ref",
+                        lambda *a, **k: refs.append("b4") or real_attn(*a, **k))
+    monkeypatch.setattr(sref, "ssd_scan_ref",
+                        lambda *a, **k: refs.append("b5") or real_scan(*a, **k))
+    for mod, name in ((fk, "flash_attention"), (fk, "flash_attention_tc"),
+                      (sk, "ssd_scan"), (sk, "ssd_scan_tc")):
+        monkeypatch.setattr(mod, name, lambda *a, n=name: launched.append(n))
+    q = torch.randn(1, 8, 2, 8)
+    x, dt, a = torch.randn(1, 8, 2, 8), torch.rand(1, 8, 2), -torch.ones(2)
+    Bm = torch.randn(1, 8, 1, 8)
+    kernels.reset_launches()
+    # the CPU implementation: the plain versions
+    fa.flash_attention(q, q, q)
+    ss.ssd_scan(x, dt, a, Bm, Bm, chunk=4)
+    assert refs == ["b4", "b5"] and launched == []
+    # the CUDA implementation: the kernel of the route, never ref.py
+    for which, want in (("tensor_core", "flash_attention_tc"), ("cuda_core", "flash_attention")):
+        assert fa._attend_cuda(q, q, q, True, 0, which).shape == q.shape
+        assert launched[-1] == want
+    for which, want in (("tensor_core", "ssd_scan_tc"), ("cuda_core", "ssd_scan")):
+        y, st = ss._scan_cuda(x, dt, a, Bm, Bm, None, 4, which)
+        assert (y.shape, st.shape, launched[-1]) == (x.shape, (1, 2, 8, 8), want)
+    with pytest.raises(ValueError, match="unknown route"):
+        fa._attend_cuda(q, q, q, True, 0, "plain")
+    with pytest.raises(ValueError, match="unknown route"):
+        ss._scan_cuda(x, dt, a, Bm, Bm, None, 4, "plain")
+    assert refs == ["b4", "b5"] and len(launched) == 4
+    # meta: the fake implementations, neither ref.py nor a kernel
+    m = [t.to("meta") for t in (q, x, dt, a, Bm)]
+    assert fa.flash_attention(m[0], m[0], m[0]).device.type == "meta"
+    y, st = ss.ssd_scan(m[1], m[2], m[3], m[4], m[4], chunk=4)
+    assert (y.device.type, st.dtype) == ("meta", torch.float32)
+    assert refs == ["b4", "b5"] and len(launched) == 4
+    assert kernels.launches()["flash_attention"] == 0 == kernels.launches()["ssd_scan"]
