@@ -124,17 +124,23 @@ the JAX package. Every check raises on failure; no phase catches its own.
      and (d) card == CPU at K = 4096;
  13. the LM online-management driver (``repro_torch.launch.train``) at
      mamba2_370m's full size (48 layers, d 1,024, bf16 compute, f32 params
-     and AdamW moments), R-TBS over 512-token sequences, 64 a tick, n 4,096,
-     a retrain of 8 AdamW steps on 16 rows every 4 ticks, 12 ticks: eval
-     finite and falling, W exact, B1 once a tick, B5 48 times a forward
-     (eval and every fit step), a profiled retrain tick by scope, peak
-     memory, seconds a retrain, fit tokens/s and ticks/s; a run through
-     ``main`` stopped at tick 8 (checkpoint, profiler trace) and resumed to
-     12 equal to the unbroken run bit for bit, its final checkpoint byte for
-     byte; one layer's gradients through B5 within B5's bf16 tolerance of
-     the plain route's; B5 timed at the fit's shape. (d) one retrain of 2
-     steps at 2 layers of full width in f32, mamba2_370m and stablelm_12b,
-     card vs CPU from the same params and rows;
+     and AdamW moments) under ``cfg.remat`` (each layer checkpointed),
+     R-TBS over 512-token sequences, 64 a tick, n 4,096, a retrain of 8
+     AdamW steps on 16 rows every 4 ticks, 8 ticks: eval finite and
+     falling, W exact, B1 once a tick, B5 48 times a forward (each eval and
+     fit step) and 48 times more in each fit step's backward (the
+     recompute, counted apart), peak memory, seconds a retrain, fit
+     tokens/s and ticks/s; a run through ``main`` at a depth cut of 4
+     layers stopped at tick 4 (checkpoint, profiler trace) and resumed from
+     its checkpoint to 8 equal to an unbroken run bit for bit, rows and final
+     state; one layer's gradients through B5 within B5's bf16 tolerance of
+     the plain route's; B5 timed at the fit's shape; one more fit step
+     profiled by scope; (e) the last retrain tick (the run's, with remat)
+     again from its starting state without remat: losses,
+     params and AdamW moments bit for bit equal, both peaks and retrain
+     times, B5's launches by forward, recompute and eval. (d) one retrain of 2
+     steps at a depth cut of full width in f32, mamba2_370m (2 layers) and
+     stablelm_12b (1 layer), card vs CPU from the same params and rows;
  14. the driver's bank mode (``--num-keys 16384``, R-TBS, 4 layers of
      mamba2_370m, 128-token items, bcap 32) with and without
      ``--telemetry-dir``: equal logs, B3 once a tick, the JSONL passing
@@ -157,7 +163,7 @@ the JAX package. Every check raises on failure; no phase catches its own.
      cap_s 4,096, for drtbs and dttbs; (c) fused == per-tick == resumed at
      tick 24; (d) D-T-TBS on the same stream (n_s 2^17, cap 2^19 a shard):
      H2 and B1 once a tick, W exact per shard; (e) an 8-trial sharded farm
-     at cap_s 4,096 equal to its single runs, and the driver's ``--scheme
+     at cap_s 4,096 over 24 ticks equal to its single runs, and the driver's ``--scheme
      drtbs --shards 8`` at phase 14's depth cut resumed from its checkpoint
      equal to the unbroken run byte for byte;
  17. the rest of the LM zoo through ``serve_batch``, each at full width in
@@ -216,10 +222,30 @@ the JAX package. Every check raises on failure; no phase catches its own.
      launch. (c) and (b)'s timed steps run first, while no subprocess of
      this script runs; the CPU counts then overlap the card's untimed
      counts at the deeper depth;
- 20. the ``kernels`` JSON line, the card line, and the result line.
+ 20. the LM driver on the zoo's other families that train on tokens alone,
+     granite_moe_3b (MoE, 32 layers, 40 experts top-8, 3.3 B params) and
+     zamba2_2p7b (hybrid: 54 Mamba2 layers, a shared attention block every
+     6), at full width and depth under remat, with phase 13's flags over 8
+     ticks (two retrains): parameters and state bytes, ticks/s, seconds a
+     retrain, fit tokens/s, eval loss by tick (finite), W exact, B1 once a
+     tick, zamba2's B5 launches (54 an eval, 162 a fit step: the forward
+     and the recomputes of its nested checkpoints), all tensor-core, one
+     more fit step profiled by scope; (a) granite_moe_3b's first retrain
+     replayed from the seed in a second run, bit for bit; (b) checkpoint and
+     resume at a depth cut of full width (2 layers; zamba2 6, one group; 2
+     AdamW steps a retrain), bit for bit, so each retrain of the cut runs
+     twice from one state;
+     (c) the peak beside the dry run's count of one fit step at the same
+     shape (``dryrun.host_check`` in CPU subprocesses); (d) one retrain of
+     the smoke config in f32, card vs CPU; (e) one MoE layer's backward,
+     8 passes: one result with the dispatch's ordered backward, and how
+     many with a plain gather's atomics. Phase 20 runs inside phase 19: its
+     measured runs after phase 19's timed steps, while no subprocess runs;
+     its checks (a)-(e) while phase 19's grid runs in CPU subprocesses;
+ 21. the ``kernels`` JSON line, the card line, and the result line.
 
-``python3 chip_smoke.py --only 13,13d,14,15,16,17,18,19`` runs only the
-listed phases of 13-19 (no kernels line, no result line).
+``python3 chip_smoke.py --only 13,13d,14,15,16,17,18,19,20`` runs only the
+listed phases of 13-20 (no kernels line, no result line).
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -2660,12 +2686,18 @@ TRAIN_FLAGS = ["--arch", "mamba2_370m", "--preset", "full", "--seq-len", "512",
                "--batch-per-tick", "64", "--reservoir", "4096", "--retrain-every", "4",
                "--retrain-steps", "8", "--train-batch", "16", "--drift", "none",
                "--lr", "3e-4"]
-TRAIN_TICKS, TRAIN_STOP, TRAIN_LAM = 12, 8, 0.07
-# the backward's kernels run on autograd's device thread, outside the
-# ``train.backward`` range of the calling thread: they land in the row of
-# ``manage.retrain``, whose own share is the backward and the minibatch gather
-TRAIN_SCOPES = ("manage.eval", "manage.sampler_step", "manage.size", "manage.retrain",
-                "train.forward", "train.optim", "rtbs.tick_map", "rtbs.payload")
+# 8 ticks (two retrains), stopped at 4 and resumed to 8: cut from 12 / 8 to
+# make room for phase 20 under the script's time limit
+TRAIN_TICKS, TRAIN_STOP, TRAIN_LAM = 8, 4, 0.07
+TRAIN_RESUME_LAYERS = 4        # (a)'s depth cut: its checkpoints 1 GB, not 4.4
+# a profiled fit step's scopes: the backward's kernels run on autograd's
+# device thread, outside the ``train.backward`` range of the calling thread,
+# so it is read between ``train.forward`` and ``train.optim``
+# (:func:`_between_ms`); the recompute's kernels land in its ``lm.*`` ranges
+TRAIN_SCOPES = ("train.forward", "train.optim", "lm.embed", "lm.norm", "lm.qkv", "lm.rope",
+                "lm.attn", "lm.attn_out", "lm.mlp", "lm.moe_route", "lm.moe_experts",
+                "lm.moe_combine", "lm.ssm_in", "lm.conv", "lm.ssd", "lm.ssm_out",
+                "lm.logits")
 # one Mamba2 layer's parameter gradients through B5 (bf16 forward, the plain
 # chunked form's backward) against the plain route's: each gradient's
 # relative Frobenius distance, bounded by B5's bf16 tolerance
@@ -2744,19 +2776,79 @@ def _b5_layer_grads(torch, cfg, p, u, w, plain: bool):
         ss_ops.ssd_scan = orig
 
 
-def phase_train(torch, np, kernels, timer, bw):
-    """Phase 13: ``python -m repro_torch.launch.train``'s loop at
-    mamba2_370m's full size: an unbroken run, a run stopped at tick 8 and
-    resumed to 12 from its checkpoint (bit for bit), B1 and B5 counted a
-    tick, a profiled retrain tick, one layer's B5 gradient against the plain
-    route's, and B5 timed at the training shape."""
+def _train_state(torch, run, state=None):
+    """A device copy of the driver's state (``run``'s or ``state``): model
+    state, sampler state, controller state. A retrain updates the model
+    state in place, so a replay starts from a copy."""
+    from torch.utils import _pytree as pytree
+
+    ms, st, cs = (run.model_state, run.st, run.cstate) if state is None else state
+    return pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, (ms, st, cs))
+
+
+def _resume_check(torch, np, train, flags, ticks, stop, tag, pdir=None) -> dict:
+    """The driver at ``flags``: an unbroken run of ``ticks`` ticks
+    (``LocalRun``), a run through ``main`` stopped at ``stop`` (a checkpoint
+    there; with ``pdir``, a profiler trace of its first tick), and a run
+    resumed from that checkpoint to ``ticks`` as ``main --resume`` resumes
+    (``LocalRun.resume``): raise unless every tick's row and the resumed
+    run's final state (params, AdamW moments and count, the reservoir) are
+    bit for bit the unbroken run's. Seconds and sizes."""
     import shutil
     import tempfile
 
     from torch.utils import _pytree as pytree
 
-    from repro_torch import convert
-    from repro_torch.checkpoint import restore_checkpoint
+    t0 = time.perf_counter()
+    runu = train.LocalRun(train.parse_args(flags + ["--ticks", str(ticks)]))
+    urows = [runu.tick(t) for t in range(ticks)]
+    t1 = time.perf_counter()
+    ck = tempfile.mkdtemp(prefix="ck_")
+    try:
+        extra = [] if pdir is None else ["--profile-dir", pdir, "--profile-ticks", "1"]
+        first = train.main(flags + ["--ticks", str(stop), "--ckpt-dir", ck, "--ckpt-every",
+                                    str(stop)] + extra)
+        ck_gb = sum(f.stat().st_size for f in Path(ck).rglob("*") if f.is_file()) / 1e9
+        t2 = time.perf_counter()
+        runr = train.LocalRun(train.parse_args(flags + ["--ticks", str(ticks), "--ckpt-dir",
+                                                        ck, "--resume"]))
+        runr.resume()
+        check(runr.start_tick == stop, f"{tag} resumed at tick {runr.start_tick}")
+        resumed = [runr.tick(t) for t in range(stop, ticks)]
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    for r in first + resumed:
+        want = urows[r["tick"]]
+        same = all(r[k] == want[k] or (math.isnan(r[k]) and math.isnan(want[k])) for k in want)
+        check(set(r) == set(want) and same,
+              f"{tag} tick {r['tick']}: resumed {r} != unbroken {want}")
+    state = (runr.model_state, runr.st)
+    check(_leaves_equal(torch, state, (runu.model_state, runu.st)),
+          f"{tag} the resumed run's final state differs from the unbroken run's")
+    leaves = pytree.tree_leaves(state)
+    del runu, runr, state
+    torch.cuda.empty_cache()
+    return {"unbroken_s": t1 - t0, "first_s": t2 - t1, "resumed_s": t3 - t2,
+            "leaves": len(leaves), "bytes": sum(x.numel() * x.element_size() for x in leaves),
+            "ck_gb": ck_gb}
+
+
+def phase_train(torch, np, kernels, timer, bw):
+    """Phase 13: ``python -m repro_torch.launch.train``'s loop at
+    mamba2_370m's full size under ``cfg.remat`` (the default): an unbroken
+    run, a run stopped at tick TRAIN_STOP and resumed from its checkpoint
+    (bit for bit), B1 and B5 counted a tick (B5's forward, recompute and
+    eval launches apart), a profiled retrain tick, one layer's B5 gradient
+    against the plain route's, B5 timed at the training shape, and (e) the
+    last retrain tick again from its starting state with remat and without:
+    bit for bit the same, both peaks and retrain times."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from torch.utils import _pytree as pytree
+
     from repro_torch.kernels.ssd_scan import ops as ss_ops, ref as ss_ref
     from repro_torch.launch import train
 
@@ -2772,52 +2864,45 @@ def phase_train(torch, np, kernels, timer, bw):
           f"moments ({nparam / 1e6:.1f} M params, {3 * 4 * nparam / 1e9:.2f} GB with m and v)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    rows, walls, deltas, fit_s, prof_res = [], [], [], [], None
+    rows, walls, deltas, fit_s = [], [], [], []
+    t_last = TRAIN_TICKS - 1            # a retrain tick ((t + 1) % 4 == 0)
     for t in range(TRAIN_TICKS):
         kernels.reset_launches()
+        if t == t_last:                 # (e) replays this tick without remat from here
+            snap = _train_state(torch, run)
+            peak_before = torch.cuda.max_memory_allocated()
+            base_on = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        if t == TRAIN_TICKS - 1:        # a retrain tick ((t + 1) % 4 == 0), profiled
-            with torch.profiler.profile(activities=acts) as prof:
-                rows.append(run.tick(t))
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            marks["profiler exit"] = time.perf_counter() - t0 - walls[-1]
-            t_b = time.perf_counter()
-            prof_res = _breakdown(torch, prof, 1e3 * walls[-1], tag="[13]",
-                                  scopes=TRAIN_SCOPES,
-                                  named=(("B1 kernel", "tbs_step_apply_kernel"),
-                                         ("B5 kernel", "ssd_scan_tc_kernel")))
-            bwd_ms, bwd_k = _between_ms(torch, np, prof, "train.forward", "train.optim")
-            marks["breakdown"] = time.perf_counter() - t_b
-        else:
-            rows.append(run.tick(t))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        deltas.append(dict(kernels.launches(), ssd_tc=ss_ops.ssd_scan.tensor_core_launches))
+        rows.append(run.tick(t))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        deltas.append(dict(kernels.launches(), ssd_tc=ss_ops.ssd_scan.tensor_core_launches,
+                           ssd_rec=ss_ops.ssd_scan.recompute_launches))
         if (t + 1) % args.retrain_every == 0:
             fit_s.append(run.last_fit_s)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    on = dict(peak=torch.cuda.max_memory_allocated() - base_on, fit_s=run.last_fit_s,
+              b5=deltas[-1]["ssd_scan"], rec=deltas[-1]["ssd_rec"])
+    peak_gb = max(peak_before, torch.cuda.max_memory_allocated()) / 1e9
     marks["unbroken run"] = time.perf_counter() - t_phase
     evals = [r["eval_loss"] for r in rows]
     ntok_fit = args.retrain_steps * args.train_batch * args.seq_len
-    fast = [w for t, w in enumerate(walls[:-1]) if (t + 1) % args.retrain_every]
+    fast = [w for t, w in enumerate(walls) if (t + 1) % args.retrain_every]
     print(f"[13] eval loss by tick: {[round(e, 4) for e in evals]}")
     print(f"[13] W by tick (exact, W = e^-lam W + 64 in f32): "
           f"{[r['total_weight'] for r in rows]}; |S| {[r['sample_size'] for r in rows]}")
-    print(f"[13] launches a tick: B1 1; B5 {L} a fast tick, {L * (args.retrain_steps + 2)} "
-          f"a retrain tick (eval, {args.retrain_steps} fit-step forwards, the train loss), "
-          f"all tensor-core; {sum(d['ssd_scan'] for d in deltas)} B5 launches in "
-          f"{TRAIN_TICKS} ticks")
-    print(f"[13] {TRAIN_TICKS - 1} unprofiled ticks in {sum(walls[:-1]):.3f} s = "
-          f"{(TRAIN_TICKS - 1) / sum(walls[:-1]):.3f} ticks/s (fast ticks "
-          f"{1e3 * statistics.median(fast):.1f} ms median); seconds a retrain (fit, "
-          f"{args.retrain_steps} AdamW steps) {[round(s, 4) for s in fit_s]}; fit "
-          f"{ntok_fit / statistics.median(fit_s):.0f} tokens/s; peak memory {peak_gb:.2f} GB")
-    print(f"[13]   train.backward         {bwd_ms:9.3f} ms  "
-          f"{100 * bwd_ms / prof_res['device_ms']:5.1f} % of device time ({bwd_k} kernels "
-          f"between each train.forward and its train.optim: autograd's thread launches "
-          f"them, so they sit in manage.retrain's own row above)")
+    steps = args.retrain_steps
+    print(f"[13] launches a tick under remat: B1 1; B5 {L} a fast tick (the eval), "
+          f"{L * (2 * steps + 2)} a retrain tick: {2 * L} evals (before and after the fit), "
+          f"{steps * L} fit-step forwards and {steps * L} recomputes in their backwards "
+          f"(each layer checkpointed), all tensor-core; "
+          f"{sum(d['ssd_scan'] for d in deltas)} B5 launches in {TRAIN_TICKS} ticks, "
+          f"{sum(d['ssd_rec'] for d in deltas)} of them recomputes")
+    print(f"[13] {TRAIN_TICKS} ticks in {sum(walls):.3f} s = {TRAIN_TICKS / sum(walls):.3f} "
+          f"ticks/s (fast ticks {1e3 * statistics.median(fast):.1f} ms median); seconds a "
+          f"retrain (fit, {args.retrain_steps} AdamW steps) {[round(s, 4) for s in fit_s]}; "
+          f"fit {ntok_fit / statistics.median(fit_s):.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GB")
     check(all(math.isfinite(e) for e in evals), f"eval losses {evals}")
     check(evals[-1] < evals[0], f"eval loss did not fall: {evals[0]} -> {evals[-1]}")
     _check_w(np, [r["total_weight"] for r in rows], [args.batch_per_tick] * TRAIN_TICKS,
@@ -2825,67 +2910,36 @@ def phase_train(torch, np, kernels, timer, bw):
     check(all(r["sample_size"] <= args.reservoir for r in rows), "|S| above --reservoir")
     for t, d in enumerate(deltas):
         fit = (t + 1) % args.retrain_every == 0
-        want = L * ((1 + args.retrain_steps + 1) if fit else 1)
+        want, rec = (L * (2 * steps + 2), L * steps) if fit else (L, 0)
         check(d["tbs_step_apply"] == 1, f"tick {t}: B1 launched {d['tbs_step_apply']} times")
-        check(d["ssd_scan"] == d["ssd_tc"] == want,
-              f"tick {t}: B5 launched {d['ssd_scan']} times ({d['ssd_tc']} tensor-core), "
-              f"want {want}: {L} a forward (eval, {args.retrain_steps} fit steps and the "
-              f"train loss on a retrain tick)")
+        check(d["ssd_scan"] == d["ssd_tc"] == want and d["ssd_rec"] == rec,
+              f"tick {t}: B5 launched {d['ssd_scan']} times ({d['ssd_tc']} tensor-core, "
+              f"{d['ssd_rec']} in a backward), want {want} ({rec} recomputes): {L} a "
+              f"forward (eval and the train loss), twice {L} a fit step (its forward and "
+              f"its backward's recompute)")
         check(d["flash_attention"] == 0, f"tick {t}: B4 launched")
 
-    # (a) stop at tick 8 (a checkpoint there, a profiler trace of tick 0),
-    # then resume to 12 from it: bit for bit the unbroken run
-    ck, pdir = tempfile.mkdtemp(prefix="ck_"), tempfile.mkdtemp(prefix="prof_")
+    # (a) at a depth cut of full width (its checkpoints 1 GB, not 4.4): an
+    # unbroken run and a run stopped at TRAIN_STOP (a checkpoint there, a
+    # profiler trace of its tick 0) and resumed: bit for bit the unbroken run
+    pdir = tempfile.mkdtemp(prefix="prof_")
     try:
         t0 = time.perf_counter()
-        first = train.main(TRAIN_FLAGS + ["--ticks", str(TRAIN_STOP), "--ckpt-dir", ck,
-                                          "--ckpt-every", str(TRAIN_STOP), "--profile-dir",
-                                          pdir, "--profile-ticks", "1"])
-        t1 = time.perf_counter()
-        resumed = train.main(TRAIN_FLAGS + ["--ticks", str(TRAIN_TICKS), "--ckpt-dir", ck,
-                                            "--ckpt-every", "4", "--resume"])
-        t2 = time.perf_counter()
+        rc = _resume_check(torch, np, train,
+                           TRAIN_FLAGS + ["--layers", str(TRAIN_RESUME_LAYERS)],
+                           TRAIN_TICKS, TRAIN_STOP, "[13] (a)", pdir)
         traces = list(Path(pdir).glob("trace_*.json"))
         check(len(traces) == 1 and traces[0].stat().st_size > 0, f"profile traces {traces}")
-        check([r["tick"] for r in resumed] == list(range(TRAIN_STOP, TRAIN_TICKS)),
-              "resumed ticks")
-        for r in first + resumed:
-            want = rows[r["tick"]]
-            same = all(r[k] == want[k] or (math.isnan(r[k]) and math.isnan(want[k]))
-                       for k in want)
-            check(set(r) == set(want) and same,
-                  f"tick {r['tick']}: resumed {r} != unbroken {want}")
-        like = convert.train_checkpoint_like(run.model_state, run.st, None)
-        t3 = time.perf_counter()
-        back = restore_checkpoint(ck, TRAIN_TICKS, like)
-        mine = convert.train_checkpoint_to_numpy(run.model_state, run.st, None, TRAIN_TICKS)
-        t4 = time.perf_counter()
-        from repro_torch.checkpoint.store import _flatten
-
-        la, lb = _flatten(back)[0], _flatten(mine)[0]
-        nbytes = 0
-        for i, (a, b) in enumerate(zip(la, lb)):
-            a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-            b = np.asarray(b)
-            if a.dtype != b.dtype:        # a restored sampler leaf: the port's int64
-                a = a.astype(b.dtype)
-            same = a.shape == b.shape and np.array_equal(
-                a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
-            check(same, f"leaf {i} of the resumed run's checkpoint differs from the "
-                        f"unbroken run")
-            nbytes += b.nbytes
         marks["stop, resume, compare"] = time.perf_counter() - t0
-        ck_gb = sum(f.stat().st_size for f in Path(ck).rglob("*") if f.is_file()) / 1e9
-        print(f"[13] (a) stopped at tick {TRAIN_STOP} ({t1 - t0:.2f} s, a checkpoint at "
-              f"{TRAIN_STOP}, a profiler trace of tick 0: {traces[0].name}, "
+        print(f"[13] (a) at {TRAIN_RESUME_LAYERS} of {L} layers: unbroken {TRAIN_TICKS} ticks "
+              f"({rc['unbroken_s']:.2f} s); stopped at tick {TRAIN_STOP} ({rc['first_s']:.2f} s, "
+              f"a checkpoint at {TRAIN_STOP}, a profiler trace of tick 0: {traces[0].name}, "
               f"{traces[0].stat().st_size / 1e6:.1f} MB), resumed to {TRAIN_TICKS} "
-              f"({t2 - t1:.2f} s): eval and train losses, W and |S| of every tick equal to "
-              f"the unbroken run's bit for bit, and the final checkpoint's {len(lb)} "
-              f"leaves ({nbytes / 1e9:.3f} GB: params, m, v, count, the reservoir, the "
-              f"tick) byte for byte; checkpoints on disk {ck_gb:.2f} GB; restore + host "
-              f"copy {t4 - t3:.2f} s")
+              f"({rc['resumed_s']:.2f} s with the restore): eval and train losses, W and |S| "
+              f"of every tick equal to the unbroken run's bit for bit, and the final state's "
+              f"{rc['leaves']} leaves ({rc['bytes'] / 1e9:.3f} GB: params, m, v, count, the "
+              f"reservoir) bit for bit; the checkpoint on disk {rc['ck_gb']:.2f} GB")
     finally:
-        shutil.rmtree(ck, ignore_errors=True)
         shutil.rmtree(pdir, ignore_errors=True)
 
     # (b) one layer's gradients through B5 against the plain route's, at the
@@ -2920,7 +2974,7 @@ def phase_train(torch, np, kernels, timer, bw):
     b5_ms = timer(lambda: ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q), 10)
     plain_ms = timer(lambda: ss_ref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk=Q), 5)
     gy = torch.ones_like(x)
-    bwd_ms = timer(lambda: ss_ops.ssd_scan_backward(
+    b5_bwd_ms = timer(lambda: ss_ops.ssd_scan_backward(
         x, dt, a, Bm, Cm, None, min(Q, args.seq_len), gy, None), 3)
     bound, by, flops, nbytes = _b5_bound_ms(x, Bm, min(Q, args.seq_len), bw)
     y, _ = ss_ops.ssd_scan(x, dt, a, Bm, Cm, chunk=Q)
@@ -2930,12 +2984,66 @@ def phase_train(torch, np, kernels, timer, bw):
           f"{P}], B/C [{args.train_batch}, {args.seq_len}, {G}, {N}], Q {Q}: kernel "
           f"{b5_ms:.4f} ms, bound {bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB) = {b5_ms / bound:.2f}x; plain {plain_ms:.3f} ms; its "
-          f"backward (the plain form's gradient) {bwd_ms:.3f} ms; max |err| {err:.3g}")
+          f"backward (the plain form's gradient) {b5_bwd_ms:.3f} ms; max |err| {err:.3g}")
     del x, dt, a, Bm, Cm, y, want, gy
+
+    # (e) the last retrain tick (its turn with remat, the default, timed and
+    # its peak taken in the run above) again from the state it started from
+    # without remat: the losses, params and AdamW moments bit for bit the
+    # run's; each turn's peak above what the card held when the tick began
+    # (without remat the snapshot and the run's final state, 8.8 GB, are held
+    # too, and not counted), its retrain time, B5's launches by kind
+    t0 = time.perf_counter()
+    final, adapter = run.model_state, run.adapter
+    _, _, adapter_off = train.build_model(args, run.dev,
+                                          cfg=dataclasses.replace(cfg, remat=False))
+    run.model_state, run.st, run.cstate = _train_state(torch, run, snap)
+    run.adapter = adapter_off
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_off = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    row = run.tick(t_last)
+    torch.cuda.synchronize()
+    off = dict(peak=torch.cuda.max_memory_allocated() - base_off, fit_s=run.last_fit_s,
+               b5=ss_ops.ssd_scan.launches, rec=ss_ops.ssd_scan.recompute_launches)
+    check(_leaves_equal(torch, run.model_state, final) and all(
+              row[k] == rows[-1][k] for k in ("eval_loss", "train_loss", "total_weight")),
+          "[13] (e) the retrain tick without remat: losses, params or moments differ from "
+          "the run's with remat")
+    evals = 2 * L
+    for name, tr, rec in (("remat", on, steps * L), ("no remat", off, 0)):
+        check(tr["rec"] == rec and tr["b5"] == evals + steps * L + rec,
+              f"[13] (e) {name}: B5 launched {tr['b5']} times ({tr['rec']} recomputes)")
+    check(on["peak"] < off["peak"], f"[13] (e) the remat peak {on['peak']} is not below "
+                                    f"the peak without remat {off['peak']}")
+    print(f"[13] (e) tick {t_last} (a retrain) with remat (the run's) and again from its "
+          f"starting state without: eval {rows[-1]['eval_loss']:.6f}, train loss "
+          f"{rows[-1]['train_loss']:.6f}, params and AdamW moments bit for bit; peak above "
+          f"the tick's start {on['peak'] / 1e9:.2f} GB with remat vs {off['peak'] / 1e9:.2f} "
+          f"GB without (max_memory_allocated); retrain {on['fit_s']:.3f} s vs "
+          f"{off['fit_s']:.3f} s; B5 launches with remat {on['b5']} = {evals} eval + "
+          f"{steps * L} fit forwards + {on['rec']} recomputes, without {off['b5']} = "
+          f"{evals} eval + {steps * L} fit forwards; {time.perf_counter() - t0:.1f} s")
+    del snap, final, adapter_off
+    marks["(e) remat pair"] = time.perf_counter() - t0
+
+    # one more fit step, profiled by scope (a retrain tick holds
+    # retrain_steps of them and two evals: profiling all of it took 36 s of
+    # host time)
+    t0 = time.perf_counter()
+    run.adapter = adapter
+    prof_res = _profile_fit_step(torch, np, run, args, "[13]")
+    marks["profiled fit step"] = time.perf_counter() - t0
     res = dict(rows=rows, peak_gb=peak_gb, fit_s=fit_s, prof=prof_res,
+               remat_pair={"peak_gb": on["peak"] / 1e9, "no_remat_peak_gb": off["peak"] / 1e9,
+                           "fit_s": on["fit_s"], "no_remat_fit_s": off["fit_s"],
+                           "b5": on["b5"], "b5_recompute": on["rec"], "no_remat_b5": off["b5"]},
                b5_train=dict(ms=b5_ms, bound_ms=bound, bound_by=by, plain_ms=plain_ms,
-                             backward_ms=bwd_ms, max_abs_err=err,
+                             backward_ms=b5_bwd_ms, max_abs_err=err,
                              launches=sum(d["ssd_scan"] for d in deltas),
+                             recompute_launches=sum(d["ssd_rec"] for d in deltas),
                              shape=[args.train_batch, args.seq_len, H, P]),
                b1_launches=sum(d["tbs_step_apply"] for d in deltas))
     del run
@@ -2946,9 +3054,9 @@ def phase_train(torch, np, kernels, timer, bw):
 
 
 def phase_train_parity(torch, np):
-    """Phase 13 (b'): one retrain (2 AdamW steps) at 2 layers of full width
+    """Phase 13 (d): one retrain (2 AdamW steps) at a depth cut of full width
     in f32 from the same params and rows, on the card and on the CPU, for
-    mamba2_370m and stablelm_12b (both depth cuts)."""
+    mamba2_370m (2 layers) and stablelm_12b (1 layer)."""
     import dataclasses
 
     from torch.utils import _pytree as pytree
@@ -2965,9 +3073,11 @@ def phase_train_parity(torch, np):
 
     t_phase = time.perf_counter()
     rows_n, seq, tb, steps, lr = 8, 64, 2, 2, 3e-3
-    for arch in ("mamba2_370m", "stablelm_12b"):
+    # stablelm_12b at 1 layer: its CPU side (1.3 B params with the embeddings)
+    # is most of the phase
+    for arch, layers in (("mamba2_370m", 2), ("stablelm_12b", 1)):
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
         api = zoo.build(cfg)
         tree = convert.lm_params_to_numpy(api.init_params(5))
         rng = np.random.default_rng(6)
@@ -3013,8 +3123,8 @@ def phase_train_parity(torch, np):
             worst = max(worst, float(d.max()))
         check(beyond <= TRAIN_PARAM_SHARE * n and worst <= 2 * lr_eff + TRAIN_PARAM_ATOL,
               f"{arch}: {beyond} of {n} params beyond {TRAIN_PARAM_ATOL}, worst {worst}")
-        print(f"[13] (d) {arch} at 2 layers of full width, f32, one retrain of {steps} AdamW "
-              f"steps on {tb} x {seq} rows, card vs CPU: step losses "
+        print(f"[13] (d) {arch} at {layers} layers of full width, f32, one retrain of {steps} "
+              f"AdamW steps on {tb} x {seq} rows, card vs CPU: step losses "
               f"{[round(x[0], 6) for x in mg]} (CPU {[round(x[0], 6) for x in mc]}), grad "
               f"norms within {TRAIN_F32_RTOL}, eval after {eg:.6f} vs {ec:.6f}; params: "
               f"{beyond} of {n} beyond {TRAIN_PARAM_ATOL} (<= {TRAIN_PARAM_SHARE} of them), "
@@ -3169,6 +3279,7 @@ def phase_telemetry(torch, np, kernels):
 # global n 2^20 over 8 shards of 2^18 slots (twice the mean share), the
 # main cell's 65,536 arrivals a tick (8,192 a shard)
 SH_S, SH_N, SH_CAP_S, SH_T = 8, 1 << 20, 1 << 18, 48
+SH_FARM_T = 24                 # (e)'s farm: the first 24 ticks of its stream
 SH_SCOPES = ("manage.eval", "manage.sampler_step", "drtbs.draws", "drtbs.tick_map",
              "drtbs.payload", "drtbs.partial", "manage.retrain", "manage.size")
 H3_KERNELS = ("hypergeometric",)
@@ -3388,8 +3499,11 @@ def phase_sharded(torch, np, kernels, timer, bw, rtbs_ticks_per_s):
               f"params max |diff| {float((pg.cpu() - pc).abs().max()):.3g} (rtol 1e-4: f32 "
               f"sums in another order)")
 
-    # (e) a sharded farm of 8 trials at cap_s 4096 (a size cut), then the driver
-    bt, bc = _sharded_stream(torch, S, T, None, bcap=256, sizes=lambda t: psz[t], seed=1)
+    # (e) a sharded farm of 8 trials at cap_s 4096 (a size cut) over SH_FARM_T
+    # ticks (a depth cut: each single run it is held to takes ~6 s at 48),
+    # then the driver
+    FT = SH_FARM_T
+    bt, bc = _sharded_stream(torch, S, FT, None, bcap=256, sizes=lambda t: psz[t], seed=1)
     fs = make_sampler("drtbs", n=4095, lam=LAM, cap_s=4096)
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -3398,14 +3512,14 @@ def phase_sharded(torch, np, kernels, timer, bw, rtbs_ticks_per_s):
     torch.cuda.synchronize()
     fwall = time.perf_counter() - t0
     flaunch = kernels.launches()
-    check(flaunch["tbs_step_apply"] == T, "[16] (e) farm: B1 not once a tick for all trials")
+    check(flaunch["tbs_step_apply"] == FT, "[16] (e) farm: B1 not once a tick for all trials")
     frun = make_sharded_run_loop(fs, model, mesh, retrain_every=RETRAIN_EVERY)
     for i, k in enumerate(prng.split(prng.key(3), 8)):
         s1, p1, t1 = frun(k, bt, bc)
         check(_leaves_equal(torch, (s1, p1, t1), pytree.tree_map(
             lambda a: a[i], (fstates, fparams, ftrace))), f"[16] (e) farm trial {i} != its run")
-    print(f"[16] (e) farm of 8 trials x {S} shards x {T} ticks at cap_s 4096: {fwall:.3f} s "
-          f"({8 * T / fwall:.2f} trial-ticks/s); B1 {flaunch['tbs_step_apply']} launches; "
+    print(f"[16] (e) farm of 8 trials x {S} shards x {FT} ticks at cap_s 4096: {fwall:.3f} s "
+          f"({8 * FT / fwall:.2f} trial-ticks/s); B1 {flaunch['tbs_step_apply']} launches; "
           f"equal to the 8 single runs bit for bit")
 
     ck = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
@@ -4351,13 +4465,15 @@ def _dry_compare(name, arch, shape, over, batch, meta, card, total) -> dict:
     return res
 
 
-def phase_dryrun(torch, np, kernels, timer) -> dict:
+def phase_dryrun(torch, np, kernels, timer, quiet=None, busy=None) -> dict:
     """Phase 19, in two parts. While the host runs nothing else of this
     script: (c) B4 and B5 through their registered ops (bit for bit, the
-    counters, host ms a call), and (b) each cut cell at its shallower depth
-    on the card: counted, timed and profiled. Then (a) the dry run of all 40
-    cells on the 16 x 16 mesh and (b)'s meta counts run in CPU subprocesses
-    while the card counts each cell at its deeper depth (untimed)."""
+    counters, host ms a call), (b) each cut cell at its shallower depth on
+    the card: counted, timed and profiled, and then ``quiet()`` (phase 20's
+    measured runs). Then (a) the dry run of all 40 cells on the 16 x 16 mesh
+    and (b)'s meta counts run in CPU subprocesses while the card counts each
+    cell at its deeper depth (untimed) and runs ``busy()`` (phase 20's
+    checks); (b) is compared and the grid waited for after them."""
     import os
     import shutil
     import tempfile
@@ -4383,6 +4499,11 @@ def phase_dryrun(torch, np, kernels, timer) -> dict:
                        "l1": _dry_card_step(torch, kernels, name, arch, shape, over, batch,
                                             o1["num_layers"], True)}
     t_quiet = time.perf_counter() - t_phase
+    t_hooks = 0.0
+    if quiet is not None:
+        t0 = time.perf_counter()
+        quiet()
+        t_hooks += time.perf_counter() - t0
 
     out_dir = HERE / "results" / "dryrun_torch"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -4393,10 +4514,15 @@ def phase_dryrun(torch, np, kernels, timer) -> dict:
                        "--jobs", "6", "--out", str(out_dir)], tmp / "grid.log", children)
         metas = {name: _host_check(name, tmp, batch is not None, children)
                  for name, _, _, _, batch in DRY_CHECKS}
+        t0 = time.perf_counter()
         for name, arch, shape, over, batch in DRY_CHECKS:
             cards[name]["l2"] = _dry_card_step(torch, kernels, name, arch, shape, over, batch,
                                                cards[name]["o2"]["num_layers"], False)
-        t_card = time.perf_counter() - t_phase
+        t_card = time.perf_counter() - t0
+        if busy is not None:
+            t0 = time.perf_counter()
+            busy()
+            t_hooks += time.perf_counter() - t0
         results = {}
         for name, arch, shape, over, batch in DRY_CHECKS:
             meta = json.loads(_wait(metas[name], f"host_check {name}", 600)
@@ -4419,11 +4545,393 @@ def phase_dryrun(torch, np, kernels, timer) -> dict:
     check(len(counted) == 33 and len(skipped) == 7 and len(recs) == 40,
           f"[19] (a) {len(counted)} counted lines, {len(skipped)} skipped, {len(recs)} records")
     shutil.rmtree(tmp, ignore_errors=True)
-    wall = time.perf_counter() - t_phase
+    wall = time.perf_counter() - t_phase - t_hooks
     print(f"[19] (a) 33 cells counted and 7 skipped, {len(recs)} records in "
-          f"{out_dir.relative_to(HERE)}; phase wall time {wall:.1f} s (the quiet part "
-          f"{t_quiet:.1f} s, the card's part {t_card:.1f} s)")
+          f"{out_dir.relative_to(HERE)}; phase wall time {wall:.1f} s without phase 20's "
+          f"{t_hooks:.1f} s inside it (the quiet part {t_quiet:.1f} s, the card's deeper "
+          f"counts {t_card:.1f} s)")
     return {"checks": results, "ops": ops_res, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the LM driver on the zoo's other trainable families
+# ---------------------------------------------------------------------------
+# (arch, the depth of its resume check: a cut at full width whose
+# checkpoints stay small; zamba2's layers come in groups of attn_every = 6)
+ZOO_TRAIN = (("granite_moe_3b", 2), ("zamba2_2p7b", 6))
+ZOO_TRAIN_TICKS = 8            # two retrains
+# the full-size runs whose first retrain (at tick 3) a second run replays
+# from the seed: the MoE arch, whose dispatch backward this checks; the
+# hybrid's retrain runs twice from one state in its resume check (b)
+ZOO_REPLAY = {"granite_moe_3b"}
+# card vs CPU, one retrain of the smoke config in f32: tests/test_torch_train.py's
+# tolerances for the port against JAX (losses 2e-5 relative, params 1e-4)
+ZOO_FIT_LOSS_RTOL, ZOO_FIT_PARAM_TOL = 2e-5, 1e-4
+
+
+def _digest(torch, tree) -> list[int]:
+    """One int64 a leaf: the sum, wrapping mod 2^64, of the leaf's words
+    (its elements' bits read as integers) times fixed pseudo-random weights
+    in [1, 2^31). An integer sum does not depend on its order, so two runs'
+    digests are equal exactly when no word differs, up to the chance that
+    several differences cancel; one differing word always shows."""
+    from torch.utils import _pytree as pytree
+
+    chunk = 1 << 24
+    g = torch.Generator(device="cuda").manual_seed(20)
+    w = torch.randint(1, 1 << 31, (chunk,), generator=g, device="cuda", dtype=torch.int64)
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for x in pytree.tree_leaves(tree):
+        words = x.detach().reshape(-1).view(as_int[x.element_size()])
+        s = torch.zeros((), dtype=torch.int64, device="cuda")
+        for lo in range(0, words.numel(), chunk):
+            c = words[lo:lo + chunk]
+            s += (c.long() * w[:c.numel()]).sum()
+        out.append(int(s))
+    return out
+
+
+def _fit_parity(torch, np, arch: str) -> str:
+    """One retrain (2 AdamW steps on 3-row minibatches of 16 tokens) of
+    ``arch``'s smoke config in f32 from the same params and rows on the card
+    and on the CPU: step losses, grad norms and the eval after it within
+    ZOO_FIT_LOSS_RTOL, every param within ZOO_FIT_PARAM_TOL."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import convert
+    from repro_torch.config import get_smoke_config
+    from repro_torch.core.api import SampleView
+    from repro_torch.manage import make_sgd_adapter
+    from repro_torch.models import zoo
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import sorted_tree
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    api = zoo.build(cfg)
+    tree = convert.lm_params_to_numpy(api.init_params(5))
+    rng = np.random.default_rng(20)
+    items = rng.integers(0, cfg.vocab_size, (12, 16), dtype=np.int32)
+    picks = rng.integers(0, 12, (2, 3))
+    held = rng.integers(0, cfg.vocab_size, (4, 16), dtype=np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = convert.lm_params_from_numpy(cfg, tree, device=dev)
+        step = make_train_step(api, AdamWConfig(lr=1e-3), warmup=1, total_steps=40)
+        ms = []
+
+        def recording(params, opt, batch, _step=step, _ms=ms):
+            params, opt, m = _step(params, opt, batch)
+            _ms.append((float(m["loss"]), float(m["grad_norm"])))
+            return params, opt, m
+
+        ad = make_sgd_adapter(init_params=lambda: p, train_step=recording,
+                              init_opt_state=adamw_init, loss=api.loss, batch_field="tokens",
+                              train_batch=3, retrain_steps=2, device=dev)
+        view = SampleView(items=torch.from_numpy(items).to(dev),
+                          mask=torch.ones(12, dtype=torch.bool, device=dev),
+                          size=torch.tensor(12, device=dev))
+        st = ad.fit(None, ad.init(), view, rows=torch.from_numpy(picks).to(dev))
+        ev = float(ad.evaluate(st, torch.from_numpy(held).to(dev), 4))
+        out[dev] = (ms, ev, [x.cpu() for x in pytree.tree_leaves(sorted_tree(st["params"]))])
+    (mg, eg, pg), (mc, ec, pc) = out["cuda"], out["cpu"]
+    for a, b in zip([x for m in mg for x in m] + [eg], [x for m in mc for x in m] + [ec]):
+        check(abs(a - b) <= ZOO_FIT_LOSS_RTOL * abs(b),
+              f"[20] (d) {arch}: card {mg}, eval {eg} vs CPU {mc}, eval {ec}")
+    worst = max(float(((a - b).abs() / (ZOO_FIT_PARAM_TOL * (1 + b.abs()))).max())
+                for a, b in zip(pg, pc))
+    check(worst <= 1.0, f"[20] (d) {arch}: params beyond {ZOO_FIT_PARAM_TOL} (x {worst:.3g})")
+    return (f"step losses {[round(x[0], 6) for x in mg]} (CPU {[round(x[0], 6) for x in mc]}), "
+            f"eval after {eg:.6f} vs {ec:.6f}, params within {worst:.3g} of the tolerance")
+
+
+MOE_PASSES = 8
+
+
+def _moe_grads(torch, cfg, gather: bool) -> dict:
+    """One MoE layer of ``cfg`` at the fit's 16 x 512 tokens in bf16, run
+    forward and backward MOE_PASSES times from the same inputs: how many
+    distinct gradient sets (x and the layer's params) the passes give, and
+    the median ms of a pass, with the dispatch's ordered backward or,
+    ``gather``, with a plain ``torch.gather`` in its place (a scatter-add
+    with atomics over repeated token indices)."""
+    from repro_torch.models import moe as M
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    p = {k: v.to(torch.bfloat16) for k, v in M.moe_params(cfg, g).items()}
+    x = (torch.randn((16, 512, cfg.d_model), generator=g, device="cuda") * 0.5).bfloat16()
+    w = torch.randn((16, 512, cfg.d_model), generator=g, device="cuda").bfloat16()
+    orig = M._DispatchRows.apply
+    if gather:
+        M._DispatchRows.apply = lambda xf, tok, pos: torch.gather(
+            xf, 1, tok[..., None].expand(*tok.shape, xf.shape[-1]))
+    try:
+        distinct, ms = [], []
+        for _ in range(MOE_PASSES):
+            live = [x.clone().requires_grad_(True)] + [
+                v.clone().requires_grad_(True) for v in p.values()]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = M.apply_moe(cfg, dict(zip(p, live[1:])), live[0])
+            grads = torch.autograd.grad((y * w).float().sum(), live)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not any(_leaves_equal(torch, grads, d) for d in distinct):
+                distinct.append(grads)
+    finally:
+        M._DispatchRows.apply = orig
+    return {"distinct": len(distinct), "ms": statistics.median(ms), "passes": MOE_PASSES}
+
+
+def _profile_fit_step(torch, np, run, args, tag: str) -> dict:
+    """One more AdamW step of ``run``'s model on ``args.train_batch`` rows of
+    its stream, profiled by scope (a retrain's fit is ``retrain_steps`` such
+    steps); updates ``run``'s model state in place."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.steps import make_train_step
+
+    step = make_train_step(run.api, AdamWConfig(lr=args.lr))
+    batch = {"tokens": torch.from_numpy(run.stream.batch(args.ticks, args.train_batch, 0))
+             .to(run.dev)}
+    params, opt = run.model_state["params"], run.model_state["opt"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    res = _breakdown(torch, prof, wall, tag=tag, scopes=TRAIN_SCOPES,
+                     named=(("B5 kernel", "ssd_scan_tc_kernel"),),
+                     what=f"fit step ({args.train_batch} x {args.seq_len})")
+    res["backward_ms"], k = _between_ms(torch, np, prof, "train.forward", "train.optim")
+    print(f"{tag}   train.backward         {res['backward_ms']:9.3f} ms  "
+          f"{100 * res['backward_ms'] / res['device_ms']:5.1f} % of device time ({k} kernels "
+          f"between train.forward and train.optim, launched by autograd's thread: the "
+          f"recompute's in the lm.* rows too)")
+    return res
+
+
+def _zoo_train_run(torch, np, kernels, train, arch: str) -> dict:
+    """Phase 20's measured run of one arch (:class:`ZooTrain`): the driver
+    over ZOO_TRAIN_TICKS ticks at full size, its checks, its rates, one more
+    fit step profiled, and (ZOO_REPLAY) digests of the state before and
+    after the first retrain."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels.ssd_scan import ops as ss_ops
+
+    flags = ["--arch", arch] + TRAIN_FLAGS[2:]
+    args = train.parse_args(flags + ["--ticks", str(ZOO_TRAIN_TICKS)])
+    T, R, steps = ZOO_TRAIN_TICKS, args.retrain_every, args.retrain_steps
+    t_arch = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.LocalRun(args)
+    cfg, L = run.cfg, run.cfg.num_layers
+    params = run.model_state["params"]
+    nparam = sum(x.numel() for x in pytree.tree_leaves(params))
+    state_b = sum(x.numel() * x.element_size() for x in pytree.tree_leaves(
+        (params, run.model_state["opt"]["m"], run.model_state["opt"]["v"])))
+    del params
+    print(f"[20] {arch}: {' '.join(flags[2:])}, {T} ticks: {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.family}, {cfg.dtype} compute under remat={cfg.remat}; {nparam / 1e9:.3f} B "
+          f"params, {state_b / 1e9:.2f} GB of {cfg.param_dtype} params and AdamW moments")
+    rows, walls, deltas, digests, fit_s = [], [], [], {}, []
+    for t in range(T):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rows.append(run.tick(t))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        deltas.append(dict(kernels.launches(), ssd_tc=ss_ops.ssd_scan.tensor_core_launches,
+                           ssd_rec=ss_ops.ssd_scan.recompute_launches))
+        if (t + 1) % R == 0:
+            fit_s.append(run.last_fit_s)
+        if t in (R - 2, R - 1) and arch in ZOO_REPLAY:   # around the first retrain
+            digests[t] = _digest(torch, run.model_state)
+    peak = torch.cuda.max_memory_allocated() - base
+    prof_res = _profile_fit_step(torch, np, run, args, f"[20] {arch}")
+    del run
+    torch.cuda.empty_cache()
+    evals = [r["eval_loss"] for r in rows]
+    fast = [w for t, w in enumerate(walls) if (t + 1) % R]
+    ntok = steps * args.train_batch * args.seq_len
+    check(all(math.isfinite(e) for e in evals), f"[20] {arch}: eval losses {evals}")
+    _check_w(np, [r["total_weight"] for r in rows], [args.batch_per_tick] * T, TRAIN_LAM)
+    check(all(r["sample_size"] <= args.reservoir for r in rows), "[20] |S| above --reservoir")
+    # B5: a Mamba2 layer's forward once an eval; a fit step runs it again in
+    # each checkpoint's recompute (the hybrid's nested checkpoints: twice)
+    r_ = 3 if cfg.family == "hybrid" else 2
+    n5 = L if cfg.ssm_state else 0
+    for t, d in enumerate(deltas):
+        fit = (t + 1) % R == 0
+        want, rec = (n5 * (2 + r_ * steps), n5 * (r_ - 1) * steps) if fit else (n5, 0)
+        check(d["tbs_step_apply"] == 1, f"[20] {arch} tick {t}: B1 {d['tbs_step_apply']}")
+        check(d["ssd_scan"] == d["ssd_tc"] == want and d["ssd_rec"] == rec,
+              f"[20] {arch} tick {t}: B5 launched {d['ssd_scan']} times ({d['ssd_tc']} "
+              f"tensor-core, {d['ssd_rec']} recomputes), want {want} ({rec} recomputes)")
+        check(d["flash_attention"] == 0, f"[20] {arch} tick {t}: B4 launched")
+    print(f"[20] {arch} eval loss by tick: {[round(e, 4) for e in evals]}; W exact; |S| "
+          f"{[r['sample_size'] for r in rows]}")
+    print(f"[20] {arch}: {T} ticks in {sum(walls):.3f} s = {T / sum(walls):.3f} ticks/s "
+          f"(fast ticks {1e3 * statistics.median(fast):.1f} ms median); seconds a retrain "
+          f"({steps} AdamW steps on {args.train_batch} x {args.seq_len}) "
+          f"{[round(x, 4) for x in fit_s]}; fit {ntok / fit_s[-1]:.0f} tokens/s (the second "
+          f"retrain); peak {peak / 1e9:.2f} GB (max_memory_allocated above the "
+          f"{base / 1e9:.2f} GB held before it); {time.perf_counter() - t_arch:.1f} s")
+    if n5:
+        print(f"[20] {arch} B5 launches a tick: {n5} a fast tick (the eval), "
+              f"{n5 * (2 + r_ * steps)} a retrain tick ({2 * n5} evals, {steps} fit steps of "
+              f"{n5} forwards + {(r_ - 1) * n5} recomputes: each group and each layer "
+              f"checkpointed), all tensor-core; {sum(d['ssd_scan'] for d in deltas)} in {T} "
+              f"ticks, {sum(d['ssd_rec'] for d in deltas)} of them recomputes")
+    return {"arch": arch, "cfg": cfg, "args": args, "params": nparam, "state_bytes": state_b,
+            "peak": peak, "evals": evals, "fit_s": fit_s,
+            "ticks_per_s": T / sum(walls), "fit_tokens_per_s": ntok / fit_s[-1],
+            "prof": prof_res, "digests": digests, "b5": sum(d["ssd_scan"] for d in deltas),
+            "b5_recompute": sum(d["ssd_rec"] for d in deltas),
+            "b1": sum(d["tbs_step_apply"] for d in deltas)}
+
+
+def _zoo_train_checks(torch, np, train, res: dict, cut: int, meta_handle) -> None:
+    """Phase 20's checks of one arch after its measured run: (a) the replay,
+    (b) the resume at a depth cut, (c) the dry run's count, (d) card vs
+    CPU, (e) for MoE the dispatch's backward on its own."""
+    arch, cfg, args = res["arch"], res["cfg"], res["args"]
+    R, digests = args.retrain_every, res["digests"]
+    flags = ["--arch", arch] + TRAIN_FLAGS[2:]
+    t_arch = time.perf_counter()
+
+    # (a) the first retrain replayed by a second run from the seed: the state
+    # before it and after it bit for bit the first run's
+    if digests:
+        t0 = time.perf_counter()
+        run = train.LocalRun(args)
+        for t in range(R):
+            run.tick(t)
+            if t in digests:
+                check(_digest(torch, run.model_state) == digests[t],
+                      f"[20] (a) {arch}: the replay's state after tick {t} differs from the "
+                      f"first run's")
+        del run
+        torch.cuda.empty_cache()
+        print(f"[20] (a) {arch}: ticks 0-{R - 1} replayed from the seed in a second run: "
+              f"params and AdamW moments before and after the retrain at tick {R - 1} bit "
+              f"for bit the first run's ({len(digests[R - 1])} leaves, weighted digests); "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) checkpoint and resume at a depth cut of full width (2 AdamW steps a
+    # retrain): its retrain at tick 7 runs twice from one state, in the
+    # unbroken run and in the resumed one
+    rc = _resume_check(torch, np, train, flags + ["--layers", str(cut), "--retrain-steps", "2"],
+                       ZOO_TRAIN_TICKS, R, f"[20] (b) {arch}")
+    print(f"[20] (b) {arch} at {cut} layers of full width, 2 AdamW steps a retrain: stopped "
+          f"at tick {R}, resumed to {ZOO_TRAIN_TICKS}: every tick's losses, W and |S| and the "
+          f"final state's {rc['leaves']} leaves ({rc['bytes'] / 1e9:.3f} GB) bit for bit the "
+          f"unbroken run's (the checkpoint {rc['ck_gb']:.2f} GB); "
+          f"{sum(v for k, v in rc.items() if k.endswith('_s')):.1f} s")
+
+    # (c) the dry run's count of the same fit step, a CPU subprocess
+    meta = json.loads(_wait(meta_handle, f"host_check {arch}", 300).strip().splitlines()[-1])
+    est, peak = meta["full"]["peak_est_bytes"], res["peak"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[20] (c) {arch}: peak {peak / 1e9:.2f} GB (max_memory_allocated over the run) vs "
+          f"the dry run's peak_est {est / 1e9:.2f} GB for one fit step on a 1 x 1 mesh at "
+          f"batch {args.train_batch} x {args.seq_len} ({100 * (peak / est - 1):+.2f} %; "
+          f"resident {meta['full']['resident'] / 1e9:.2f} GB + step peak "
+          f"{meta['full']['peak'] / 1e9:.2f} GB), {100 * est / total:.1f} % of the card's "
+          f"{total / 1e9:.2f} GB: no cut (fits 0.75)")
+    check(est <= 0.75 * total, f"[20] (c) {arch}: the dry run's {est} B pass 0.75 of the card")
+    res["peak_est"] = est
+
+    # (d) card vs CPU, one retrain of the smoke config in f32
+    t0 = time.perf_counter()
+    line = _fit_parity(torch, np, arch)
+    print(f"[20] (d) {arch} smoke config, f32, one retrain of 2 AdamW steps on 3 x 16 rows, "
+          f"card vs CPU: {line}; {time.perf_counter() - t0:.1f} s")
+    if cfg.num_experts:
+        # (e) the MoE dispatch's backward on its own (ROADMAP C.20)
+        det, plain = _moe_grads(torch, cfg, False), _moe_grads(torch, cfg, True)
+        check(det["distinct"] == 1,
+              f"[20] (e) {arch}: the dispatch's backward gave {det['distinct']} results")
+        print(f"[20] (e) {arch} one MoE layer at 16 x 512 tokens, bf16, {MOE_PASSES} backward "
+              f"passes from the same inputs: {det['distinct']} distinct gradient set(s) with "
+              f"the dispatch's ordered backward ({det['ms']:.3f} ms a forward and backward); "
+              f"{plain['distinct']} with a plain torch.gather's (atomic scatter-add, "
+              f"{plain['ms']:.3f} ms)")
+        res["moe_dispatch"] = {"ordered": det, "gather": plain}
+    print(f"[20] {arch} checks {time.perf_counter() - t_arch:.1f} s")
+
+
+class ZooTrain:
+    """Phase 20: ``python -m repro_torch.launch.train`` on granite_moe_3b
+    (MoE, 3.3 B params) and zamba2_2p7b (hybrid, 54 Mamba2 layers and a
+    shared block) at full width and depth under ``cfg.remat``, with the
+    train cell's flags over ZOO_TRAIN_TICKS ticks (two retrains), in two
+    parts. :meth:`runs`, while no subprocess of this script runs: per arch
+    the parameter count and state bytes; ticks/s, seconds a retrain, fit
+    tokens/s; eval loss by tick, W exact, |S| bounded, B1 once a tick,
+    zamba2's B5 launches by kind, all tensor-core; one more fit step
+    profiled by scope. :meth:`checks`, which may overlap phase 19's CPU
+    subprocesses: (a) the first retrain of the archs in ZOO_REPLAY replayed
+    from the seed in a second run, bit for bit; (b) checkpoint and resume
+    at a depth cut of full width, bit for bit; (c) the peak beside the dry
+    run's count of one fit step at the
+    same shape (CPU subprocesses on meta tensors); (d) one retrain of the
+    smoke config in f32, card vs CPU; (e) the MoE dispatch's backward on
+    its own, several passes."""
+
+    def __init__(self, torch, np, kernels):
+        from repro_torch.launch import train
+
+        self.torch, self.np, self.kernels, self.train = torch, np, kernels, train
+        self.res, self.t_runs, self.t_checks = [], 0.0, 0.0
+
+    def runs(self) -> None:
+        t0 = time.perf_counter()
+        for arch, _ in ZOO_TRAIN:
+            self.res.append(_zoo_train_run(self.torch, self.np, self.kernels, self.train, arch))
+        self.t_runs = time.perf_counter() - t0
+
+    def checks(self) -> None:
+        import shutil
+        import tempfile
+
+        t0 = time.perf_counter()
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_zt_"))
+        args = self.train.parse_args(TRAIN_FLAGS)
+        code = ("import json, sys; from repro_torch.launch import dryrun; print(json.dumps("
+                "dryrun.host_check(sys.argv[1], 'train_4k', global_batch=int(sys.argv[2]), "
+                "seq_len=int(sys.argv[3]), overrides={'microbatches': 1})))")
+        children = []
+        try:
+            metas = {arch: _spawn(["-c", code, arch, str(args.train_batch), str(args.seq_len)],
+                                  tmp / f"{arch}.log", children) for arch, _ in ZOO_TRAIN}
+            for (arch, cut), res in zip(ZOO_TRAIN, self.res):
+                _zoo_train_checks(self.torch, self.np, self.train, res, cut, metas[arch])
+        finally:
+            for proc, f in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                f.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+        self.t_checks = time.perf_counter() - t0
+        print(f"[20] phase wall time {self.t_runs + self.t_checks:.1f} s: the runs "
+              f"{self.t_runs:.1f} s, the checks {self.t_checks:.1f} s")
+
+
+def _zoo_train_alone(torch, np, kernels) -> None:
+    """Phase 20 by itself (``--only 20``): its runs, then its checks."""
+    zt = ZooTrain(torch, np, kernels)
+    zt.runs()
+    zt.checks()
 
 
 def main() -> int:
@@ -4475,7 +4983,8 @@ def main() -> int:
                                                     float("nan"))),
                        ("17", lambda: phase_zoo(torch, np, kernels, timer, bw)),
                        ("18", lambda: phase_key_sharded(torch, np, kernels)),
-                       ("19", lambda: phase_dryrun(torch, np, kernels, timer))):
+                       ("19", lambda: phase_dryrun(torch, np, kernels, timer)),
+                       ("20", lambda: _zoo_train_alone(torch, np, kernels))):
             if ph in only:
                 fn()
         print(f"chip_smoke: phases {only} only; no kernels line, no result line")
@@ -4509,10 +5018,13 @@ def main() -> int:
     t_ks = time.perf_counter()
     ks_res = phase_key_sharded(torch, np, kernels)
     t_dry = time.perf_counter()
-    dry_res = phase_dryrun(torch, np, kernels, timer)
-    print(f"[20] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 {t_zoo - t_sh:.1f} s, "
-          f"phase 17 {t_ks - t_zoo:.1f} s, phase 18 {t_dry - t_ks:.1f} s, phase 19 "
-          f"{time.perf_counter() - t_dry:.1f} s, of {time.perf_counter() - t_all:.1f} s")
+    zt = ZooTrain(torch, np, kernels)   # phase 20, run inside phase 19's two parts
+    dry_res = phase_dryrun(torch, np, kernels, timer, quiet=zt.runs, busy=zt.checks)
+    t_20 = zt.t_runs + zt.t_checks
+    print(f"[21] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 {t_zoo - t_sh:.1f} s, "
+          f"phase 17 {t_ks - t_zoo:.1f} s, phase 18 {t_dry - t_ks:.1f} s, phases 19 and 20 "
+          f"{time.perf_counter() - t_dry:.1f} s (phase 20 {t_20:.1f} s of it), of "
+          f"{time.perf_counter() - t_all:.1f} s")
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -4580,6 +5092,15 @@ def main() -> int:
     # B5 at the LM driver's fit shape, and its launches over phase 13's run
     rows[list(kres).index("ssd_scan")]["train"] = train_res["b5_train"]
     rows[list(kres).index("tbs_step_apply")]["train_launches"] = train_res["b1_launches"]
+    # the driver on granite_moe_3b and zamba2_2p7b (phase 20): B1 once a
+    # tick; zamba2's B5 launches, forwards and recomputes
+    by_arch = {a["arch"]: a for a in zt.res}
+    rows[list(kres).index("tbs_step_apply")]["zoo_train_launches"] = {
+        k: v["b1"] for k, v in by_arch.items()}
+    rows[list(kres).index("ssd_scan")]["zoo_train"] = {
+        "arch": "zamba2_2p7b", "ticks": ZOO_TRAIN_TICKS,
+        "launches": by_arch["zamba2_2p7b"]["b5"],
+        "recompute_launches": by_arch["zamba2_2p7b"]["b5_recompute"]}
     # launches on the sharded path (phase 16): D-R-TBS's 48 ticks at 8 shards
     # (B1, H3, B2), D-T-TBS's (H2)
     sh = shard_res["launches"]

@@ -62,6 +62,7 @@ def reset_launches() -> None:
         fn.launches = 0
     _fa.flash_attention.tensor_core_launches = 0
     _ss.ssd_scan.tensor_core_launches = 0
+    _ss.ssd_scan.recompute_launches = 0
     _sd.swap_delete.forest_launches = 0
 
 

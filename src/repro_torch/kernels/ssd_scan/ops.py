@@ -8,7 +8,9 @@ through their strides (in the model they are views into the conv output),
 so no transposed copy is made; a bfloat16 layout that TMA cannot address is
 refused before any launch. The plain version :func:`.ref.ssd_scan_ref` runs
 only for CPU tensors. ``ssd_scan.launches`` counts the launches of both
-kernels, ``ssd_scan.tensor_core_launches`` those of the tensor-core kernel.
+kernels, ``ssd_scan.tensor_core_launches`` those of the tensor-core kernel,
+``ssd_scan.recompute_launches`` those made inside a backward pass: an
+activation checkpoint's recompute (:mod:`repro_torch.remat`).
 Unlike the JAX wrapper it takes an ``init_state`` (the carried state at
 chunk 0), so the model's ``ssd_chunked`` has one route on the card.
 
@@ -36,6 +38,8 @@ from typing import Optional
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.remat import in_backward
 
 from .. import _common
 from . import kernel, ref
@@ -170,6 +174,8 @@ def _launch(x, dt, a, Bm, Cm, init_state, Q: int, which: str):
     if which != "plain":
         if which == "tensor_core":
             ssd_scan.tensor_core_launches += 1
+        if in_backward():
+            ssd_scan.recompute_launches += 1
         ssd_scan.launches += 1
     return y, state
 
@@ -220,3 +226,4 @@ class _SSDScan(torch.autograd.Function):
 
 ssd_scan.launches = 0
 ssd_scan.tensor_core_launches = 0
+ssd_scan.recompute_launches = 0

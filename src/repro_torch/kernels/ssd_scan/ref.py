@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.remat import remat
+
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
             Cm: torch.Tensor):
@@ -125,10 +127,9 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
              if init_state is None else init_state.float())
     ii = torch.arange(Q, device=x.device)
     tri = ii[:, None] >= ii[None, :]
-    ys = []
-    for c in range(nc):
+
+    def body(state, x_n, dt_n, B_n, C_n):
         # one chunk: intra-chunk quadratic part + inter-chunk state
-        x_n, dt_n, B_n, C_n = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
         la = (dt_n * A[None, None, :]).float()                   # [B,Q,H]
         cl = torch.cumsum(la, dim=1)                             # [B,Q,H]
         clh = cl.transpose(1, 2)                                 # [B,H,Q]
@@ -153,6 +154,14 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
         Bh = B_n.reshape(Bsz, Q, G, 1, N).expand(Bsz, Q, G, rep, N).reshape(Bsz, Q, H, N)
         st_n = torch.einsum("bqh,bqhs,bqhp->bhsp", w.float(), Bh.float(), x_n.float())
         state = state * torch.exp(cl[:, -1])[:, :, None, None] + st_n
-        ys.append(y_intra + y_inter.to(x.dtype))
+        return state, y_intra + y_inter.to(x.dtype)
+
+    ys = []
+    for c in range(nc):
+        # under grad mode each chunk body is checkpointed, as JAX's
+        # ``lax.scan(jax.checkpoint(body))`` is: its backward keeps one
+        # chunk's [B, H, Q, Q] intermediates at a time
+        state, y_n = remat(body, state, xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c])
+        ys.append(y_n)
     y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
     return y, state

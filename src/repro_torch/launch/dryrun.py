@@ -39,7 +39,11 @@ Per-device numbers divide by the logical mesh (:mod:`.mesh`,
 As in JAX, the layer stacks are homogeneous, so each cell runs at the two
 depths of :func:`cost_depths` and extrapolates linearly to full depth
 (:func:`_extrapolate`); the ends (embedding, logits, optimizer) cancel.
-Train steps run their true gradient accumulation (``MICROBATCHES``).
+Train steps run their true gradient accumulation (``MICROBATCHES``) under
+``cfg.remat`` (JAX's default, on in every cell): each block is
+checkpointed (:mod:`repro_torch.remat`), so the count includes every
+recompute the backward runs and the peak holds the blocks' inputs, not
+their insides.
 Nothing here sets an environment variable or touches a card.
 """
 from __future__ import annotations
@@ -304,8 +308,12 @@ def inner_scan_correction(cfg, shape, mb) -> float:
       * SSD chunk scan: missing (nc-1) x per-chunk body per Mamba2 layer
 
     Training multiplies by 4 (fwd + remat recompute + ~2x bwd); forward-only
-    by 1. The meta count needs no correction (module docstring); the record
-    keeps it beside the count, for comparison with JAX's."""
+    by 1. The meta count needs no correction: it runs every chunk, and in
+    training every recompute the card runs (each block's under
+    ``cfg.remat``; each query block of the chunked attention and each SSD
+    chunk body, always; B5's backward, which runs the plain chunked form
+    again). The record keeps JAX's formula beside the count, for comparison
+    with JAX's."""
     mult = 4.0 if shape.kind == "train" else 1.0
     B_eff = shape.global_batch // (mb if shape.kind == "train" else 1)
     S = shape.seq_len if shape.kind != "decode" else 1

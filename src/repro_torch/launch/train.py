@@ -10,9 +10,13 @@ passed to :func:`main`. The sampler is any local scheme of the registry
 retraining runs through the SGD adapter
 (:func:`repro_torch.manage.make_sgd_adapter`) over
 :func:`repro_torch.train.steps.make_train_step` (next-token cross entropy,
-AdamW). Mamba2 archs run kernel B5 in every forward, eval and fit alike
-(its backward is the plain chunked form's gradient); the sampler's tick runs
-B1. ``--resume`` restarts bit for bit from the newest checkpoint (params,
+AdamW), under ``cfg.remat`` (JAX's default: each block checkpointed and
+recomputed in the backward). The archs fed ``tokens`` alone train: dense,
+MoE (``granite_moe_3b``), Mamba2 and the hybrid (``zamba2_2p7b``); vlm and
+audio need frontend embeddings, as in JAX. Mamba2 and hybrid archs run
+kernel B5 in every forward, eval and fit alike, and again in each
+recompute (its backward is the plain chunked form's gradient); the
+sampler's tick runs B1. ``--resume`` restarts bit for bit from the newest checkpoint (params,
 optimizer, reservoir, controller, stream position): the stream, the keys and
 every kernel on the path are deterministic.
 
@@ -46,6 +50,10 @@ Examples (on the card):
       --preset full --seq-len 512 --batch-per-tick 64 --reservoir 4096 \\
       --retrain-every 4 --retrain-steps 8 --train-batch 16 --ticks 12 \\
       --drift none --ckpt-dir runs/ck --ckpt-every 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite_moe_3b \\
+      --preset full --seq-len 512 --batch-per-tick 64 --reservoir 4096 \\
+      --retrain-every 4 --retrain-steps 8 --train-batch 16 --ticks 8 \\
+      --drift none --lr 3e-4      # also --arch zamba2_2p7b
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
       --preset smoke --ticks 20 --scheme rtbs --num-keys 4096 --train-keys 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
@@ -211,12 +219,15 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build_model(args, device):
-    """(cfg, api, adapter) for the run's arch. The LR schedule's horizon is
-    fixed: it must NOT depend on --ticks, or an interrupted run would train
-    under a different curve than the run it resumes."""
-    cfg = (C.get_smoke_config(args.arch) if args.preset == "smoke"
-           else C.get_config(args.arch))
+def build_model(args, device, cfg=None):
+    """(cfg, api, adapter) for the run's arch, or for ``cfg`` when given (a
+    caller's variant of the arch's config, e.g. with ``remat=False``). The
+    LR schedule's horizon is fixed: it must NOT depend on --ticks, or an
+    interrupted run would train under a different curve than the run it
+    resumes."""
+    if cfg is None:
+        cfg = (C.get_smoke_config(args.arch) if args.preset == "smoke"
+               else C.get_config(args.arch))
     if args.layers is not None:
         import dataclasses
 

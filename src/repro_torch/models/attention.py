@@ -19,6 +19,7 @@ import math
 import torch
 
 from repro_torch.obs.profile import scope
+from repro_torch.remat import remat
 
 from . import layers as L
 
@@ -103,7 +104,10 @@ def chunked_sdpa(cfg, q, k, v, *, causal=True, window=0, block_q=1024,
                  block_k=1024):
     """Online-softmax (flash-style) attention in plain torch: a loop over
     query blocks and, inside, over key blocks. Peak memory O(block_q *
-    block_k) instead of O(S * T). Same math as :func:`sdpa`."""
+    block_k) instead of O(S * T). Same math as :func:`sdpa`. Under grad mode
+    each query block is checkpointed whatever ``cfg.remat`` says, as JAX's
+    ``lax.map(jax.checkpoint(one_q_block))`` is: the backward keeps one
+    block's scores at a time."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -113,9 +117,9 @@ def chunked_sdpa(cfg, q, k, v, *, causal=True, window=0, block_q=1024,
                          f"blocks {bq}, {bk}")
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
-    outs = []
-    for i in range(S // bq):
-        qi = q[:, i * bq:(i + 1) * bq].reshape(B, bq, KV, G, hd)
+
+    def one_q_block(qb, i):
+        qi = qb.reshape(B, bq, KV, G, hd)
         qpos = i * bq + torch.arange(bq, device=dev)
         acc = torch.zeros((B, KV, G, bq, hd), dtype=torch.float32, device=dev)
         m = torch.full((B, KV, G, bq), NEG, dtype=torch.float32, device=dev)
@@ -138,7 +142,9 @@ def chunked_sdpa(cfg, q, k, v, *, causal=True, window=0, block_q=1024,
                 "bkgqt,btkh->bkgqh", p.to(q.dtype), vj).float()
             m = m_new
         out = (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, bq, H, hd))
+        return out.permute(0, 3, 1, 2, 4).reshape(B, bq, H, hd)
+
+    outs = [remat(one_q_block, q[:, i * bq:(i + 1) * bq], i) for i in range(S // bq)]
     return torch.cat(outs, dim=1)
 
 

@@ -9,13 +9,17 @@ use the tied embedding. Decode state: ``{"kv": one KVCache a decoder layer,
 "cross": one (k, v) of the encoder output a decoder layer}``. On the card a
 prefill launches B4 once an encoder layer (non-causal) and once a decoder
 layer (causal) under ``attention_impl="pallas"``; cross-attention and
-decode attend through the plain :func:`.attention.sdpa`, as in JAX.
+decode attend through the plain :func:`.attention.sdpa`, as in JAX. Under
+grad mode with ``cfg.remat`` each encoder block and each decoder block (with
+its cross K/V projection of the encoder output) is checkpointed, as JAX
+wraps them in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.obs.profile import scope
+from repro_torch.remat import remat
 
 from . import attention as A
 from . import layers as L
@@ -69,15 +73,19 @@ def _add_positions(cfg, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
         return x + pe.to(x.dtype)[None]
 
 
+def _enc_block(cfg, p, x, positions):
+    x = x + A.self_attention(cfg, p["attn"], _norm(cfg, p["ln1"], x), positions,
+                             causal=False)
+    return x + _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x))
+
+
 def encode(cfg, params, frame_embeds):
     """frame_embeds [B, T_enc, D] (stubbed conv frontend output) -> the
     encoder's normed output [B, T_enc, D]."""
     x = _add_positions(cfg, frame_embeds.to(L.compute_dtype(cfg)))
     positions = _positions(x)
     for p in params["enc"]:
-        x = x + A.self_attention(cfg, p["attn"], _norm(cfg, p["ln1"], x), positions,
-                                 causal=False)
-        x = x + _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x))
+        x = remat(_enc_block, cfg, p, x, positions, on=cfg.remat)
     return _norm(cfg, params["enc_norm"], x)
 
 
@@ -94,6 +102,11 @@ def _dec_block(cfg, p, h, positions, enc_kv):
     return h + _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], h))
 
 
+def _dec_block_over(cfg, p, h, positions, enc_out):
+    """A decoder block with its cross K/V projected from ``enc_out``."""
+    return _dec_block(cfg, p, h, positions, A.encode_cross_kv(cfg, p["cross_attn"], enc_out))
+
+
 def forward(cfg, params, batch):
     """Teacher-forced training: frame embeds -> encoder; tokens -> decoder."""
     from . import zoo as _zoo
@@ -103,7 +116,7 @@ def forward(cfg, params, batch):
     x = _add_positions(cfg, _embed_tokens(cfg, params, batch["tokens"]))
     positions = _positions(x)
     for p in params["dec"]:
-        x = _dec_block(cfg, p, x, positions, A.encode_cross_kv(cfg, p["cross_attn"], enc_out))
+        x = remat(_dec_block_over, cfg, p, x, positions, enc_out, on=cfg.remat)
     x = _norm(cfg, params["final_norm"], x)
     return T.logits_from_hidden(cfg, params, x)
 

@@ -11,7 +11,12 @@ G = num_layers / attn_every invocations. JAX's scans over the groups and
 over each group's layers are Python loops here. Decode state: ``{"ssm":
 [G][attn_every] SSMCache, "kv": [G] KVCache}``. On the card a prefill
 launches B5 once a Mamba2 layer and B4 once an invocation (under
-``attention_impl="pallas"``). As in JAX, the shared block takes the plain
+``attention_impl="pallas"``). Under grad mode with ``cfg.remat`` the
+forward nests two checkpoints, as JAX does: each Mamba2 layer, and each
+whole group (its ``attn_every`` layers and the shared block), so the shared
+block's intermediates are not kept once an invocation; a train step
+launches B5 three times a layer (the forward, the group's recompute, the
+layer's own). As in JAX, the shared block takes the plain
 hidden state (the original also concatenates the initial embeddings and
 adds per-invocation LoRA).
 """
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.obs.profile import scope
+from repro_torch.remat import remat
 
 from . import attention as A
 from . import layers as L
@@ -62,6 +68,17 @@ def _mamba_layer(cfg, p, h):
     return h + y, cache
 
 
+def _mamba_out(cfg, p, h):
+    return _mamba_layer(cfg, p, h)[0]
+
+
+def _group(cfg, params, g, h, positions):
+    """Group ``g``'s Mamba2 layers, each checkpointed, then the shared block."""
+    for p in _group_layers(cfg, params, g):
+        h = remat(_mamba_out, cfg, p, h, on=cfg.remat)
+    return T._block_fwd(cfg, params["shared"], h, positions)
+
+
 def forward(cfg, params, batch):
     """Training/eval forward over the full sequence -> logits [B,S,Vp]."""
     from . import zoo as _zoo
@@ -69,9 +86,7 @@ def forward(cfg, params, batch):
     params = _zoo.precast(cfg, params)
     x, positions = T._embed_inputs(cfg, params, batch)
     for g in range(_groups(cfg)):
-        for p in _group_layers(cfg, params, g):
-            x, _ = _mamba_layer(cfg, p, x)
-        x = T._block_fwd(cfg, params["shared"], x, positions)
+        x = remat(_group, cfg, params, g, x, positions, on=cfg.remat)
     with scope("lm.norm"):
         x = L.apply_norm(cfg, params["final_norm"], x)
     return T.logits_from_hidden(cfg, params, x)

@@ -5,13 +5,16 @@ dictionaries: ``{"embed", "blocks", "final_norm"}`` (+ ``"unembed"``
 unless tied), ``blocks`` a list of per-layer ``{"ln", "ssm"}``. Decode
 state is a list of per-layer :class:`~.ssm.SSMCache`, O(1) in context
 length. On the card every prefill (and forward) launches kernel B5 once a
-layer; decode launches none.
+layer; decode launches none. Under grad mode with ``cfg.remat`` each layer
+of :func:`forward` is checkpointed (JAX's ``jax.checkpoint``), so a train
+step launches B5 twice a layer: the forward and its recompute.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.obs.profile import scope
+from repro_torch.remat import remat
 
 from . import layers as L
 from . import ssm as S
@@ -41,6 +44,10 @@ def _layer(cfg, p, h):
     return h + y, cache
 
 
+def _layer_out(cfg, p, h):
+    return _layer(cfg, p, h)[0]
+
+
 def forward(cfg, params, batch):
     """Training/eval forward over the full sequence -> logits [B,S,Vp]."""
     from . import zoo as _zoo
@@ -48,7 +55,7 @@ def forward(cfg, params, batch):
     params = _zoo.precast(cfg, params)
     x, _ = T._embed_inputs(cfg, params, batch)
     for p in params["blocks"]:
-        x, _ = _layer(cfg, p, x)
+        x = remat(_layer_out, cfg, p, x, on=cfg.remat)
     with scope("lm.norm"):
         x = L.apply_norm(cfg, params["final_norm"], x)
     return T.logits_from_hidden(cfg, params, x)

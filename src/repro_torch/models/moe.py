@@ -16,7 +16,10 @@ order, starting from zeros. On the card ``index_add_`` would add them
 through atomics, in an order that changes from run to run, so the combine
 gathers each token's K contributions into [N, K, D] in sorted-assignment
 order (ascending expert id: a token's K experts are distinct) and sums them
-in that order: deterministic, and JAX's order.
+in that order: deterministic, and JAX's order. The dispatch's gather of each
+token's row for its K assignments has the same trouble in its backward, a
+scatter-add over repeated token indices; :class:`_DispatchRows` sums each
+token's K cotangent rows in the same fixed order instead (ROADMAP C.20).
 """
 from __future__ import annotations
 
@@ -99,25 +102,63 @@ def _experts(cfg, p, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["wo"].to(dt))
 
 
+def _token_positions(order: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """[G, N*K]: each token's K sorted positions, ascending, token after
+    token -- the inverse of ``order`` (flat assignment -> its sorted
+    position), sorted within each token's K."""
+    G, NK = order.shape
+    idx = torch.arange(NK, device=order.device).expand(G, NK)
+    pos = torch.empty_like(order).scatter_(1, order, idx)
+    return torch.sort(pos.reshape(G, n_tokens, NK // n_tokens), dim=-1).values.reshape(G, NK)
+
+
+class _DispatchRows(torch.autograd.Function):
+    """``xf`` [G, N, D] -> its rows at ``tok`` [G, N*K] (the token of each
+    sorted assignment), as ``torch.gather`` gives them. The gather's own
+    backward is a scatter-add over repeated token indices, which the card
+    adds through atomics in an order that changes from run to run; this
+    backward gathers each token's K cotangent rows at its sorted positions
+    ``pos`` (:func:`_token_positions`) and sums them in f32 from zeros in
+    that order, rounding once to the cotangent's dtype: what the CPU's
+    scatter-add does (it adds in index order, bfloat16 through an f32
+    accumulator), so bit for bit the gather's gradient on the CPU, and the
+    same on every run on the card."""
+
+    @staticmethod
+    def forward(ctx, xf, tok, pos):
+        ctx.save_for_backward(pos)
+        ctx.n_tokens = xf.shape[1]
+        G, NK = tok.shape
+        return torch.gather(xf, 1, tok[..., None].expand(G, NK, xf.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        (pos,) = ctx.saved_tensors
+        G, NK, D = g.shape
+        rows = torch.gather(g, 1, pos[..., None].expand(G, NK, D))
+        rows = rows.reshape(G, ctx.n_tokens, NK // ctx.n_tokens, D)
+        return _sum_in_order(rows, torch.float32).to(g.dtype), None, None
+
+
 def combine(r: Route, ye: torch.Tensor, n_tokens: int) -> torch.Tensor:
     """ye [G, E*C, D] -> [G, N, D]: each token's K kept outputs times their
     gates, summed from zeros in sorted-assignment order (see the module's
     docstring); dropped assignments add zero."""
     G, NK = r.order.shape
     K, D = NK // n_tokens, ye.shape[-1]
-    # each token's K sorted positions, ascending, token after token: the
-    # inverse of ``order`` (flat assignment -> its sorted position), sorted
-    # within each token's K
-    idx = torch.arange(NK, device=ye.device).expand(G, NK)
-    pos = torch.empty_like(r.order).scatter_(1, r.order, idx)
-    pos = torch.sort(pos.reshape(G, n_tokens, K), dim=-1).values.reshape(G, NK)
+    pos = _token_positions(r.order, n_tokens)
     src = torch.gather(torch.where(r.keep, r.dest, 0), 1, pos)
     gate = torch.where(r.keep, torch.gather(r.gates.reshape(G, NK), 1, r.order), 0.0)
     parts = torch.gather(ye, 1, src[..., None].expand(G, NK, D)) \
         * torch.gather(gate, 1, pos)[..., None].to(ye.dtype)
-    parts = parts.reshape(G, n_tokens, K, D)
-    out = torch.zeros_like(parts[:, :, 0])
-    for j in range(K):
+    return _sum_in_order(parts.reshape(G, n_tokens, K, D))
+
+
+def _sum_in_order(parts: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """[G, N, K, D] -> [G, N, D]: the K rows of each token added one by one
+    from zeros, first to last, in ``dtype`` (default: the parts')."""
+    out = torch.zeros_like(parts[:, :, 0], dtype=dtype)
+    for j in range(parts.shape[2]):
         out = out + parts[:, :, j]
     return out
 
@@ -133,7 +174,7 @@ def _moe_groups(cfg, p, xf: torch.Tensor) -> torch.Tensor:
         # dispatch: kept rows to their slots, dropped ones to the spare row E*C
         xe = xf.new_zeros((G, E * C + 1, D))
         xe.scatter_(1, r.dest[..., None].expand(G, N * K, D),
-                    torch.gather(xf, 1, tok[..., None].expand(G, N * K, D)))
+                    _DispatchRows.apply(xf, tok, _token_positions(r.order, N)))
         xe = xe[:, :E * C].reshape(G, E, C, D)
     with scope("lm.moe_experts"):
         ye = _experts(cfg, p, xe.transpose(0, 1).reshape(E, G * C, D))

@@ -7,8 +7,10 @@ dictionaries, as the JAX pytree is: ``{"embed", "blocks", "final_norm"}``
 (+ ``"unembed"`` unless tied), where ``blocks`` is a LIST of per-layer
 dictionaries ``{"ln1", "attn", "ln2", "mlp"}`` in place of JAX's leaves
 stacked on a leading layer axis; ``lax.scan`` over the stack becomes a
-Python loop over the list. ``remat`` has no meaning in a no-grad forward.
-Decode caches are a list of per-layer :class:`~.attention.KVCache`.
+Python loop over the list. Under grad mode with ``cfg.remat`` (the
+default) each block of :func:`forward` is checkpointed, as JAX wraps it in
+``jax.checkpoint`` (:mod:`repro_torch.remat`); prefill, decode and a no-grad
+forward run the blocks plainly. Decode caches are a list of per-layer :class:`~.attention.KVCache`.
 A block holds ``"moe"`` (:mod:`.moe`) in place of ``"mlp"`` when
 ``cfg.num_experts > 0``. A vlm batch's ``frontend_embeds`` (stubbed patch
 embeddings) are prepended to the token embeddings.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.obs.profile import scope
+from repro_torch.remat import remat
 
 from . import attention as A
 from . import layers as L
@@ -102,7 +105,7 @@ def forward(cfg, params, batch):
     params = _zoo.precast(cfg, params)
     x, positions = _embed_inputs(cfg, params, batch)
     for p in params["blocks"]:
-        x = _block_fwd(cfg, p, x, positions)
+        x = remat(_block_fwd, cfg, p, x, positions, on=cfg.remat)
     with scope("lm.norm"):
         x = L.apply_norm(cfg, params["final_norm"], x)
     return logits_from_hidden(cfg, params, x)

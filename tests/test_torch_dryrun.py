@@ -12,8 +12,10 @@
   family, op by op. Mamba2's SSD takes the card's route on both (B5's
   registered op, with its autograd Function); the model's own CPU route
   (the plain chunked form, differentiated by autograd) counts the same
-  except in training, where the card's route recomputes the forward in the
-  backward: exactly the op's own row more.
+  except in training, where without ``cfg.remat`` the card's route
+  recomputes the forward in the backward: exactly the op's own row more.
+  With ``cfg.remat`` (the default) the op's row counts each layer's
+  recomputes too, and the CPU route recomputes its plain forward as often.
 * B4's and B5's registered FLOP counts equal their formulas and the plain
   versions' counts, on the CPU and on meta; B4's masked count is the pairs
   its mask keeps.
@@ -155,10 +157,10 @@ def _card_route(cfg, x, dt, A, Bm, Cm, init_state=None):
                            init_state=init_state)
 
 
-def _smoke_count(family, kind, device, impl="xla"):
+def _smoke_count(family, kind, device, impl="xla", remat=True):
     arch = FAMILIES[family]
     cfg = dataclasses.replace(tc.get_smoke_config(arch), dtype="float32",
-                              attention_impl=impl)
+                              attention_impl=impl, remat=remat)
     # the chunked attention at 16 tokens (whisper's 12 frames too); the vlm's
     # 256 patches + 8 tokens through the dense path
     seq = 264 if family == "vlm" else 16
@@ -195,16 +197,25 @@ def test_meta_count_equals_cpu_count_through_b4(family):
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_model_cpu_route_differs_only_by_the_recompute(family, kind):
     """The Mamba2 model's own CPU route (the plain chunked form, no op): the
-    same count as meta's in prefill and decode; in training meta counts
-    exactly its op's row more (the forward that B5's backward recomputes)."""
-    cpu, meta = _smoke_count(family, kind, "cpu"), _smoke_count(family, kind, "meta")
+    same count as meta's in prefill and decode; in training without remat
+    meta counts exactly its op's row more (the forward that B5's backward
+    recomputes). Under ``cfg.remat`` each layer's op runs r times (the
+    forward and its recomputes: r = 2 for ssm, 3 for the hybrid's nested
+    checkpoints), and so does the CPU route's plain forward, whose count is
+    the op's: meta still counts exactly one forward more in all."""
+    cpu = _smoke_count(family, kind, "cpu", remat=False)
+    meta = _smoke_count(family, kind, "meta", remat=False)
     extra = dict(meta["flops_by_op"])
     op = extra.pop("repro_torch.ssd_scan", 0)
     assert (op > 0) == (kind != "decode")
-    if kind == "train":
-        assert extra == cpu["flops_by_op"]
-    else:
+    if kind != "train":
         assert meta["flops"] == cpu["flops"]
+        return
+    assert extra == cpu["flops_by_op"]
+    r = {"ssm": 2, "hybrid": 3}[family]
+    cpu_r, meta_r = _smoke_count(family, kind, "cpu"), _smoke_count(family, kind, "meta")
+    assert meta_r["flops_by_op"]["repro_torch.ssd_scan"] == r * op
+    assert meta_r["flops"] - cpu_r["flops"] == op
 
 
 # ---------------------------------------------------------------------------

@@ -218,3 +218,33 @@ def test_second_prefill_equals_the_first_bit_for_bit():
     a1, c1 = tapi.prefill(tparams, b, 24)
     a2, c2 = tapi.prefill(tparams, b, 24)
     assert torch.equal(a1, a2) and all(torch.equal(x.k, y.k) for x, y in zip(c1, c2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cf", [1.25, 0.7])
+def test_dispatch_rows_equal_a_plain_gather_bit_for_bit(dtype, cf, monkeypatch):
+    """The dispatch's ordered backward (``moe._DispatchRows``, ROADMAP
+    C.20) against ``torch.gather``, whose backward is a scatter-add over
+    repeated token indices: the layer's output and its gradients to x and
+    every param equal on the CPU bit for bit, bf16 included (the CPU's
+    scatter-add sums bf16 through an f32 accumulator, as the ordered
+    backward does), with and without capacity drops."""
+    cfg = dataclasses.replace(tzoo.build(Z.cfgs("granite_moe_3b")[1]).cfg, num_experts=8,
+                              num_experts_per_tok=3, moe_capacity_factor=cf)
+    g = torch.Generator().manual_seed(3)
+    p = tM.moe_params(cfg, g)
+    x = torch.randn(2, 24, cfg.d_model, generator=g).to(dtype)
+    w = torch.randn(2, 24, cfg.d_model, generator=g).to(dtype)
+
+    def grads():
+        live = [x.clone().requires_grad_(True)] + [v.clone().requires_grad_(True)
+                                                   for v in p.values()]
+        y = tM.apply_moe(cfg, dict(zip(p, live[1:])), live[0])
+        return (y.detach(),) + torch.autograd.grad((y * w).sum(), live)
+
+    got = grads()
+    monkeypatch.setattr(tM._DispatchRows, "apply", lambda xf, tok, pos: torch.gather(
+        xf, 1, tok[..., None].expand(*tok.shape, xf.shape[-1])))
+    want = grads()
+    assert len(got) == len(want) == 6
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
