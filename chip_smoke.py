@@ -242,10 +242,29 @@ the JAX package. Every check raises on failure; no phase catches its own.
      many with a plain gather's atomics. Phase 20 runs inside phase 19: its
      measured runs after phase 19's timed steps, while no subprocess runs;
      its checks (a)-(e) while phase 19's grid runs in CPU subprocesses;
- 21. the ``kernels`` JSON line, the card line, and the result line.
+ 21. the Sec. 5 schemes with one reservoir shard a rank of a
+     ``torch.distributed`` group (``repro_torch.launch.ranks``), every rank
+     on the one card, against the stacked form at S = 4 in this process on
+     the same key and stream: (a) D-R-TBS over 4 gloo ranks at phase 16's
+     cell re-sharded (n = 2^20, 4 shards of 2^19 slots, 48 ticks of 65,536
+     arrivals): rank 0's all-gathered final state, params and trace bit for
+     bit, every rank's W_t / C_t from its ticks by hand exact against
+     ``_drtbs_recurrence``, each rank's launches (B1 48, H3 2 x 4 x 48, B2
+     12), ticks/s of both forms; (b) D-T-TBS the same way (H2 48); (c) the
+     D-R-TBS loop over NCCL at world size 1 equal to the stacked form at
+     S = 1, and a fast tick under ``set_sync_debug_mode("error")``; (d) the
+     key-sharded bank at K = 2^20 over 4 gloo ranks, 16 ticks, each rank's
+     digest equal to the stacked row's; (e) the LM driver under ``python -m
+     torch.distributed.run --nproc-per-node 4`` (phase 16's flags at
+     ``--shards 4``, gloo): 8 ticks unbroken, 4 then resumed to 8, logs and
+     the step_8 checkpoint equal to the one-process run's; (f) the
+     collectives of rank 0's profiled fast and retrain ticks of (a), by
+     ``launch.comm_analysis.collective_stats``. Ranks run as child
+     processes with a timeout; a rank that fails fails the phase;
+ 22. the ``kernels`` JSON line, the card line, and the result line.
 
-``python3 chip_smoke.py --only 13,13d,14,15,16,17,18,19,20`` runs only the
-listed phases of 13-20 (no kernels line, no result line).
+``python3 chip_smoke.py --only 13,13d,14,15,16,17,18,19,20,21`` runs only the
+listed phases of 13-21 (no kernels line, no result line).
 
 f32 matrix products run in full f32: TF32 is switched off for matmul and
 cuDNN before any model code runs.
@@ -798,7 +817,7 @@ def phase_nb(torch, np, kernels):
     from repro_torch.data.streams import UsenetLikeStream
     from repro_torch.manage import make_model, make_run_loop, materialize_stream
 
-    n, bcap, T, vocab = 65_535, 4096, 16, 100
+    n, bcap, T, vocab = 65_535, 4096, 8, 100      # 8 ticks (16 before phase 21: time limit)
     t0 = time.perf_counter()
     batches, bcounts = materialize_stream(UsenetLikeStream(seed=0, vocab=vocab), T,
                                           batch_size=bcap)
@@ -3315,13 +3334,14 @@ def _drtbs_recurrence(np, sizes, n, lam):
     return Cs, Ws
 
 
-def _sharded_stream(torch, S, T, b, *, bcap=None, sizes=None, device=None, seed=0):
+def _sharded_stream(torch, S, T, b, *, bcap=None, sizes=None, device=None, seed=0,
+                    rank=None):
     from repro_torch.data.streams import LinRegStream
     from repro_torch.manage import materialize_stream, shard_stream
 
     batches, bcounts = materialize_stream(LinRegStream(seed=seed), T,
                                           batch_size=sizes or b, bcap=bcap, device=device)
-    return shard_stream(batches, bcounts, S, device=device)
+    return shard_stream(batches, bcounts, S, device=device, rank=rank)
 
 
 def phase_sharded(torch, np, kernels, timer, bw, rtbs_ticks_per_s):
@@ -4569,7 +4589,7 @@ ZOO_REPLAY = {"granite_moe_3b"}
 ZOO_FIT_LOSS_RTOL, ZOO_FIT_PARAM_TOL = 2e-5, 1e-4
 
 
-def _digest(torch, tree) -> list[int]:
+def _digest(torch, tree, device="cuda") -> list[int]:
     """One int64 a leaf: the sum, wrapping mod 2^64, of the leaf's words
     (its elements' bits read as integers) times fixed pseudo-random weights
     in [1, 2^31). An integer sum does not depend on its order, so two runs'
@@ -4578,13 +4598,13 @@ def _digest(torch, tree) -> list[int]:
     from torch.utils import _pytree as pytree
 
     chunk = 1 << 24
-    g = torch.Generator(device="cuda").manual_seed(20)
-    w = torch.randint(1, 1 << 31, (chunk,), generator=g, device="cuda", dtype=torch.int64)
+    g = torch.Generator(device=device).manual_seed(20)
+    w = torch.randint(1, 1 << 31, (chunk,), generator=g, device=device, dtype=torch.int64)
     as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     out = []
     for x in pytree.tree_leaves(tree):
         words = x.detach().reshape(-1).view(as_int[x.element_size()])
-        s = torch.zeros((), dtype=torch.int64, device="cuda")
+        s = torch.zeros((), dtype=torch.int64, device=device)
         for lo in range(0, words.numel(), chunk):
             c = words[lo:lo + chunk]
             s += (c.long() * w[:c.numel()]).sum()
@@ -4927,6 +4947,439 @@ class ZooTrain:
               f"{self.t_runs:.1f} s, the checks {self.t_checks:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the Sec. 5 schemes over a process group (ROADMAP A.7): one reservoir shard
+# a rank of a gloo group, every rank on the one card (NCCL refuses two ranks
+# on one GPU), held to the stacked form at S = 4: phase 16's cell (n = 2^20,
+# 65,536 arrivals a tick, 48 ticks) re-sharded to 4 shards of 2^19 slots,
+# D-T-TBS at n_s = n / 4 (cap 4 n_s), phase 18's bank at K = 2^20 over 4
+# shards (16 ticks), and the LM driver under torch.distributed.run
+RK_S, RK_TIMEOUT = 4, 300
+# phase 16's driver flags at --shards 4, cut to 2 layers (the script's time limit)
+RK_TRAIN_FLAGS = [{"--shards": str(RK_S), "--layers": "2"}.get(SHARD_TRAIN_FLAGS[i - 1], f)
+                  for i, f in enumerate(SHARD_TRAIN_FLAGS)]
+
+
+def _rk_cell(small: bool = False) -> dict:
+    """Phase 21's sizes; ``small`` for a rehearsal on the CPU."""
+    if small:
+        return dict(S=RK_S, n=4095, cap_s=2048, T=12, b=256, ns=1024, cap_d=4096, c_T=8,
+                    c_cap_s=4096 + 256, K=4096, bank_n=8, bank_b=512, bank_bcap=8,
+                    bank_T=6, Q=4)
+    return dict(S=RK_S, n=SH_N, cap_s=1 << 19, T=SH_T, b=BCAP_MAIN, ns=SH_N // RK_S,
+                cap_d=4 * (SH_N // RK_S), c_T=8, c_cap_s=SH_N + BCAP_MAIN, K=K_BANK,
+                bank_n=N_BANK, bank_b=B_BANK, bank_bcap=BCAP_BANK, bank_T=16, Q=Q_BANK)
+
+
+def _rk_sampler(scheme: str, c: dict, dev, shards: int):
+    from repro_torch.core.api import make_sampler
+
+    if scheme == "drtbs":
+        cap_s = c["cap_s"] if shards > 1 else c["c_cap_s"]
+        return make_sampler("drtbs", n=c["n"], lam=LAM, cap_s=cap_s, device=dev)
+    return make_sampler("dttbs", n=c["ns"], lam=LAM, batch_size=float(c["b"] // shards),
+                        cap=c["cap_d"], device=dev)
+
+
+def _rk_sync(torch, dev, group: bool = True) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    if group:
+        torch.distributed.barrier()
+
+
+def _rk_run(torch, kernels, scheme, c, mesh, dev, rank, by_hand=False):
+    """One sharded run of ``scheme`` after a warm-up on its first retrain's
+    ticks: ``(state, params, trace, wall s, launches, run, stream, (W_t,
+    C_t))``. ``by_hand`` drives the loop's tick a tick at a time (the trace
+    the loop's, bit for bit) and records W_t and C_t, else None."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import prng
+    from repro_torch.manage import (init_sharded_state, item_proto, make_model,
+                                    make_sharded_manage_step, make_sharded_run_loop)
+
+    S = mesh.num_shards
+    T = c["T"] if S > 1 else c["c_T"]
+    batches, bcounts = _sharded_stream(torch, S, T, c["b"], device=dev, rank=rank)
+    sampler = _rk_sampler(scheme, c, dev, S)
+    model = make_model("linreg", dim=2, device=dev)
+    key = prng.key(21)
+    if by_hand:
+        tick = make_sharded_manage_step(sampler, model, mesh, retrain_every=RETRAIN_EVERY)
+
+        def run(key, batches, bcounts):
+            st, p = init_sharded_state(sampler, mesh, item_proto(batches)), model.init()
+            rows, wc = [], []
+            for t in range(bcounts.shape[0]):
+                st, p, m = tick(key, t, st, p, pytree.tree_map(lambda a: a[t], batches),
+                                bcounts[t])
+                rows.append(m)
+                wc.append((st.total_weight[0], st.weight[0]))
+            trace = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+            return st, p, trace, tuple(torch.stack(x) for x in zip(*wc))
+    else:
+        loop = make_sharded_run_loop(sampler, model, mesh, retrain_every=RETRAIN_EVERY)
+
+        def run(key, batches, bcounts):
+            return loop(key, batches, bcounts) + (None,)
+    run(key, pytree.tree_map(lambda a: a[:RETRAIN_EVERY], batches), bcounts[:RETRAIN_EVERY])
+    _rk_sync(torch, dev, mesh.group is not None)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, params, trace, wc = run(key, batches, bcounts)
+    _rk_sync(torch, dev, False)
+    wall = time.perf_counter() - t0
+    return (state, params, trace, wall, kernels.launches(),
+            (sampler, model, key), (batches, bcounts), wc)
+
+
+def _rk_bank(torch, c, mesh, dev, rank):
+    """Phase 18's key-sharded bank at S = 4: ``(state, params, trace, wall
+    s, launches)``."""
+    from repro_torch import kernels
+    from repro_torch.bank import make_bank
+    from repro_torch.core import prng
+    from repro_torch.data.streams import KeyedStream, LinRegStream
+    from repro_torch.manage import (make_model, make_sharded_bank_loop, materialize_stream,
+                                    shard_keyed_stream)
+
+    S, K = mesh.num_shards, c["K"]
+    kb, kc = materialize_stream(KeyedStream(LinRegStream(seed=0), num_keys=K, alpha=1.1,
+                                            flip_every=50), c["bank_T"],
+                                batch_size=c["bank_b"], fields=("key", "x", "y"), device=dev)
+    sb, sc = shard_keyed_stream(kb, kc, S, K, device=dev, rank=rank)
+    del kb, kc
+    bank = make_bank("rtbs", num_keys=K // S, n=c["bank_n"], lam=LAM_BANK, bcap=c["bank_bcap"],
+                     device=dev)
+    loop = make_sharded_bank_loop(bank, make_model("linreg", dim=2, device=dev), mesh,
+                                  retrain_every=RETRAIN_EVERY, train_keys=range(c["Q"]))
+    _rk_sync(torch, dev, mesh.group is not None)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, params, trace = loop(prng.key(0), sb, sc)
+    _rk_sync(torch, dev, False)
+    return state, params, trace, time.perf_counter() - t0, kernels.launches()
+
+
+def _to_cpu(tree):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda a: a.cpu(), tree)
+
+
+def _p21_ranks(device, out, small=False):
+    """Phase 21 (a), (b), (d) and (f) on one rank of RK_S gloo ranks
+    (``repro_torch.launch.ranks.spawn``): D-R-TBS and D-T-TBS through the
+    sharded loop (rank 0 saves the gathered final state, params and trace),
+    D-R-TBS's ticks by hand (W_t, C_t), rank 0's profiles of a fast and a
+    retrain tick read by ``comm_analysis``, the key-sharded bank loop's
+    digest; every rank writes its launches and times to ``rank<r>.json``."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import kernels
+    from repro_torch.core import distributed
+    from repro_torch.launch import comm_analysis
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.manage import make_sharded_manage_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out)
+    c = _rk_cell(small)
+    mesh = make_data_mesh(c["S"], device=device, group=dist.group.WORLD)
+    r, dev = mesh.rank, mesh.device
+    rec = {"backend": dist.get_backend(), "device": str(dev)}
+    for scheme in ("drtbs", "dttbs"):
+        # D-R-TBS by hand, a tick at a time (W_t and C_t; its trace is the loop's)
+        state, params, trace, wall, launches, (sampler, model, key), (batches, bcounts), wc = \
+            _rk_run(torch, kernels, scheme, c, mesh, dev, r, by_hand=scheme == "drtbs")
+        rec[scheme] = {"wall": wall, "launches": launches}
+        if scheme == "drtbs":
+            tick = make_sharded_manage_step(sampler, model, mesh, retrain_every=RETRAIN_EVERY)
+            rec[scheme]["W"], rec[scheme]["C"] = (x.tolist() for x in wc)
+            # (f) a fast tick and a retrain tick, rank 0 profiled
+            b_t = pytree.tree_map(lambda a: a[-1], batches)
+            rec["comm"] = {}
+            for what, t in (("fast", c["T"]), ("retrain", 4 * RETRAIN_EVERY - 1)):
+                _rk_sync(torch, dev)
+                # the c10d ops are host events: no CUDA activity (CUPTI) in 4 processes
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+                    tick(key, t, state, params, b_t, bcounts[-1])
+                    _rk_sync(torch, dev, False)
+                if r == 0:           # a fault here is reported, and fails the phase, after
+                    try:             # the other parts have run
+                        rec["comm"][what] = comm_analysis.collective_stats(
+                            prof, group_size=c["S"])
+                    except Exception as e:     # noqa: BLE001
+                        rec["comm"][what] = {"error": repr(e)}
+        snap = distributed.gather_tree(state, mesh.shard_axis)
+        if r == 0:
+            torch.save(_to_cpu((snap, params, trace)), out / f"{scheme}.pt")
+        del state, snap, batches
+    state, params, trace, wall, launches = _rk_bank(torch, c, mesh, dev, r)
+    rec["bank"] = {"wall": wall, "launches": launches,
+                   "digest": _digest(torch, (state, params, trace), dev)}
+    (out / f"rank{r}.json").write_text(json.dumps(rec))
+
+
+def _p21_nccl(device, out, small=False):
+    """Phase 21 (c): the D-R-TBS loop at S = 1 over an NCCL group of one
+    rank (rank 0 saves its state, params and trace), then a fast tick under
+    ``set_sync_debug_mode("error")``."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.manage import make_sharded_manage_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = _rk_cell(small)
+    mesh = make_data_mesh(1, device=device, group=dist.group.WORLD)
+    state, params, trace, wall, launches, (sampler, model, key), (batches, bcounts), _ = \
+        _rk_run(torch, kernels, "drtbs", c, mesh, mesh.device, 0)
+    torch.save((_to_cpu((state, params, trace)), wall, launches, dist.get_backend()),
+               Path(out) / "c.pt")
+    tick = make_sharded_manage_step(sampler, model, mesh, retrain_every=RETRAIN_EVERY)
+    b_t = pytree.tree_map(lambda a: a[-1], batches)
+    t_free = c["c_T"]
+    if (t_free + 1) % RETRAIN_EVERY == 0:
+        raise RuntimeError("[21] (c) the sync-check tick must not retrain")
+    tick(key, t_free, state, params, b_t, bcounts[-1])          # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tick(key, t_free, state, params, b_t, bcounts[-1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _start_torchrun(args: list, env: dict, log: Path):
+    """``python -m torch.distributed.run`` in a session of its own, started,
+    its output to ``log``; :func:`_end_torchrun` waits for it."""
+    import subprocess
+
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "torch.distributed.run", *args],
+                                cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+
+def _kill_torchrun(p) -> None:
+    """End the launcher and its ranks, if it still runs: SIGTERM (the
+    launcher ends its ranks, which run in sessions of their own), then
+    SIGKILL to its session."""
+    import os
+    import signal
+    import subprocess
+
+    if p.poll() is None:
+        p.terminate()
+        try:
+            p.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+
+
+def _end_torchrun(p, log: Path, timeout: float) -> None:
+    """Wait up to ``timeout`` s for the launcher; kill it and its ranks if it
+    is still running, and raise unless it exited 0."""
+    import subprocess
+
+    try:
+        p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _kill_torchrun(p)
+        raise RuntimeError(f"torch.distributed.run outlived {timeout} s")
+    check(p.returncode == 0, f"torch.distributed.run exited {p.returncode}:\n"
+          f"{log.read_text()[-4000:]}")
+
+
+_RK_DRIVE = """\
+import json, os, sys
+from repro_torch.launch.train import main
+out, argv = sys.argv[1], sys.argv[2:]
+logs = [main(argv + ["--ticks", "8", "--ckpt-dir", out + "/a"]),
+        main(argv + ["--ticks", "4", "--ckpt-dir", out + "/b"]),
+        main(argv + ["--ticks", "8", "--ckpt-dir", out + "/b", "--resume"])]
+if os.environ["RANK"] == "0":
+    with open(out + "/logs.json", "w") as f:
+        json.dump(logs, f)
+"""
+
+
+def phase_ranks(torch, np, kernels) -> dict:
+    """Phase 21: the Sec. 5 schemes with one reservoir shard a rank, against
+    the stacked form on the same card: (a) D-R-TBS and (b) D-T-TBS over 4
+    gloo ranks, (c) D-R-TBS over NCCL at world size 1, (d) the key-sharded
+    bank over 4 gloo ranks, (e) the LM driver under torch.distributed.run,
+    (f) the collectives of rank 0's profiled ticks."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels._bench import card
+    from repro_torch.launch import ranks, train
+    from repro_torch.launch.mesh import make_data_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    c = _rk_cell()
+    S, T = c["S"], c["T"]
+    dev = torch.device("cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    spawn = dict(device=None, timeout=RK_TIMEOUT, path=[HERE, HERE / "src"], threads=2)
+    res, launcher = {}, None
+    try:
+        # the stacked form at S = 4 in this process: same key, same stream
+        mesh = make_data_mesh(S)
+        ref = {}
+        for scheme in ("drtbs", "dttbs"):
+            st, p, tr, wall, launches, *_ = _rk_run(torch, kernels, scheme, c, mesh, dev, None)
+            ref[scheme] = (_to_cpu((st, p, tr)), wall, launches)
+            del st
+        st, p, tr, bwall, _ = _rk_bank(torch, c, mesh, dev, None)
+        bank_ref = [_digest(torch, _rows_of(torch, (st, p, tr), r), dev) for r in range(S)]
+        del st, p, tr
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks.spawn("chip_smoke:_p21_ranks", S, args=(str(tmp / "a"),), log_dir=tmp / "a",
+                    **spawn)
+        t_abd = time.perf_counter() - t0
+        per = [json.loads((tmp / "a" / f"rank{r}.json").read_text()) for r in range(S)]
+        check(all(x["backend"] == "gloo" and x["device"].startswith("cuda") for x in per),
+              "[21] the ranks' backend or device")
+        nfit = sum((t + 1) % RETRAIN_EVERY == 0 for t in range(T))
+        want = {"drtbs": {"tbs_step_apply": T, "hypergeometric": 2 * S * T,
+                          "reservoir_compact": nfit, "binomial": 0},
+                "dttbs": {"tbs_step_apply": T, "binomial": T, "reservoir_compact": nfit,
+                          "hypergeometric": 0}}
+        Cs, Ws = _drtbs_recurrence(np, [c["b"]] * T, c["n"], LAM)
+        for scheme, tag in (("drtbs", "(a)"), ("dttbs", "(b)")):
+            got = torch.load(tmp / "a" / f"{scheme}.pt", weights_only=False)
+            (rst, rp, rtr), wall, launches = ref[scheme]
+            check(_leaves_equal(torch, got, (rst, rp, rtr)),
+                  f"[21] {tag} {scheme}: rank 0's gathered state, params and trace != the "
+                  "stacked form's")
+            for r, x in enumerate(per):
+                for k, v in want[scheme].items():
+                    check(x[scheme]["launches"][k] == v, f"[21] {tag} rank {r}: {k} launched "
+                          f"{x[scheme]['launches'][k]} times, not {v}")
+            check(launches == per[0][scheme]["launches"],
+                  f"[21] {tag} the stacked run's launches {launches} != a rank's")
+            rwall = max(x[scheme]["wall"] for x in per)
+            res[scheme] = {"ticks_per_s_ranks": T / rwall, "ticks_per_s_stacked": T / wall,
+                           "launches_per_rank": per[0][scheme]["launches"]}
+            print(f"[21] {tag} {scheme} over {S} gloo ranks on one card ({card()}): n "
+                  f"{c['n']}, {T} ticks of {c['b']} arrivals ({c['b'] // S} a shard); rank "
+                  f"0's gathered final state, params and trace == the stacked form at S = "
+                  f"{S} bit for bit; {T / rwall:.2f} ticks/s over ranks (slowest rank), "
+                  f"{T / wall:.2f} ticks/s stacked; each rank's launches "
+                  f"{per[0][scheme]['launches']}")
+        for r, x in enumerate(per):
+            for t in range(T):
+                check(np.float32(x["drtbs"]["W"][t]) == Ws[t] and
+                      np.float32(x["drtbs"]["C"][t]) == Cs[t],
+                      f"[21] (a) rank {r} tick {t}: W, C {x['drtbs']['W'][t]!r}, "
+                      f"{x['drtbs']['C'][t]!r} != {Ws[t]!r}, {Cs[t]!r}")
+        print(f"[21] (a) every rank ran the loop's tick a tick at a time (its trace == the "
+              f"stacked loop's); W_t and C_t == _drtbs_recurrence exactly on all {T} ticks, "
+              "every rank")
+        comm_errors = {w: st["error"] for w, st in per[0]["comm"].items() if "error" in st}
+        for what, st in per[0]["comm"].items():
+            if what not in comm_errors:
+                print(f"[21] (f) rank 0's {what} tick: collectives {st['counts']}, bytes "
+                      f"{ {k: int(v) for k, v in st['bytes'].items()} }")
+        res["comm"] = per[0]["comm"]
+        for r, x in enumerate(per):
+            check(x["bank"]["digest"] == bank_ref[r],
+                  f"[21] (d) rank {r}: the key-sharded bank's state, params or trace != the "
+                  "stacked form's row")
+            check(x["bank"]["launches"]["tbs_step_apply_banked"] == c["bank_T"],
+                  f"[21] (d) rank {r}: B3 not once a tick")
+        bw_r = max(x["bank"]["wall"] for x in per)
+        print(f"[21] (d) key-sharded bank, K = {c['K']} over {S} gloo ranks, {c['bank_T']} "
+              f"ticks of {c['bank_b']}: every rank's state, params and trace digest == the "
+              f"stacked form's row; {c['bank_T'] / bw_r:.2f} ticks/s over ranks, "
+              f"{c['bank_T'] / bwall:.2f} stacked; B3 once a tick a rank")
+        print(f"[21] (a, b, d, f) {S} ranks took {t_abd:.1f} s from spawn to exit")
+        res["bank"] = {"ticks_per_s_ranks": c["bank_T"] / bw_r,
+                       "ticks_per_s_stacked": c["bank_T"] / bwall,
+                       "launches_per_rank": per[0]["bank"]["launches"]}
+
+        # (e) the driver under torch.distributed.run over 4 gloo ranks, started
+        # now and run beside (c) and its one-process twin (the phase's time)
+        (tmp / "e").mkdir()
+        (tmp / "drive.py").write_text(_RK_DRIVE)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(HERE / "src"),
+                                                           os.environ.get("PYTHONPATH", "")]),
+                   GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"),
+                   OMP_NUM_THREADS="2")
+        t_e = time.perf_counter()
+        launcher = _start_torchrun(["--standalone", "--nproc-per-node", str(S),
+                                    str(tmp / "drive.py"), str(tmp / "e")] + RK_TRAIN_FLAGS,
+                                   env, tmp / "e.log")
+
+        # (c) NCCL at world size 1 against the stacked form at S = 1
+        st, p, tr, wall, _, *_ = _rk_run(torch, kernels, "drtbs", c, make_data_mesh(1), dev,
+                                         None)
+        ref_c = _to_cpu((st, p, tr))
+        del st
+        ranks.spawn("chip_smoke:_p21_nccl", 1, args=(str(tmp / "c"),), log_dir=tmp / "c",
+                    **spawn)
+        got_c, cwall, _, backend = torch.load(tmp / "c" / "c.pt", weights_only=False)
+        check(backend == "nccl", "[21] (c) backend")
+        check(_leaves_equal(torch, got_c, ref_c),
+              "[21] (c) the NCCL rank's state, params and trace != the stacked form at S = 1")
+        print(f"[21] (c) drtbs over NCCL at world size 1 (cap_s {c['c_cap_s']}, {c['c_T']} "
+              f"ticks): == the stacked form at S = 1 bit for bit; {c['c_T'] / cwall:.2f} "
+              f"ticks/s, stacked {c['c_T'] / wall:.2f} (both beside (e)'s ranks); a fast tick "
+              "ran under set_sync_debug_mode('error'): no host sync")
+
+        t0 = time.perf_counter()
+        one = train.main(RK_TRAIN_FLAGS + ["--ticks", "8", "--ckpt-dir", str(tmp / "e" / "one")])
+        t_one = time.perf_counter() - t0
+        _end_torchrun(launcher, tmp / "e.log", RK_TIMEOUT)
+        t_e = time.perf_counter() - t_e
+        full, _, resumed = json.loads((tmp / "e" / "logs.json").read_text())
+        check(full == one, "[21] (e) the ranks' log != the one-process run's")
+        check(resumed == full[4:], "[21] (e) the resumed ranks' log != the unbroken run's")
+        ck = [(tmp / "e" / d / "step_8" / "leaves.npz").read_bytes() for d in ("a", "b", "one")]
+        check(ck[0] == ck[2] and ck[1] == ck[2], "[21] (e) rank 0's step_8 checkpoint != "
+              "the one-process run's, byte for byte")
+        print(f"[21] (e) driver under torch.distributed.run --nproc-per-node {S} "
+              f"{' '.join(RK_TRAIN_FLAGS)} (gloo): 8 ticks unbroken, 4 then "
+              f"resumed to 8, in {t_e:.1f} s (3 runs, the launcher's start included, beside "
+              f"(c)); logs == the one-process run's ({t_one:.1f} s), resumed == unbroken, and "
+              f"step_8's checkpoint (the gathered snapshot, JAX's layout) == the one-process "
+              f"run's byte for byte; eval {[round(x['eval_loss'], 4) for x in full]}")
+    finally:
+        if launcher is not None:     # a fault before (e) ended
+            _kill_torchrun(launcher)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not comm_errors, f"[21] (f) comm_analysis on rank 0's trace: {comm_errors}")
+    print(f"[21] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def _rows_of(torch, tree, r: int, dim: int = 0):
+    """Row ``r`` of every leaf (a shard's rows of a stacked state)."""
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda a: a.narrow(dim, r, 1), tree)
+
+
 def _zoo_train_alone(torch, np, kernels) -> None:
     """Phase 20 by itself (``--only 20``): its runs, then its checks."""
     zt = ZooTrain(torch, np, kernels)
@@ -4984,7 +5437,8 @@ def main() -> int:
                        ("17", lambda: phase_zoo(torch, np, kernels, timer, bw)),
                        ("18", lambda: phase_key_sharded(torch, np, kernels)),
                        ("19", lambda: phase_dryrun(torch, np, kernels, timer)),
-                       ("20", lambda: _zoo_train_alone(torch, np, kernels))):
+                       ("20", lambda: _zoo_train_alone(torch, np, kernels)),
+                       ("21", lambda: phase_ranks(torch, np, kernels))):
             if ph in only:
                 fn()
         print(f"chip_smoke: phases {only} only; no kernels line, no result line")
@@ -5021,10 +5475,12 @@ def main() -> int:
     zt = ZooTrain(torch, np, kernels)   # phase 20, run inside phase 19's two parts
     dry_res = phase_dryrun(torch, np, kernels, timer, quiet=zt.runs, busy=zt.checks)
     t_20 = zt.t_runs + zt.t_checks
-    print(f"[21] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 {t_zoo - t_sh:.1f} s, "
+    t_21 = time.perf_counter()
+    rank_res = phase_ranks(torch, np, kernels)
+    print(f"[22] phases 13-15 took {t_sh - t_new:.1f} s, phase 16 {t_zoo - t_sh:.1f} s, "
           f"phase 17 {t_ks - t_zoo:.1f} s, phase 18 {t_dry - t_ks:.1f} s, phases 19 and 20 "
-          f"{time.perf_counter() - t_dry:.1f} s (phase 20 {t_20:.1f} s of it), of "
-          f"{time.perf_counter() - t_all:.1f} s")
+          f"{t_21 - t_dry:.1f} s (phase 20 {t_20:.1f} s of it), phase 21 "
+          f"{time.perf_counter() - t_21:.1f} s, of {time.perf_counter() - t_all:.1f} s")
 
     where = {"tbs_step_apply": ("src/repro_torch/kernels/csrc/tbs_step.cu",
                                 "src/repro/kernels/tbs_step/kernel.py:96"),
@@ -5110,6 +5566,17 @@ def main() -> int:
                         ("binomial", shard_res["dttbs_launches"]["binomial"], "dttbs")):
         rows[list(kres).index(k)]["sharded"] = {"launches": n_, "ticks": SH_T,
                                                 "shards": SH_S, "scheme": path}
+    # the rank form (phase 21): each of 4 gloo ranks' launches over the same 48
+    # ticks (B1, H3, B2 for drtbs; H2 for dttbs), and B3's over the bank's
+    rl = {s_: rank_res[s_]["launches_per_rank"] for s_ in ("drtbs", "dttbs")}
+    for k, path in (("tbs_step_apply", "drtbs"), ("reservoir_compact", "drtbs"),
+                    ("hypergeometric", "drtbs"), ("binomial", "dttbs")):
+        rows[list(kres).index(k)]["ranks"] = {
+            "launches_per_rank": rl[path][k], "ticks": SH_T, "ranks": RK_S, "backend": "gloo",
+            "scheme": path}
+    rows[list(kres).index("tbs_step_apply_banked")]["ranks"] = {
+        "launches_per_rank": rank_res["bank"]["launches_per_rank"]["tbs_step_apply_banked"],
+        "ticks": _rk_cell()["bank_T"], "ranks": RK_S, "backend": "gloo"}
     # B3 on the key-sharded bank loop (phase 18): one launch a tick for all shards
     rows[list(kres).index("tbs_step_apply_banked")]["key_sharded"] = {
         "launches": ks_res["launches"], "ticks": T_BANK, "shards": KS_S,

@@ -17,13 +17,17 @@ Conventions:
     and ``size(key, state)`` is its payload-free size for the same key;
   * keys are :class:`repro_torch.core.prng.Key`; nothing syncs to the host.
 
-A distributed scheme (``distributed=True``) steps every shard of a stacked
-state at once: ``init(item_proto)`` is ONE shard's state
-(:func:`repro_torch.manage.init_sharded_state` stacks S of them), ``step``
-takes the state ``[..., S, ...]``, batch leaves ``[S, bcap_s, ...]`` and
-``bcount`` ``[S]``, ``extract`` / ``size`` give each shard's view, and
-``extract_global`` / ``size_global`` the whole sample, packed to a dense
-prefix through B2.
+A distributed scheme (``distributed=True``) steps the shards of its shard
+axis (``axis=``, :mod:`.distributed`): every shard of a stacked state at
+once (no axis, or a ``StackedAxis``), or a rank's one shard of a process
+group (a ``GroupAxis``; without one a rank's calls raise).
+``init(item_proto)`` is ONE shard's state
+(:func:`repro_torch.manage.init_sharded_state` stacks the process's), ``step``
+takes the state ``[..., S_local, ...]``, batch leaves ``[S_local, bcap_s,
+...]`` and ``bcount`` ``[S_local]``, ``extract`` / ``size`` give each of
+those shards' view, and ``extract_global`` / ``size_global`` the whole
+sample, packed to a dense prefix through B2. :meth:`Sampler.over` rebinds
+the scheme to another axis (the sharded loops bind their mesh's).
 """
 from __future__ import annotations
 
@@ -70,7 +74,9 @@ class Sampler:
     ``distributed`` marks the Sec. 5 schemes (drtbs, dttbs), which also
     set ``extract_global`` / ``size_global``: the realized sample of all
     shards as one :class:`SampleView` packed to ``[0, size)``, and its size
-    for the same key. Local schemes leave them ``None``."""
+    for the same key. Local schemes leave them ``None``. ``axis`` is a
+    distributed scheme's shard axis (None: the stacked axis of the state's
+    shard dimension)."""
 
     scheme: str
     init: Callable[[Any], Any]
@@ -83,10 +89,21 @@ class Sampler:
     distributed: bool = False
     extract_global: Callable[[prng.Key, Any], SampleView] | None = None
     size_global: Callable[[prng.Key, Any], torch.Tensor] | None = None
+    axis: Any = None
+    args: Mapping[str, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     def __repr__(self) -> str:
         hp = ", ".join(f"{k}={v}" for k, v in self.hyper.items())
         return f"Sampler({self.scheme}, {hp})"
+
+    def over(self, axis) -> "Sampler":
+        """This distributed scheme, its closures over the shard ``axis``
+        (a mesh's ``shard_axis``)."""
+        if not self.distributed:
+            raise ValueError(f"{self.scheme} is not a distributed scheme")
+        if axis is self.axis:
+            return self
+        return make_sampler(self.scheme, device=self.device, **{**self.args, "axis": axis})
 
 
 def materialize_view(view: SampleView) -> SampleView:
@@ -123,7 +140,7 @@ def make_sampler(scheme: str, *, device=None, **hyper) -> Sampler:
     if builder is None:
         raise ValueError(
             f"unknown sampling scheme {scheme!r}; available: {available_schemes()}")
-    return builder(device=_device.resolve(device), **hyper)
+    return dataclasses.replace(builder(device=_device.resolve(device), **hyper), args=hyper)
 
 
 def _thread_schedule(sched: DecaySchedule, device: torch.device, *, init,
@@ -306,28 +323,33 @@ def _make_sw(*, n: int, device: torch.device) -> Sampler:
 
 
 # ---------------------------------------------------------------------------
-# distributed schemes (paper Sec. 5): the S shards a leading dimension
+# distributed schemes (paper Sec. 5): the shards along ``axis``
 # ---------------------------------------------------------------------------
 @register("dttbs")
 def _make_dttbs(*, n: int, lam: float | None = None, batch_size: float,
                 cap: int | None = None, decay: DecaySchedule | None = None,
-                device: torch.device) -> Sampler:
+                axis=None, device: torch.device) -> Sampler:
     """D-T-TBS (paper Sec. 5.1): T-TBS on every shard, no coordination.
     ``n`` and ``batch_size`` are PER-SHARD targets; shard s steps with
     ``fold_in(key, s)``."""
     sched = _resolve_schedule(lam, decay)
     cap = 4 * n if cap is None else cap
     hyper = {"n": n, **_decay_hyper(sched, lam), "batch_size": batch_size, "cap": cap}
-    step_d = _ttbs_step_d(n, batch_size, device, step=distributed.dttbs_shard_step)
+
+    def shard_step(key, state, batch_items, bcount, *, p, q):
+        return distributed.dttbs_shard_step(key, state, batch_items, bcount, p=p, q=q,
+                                            axis=axis)
+
+    step_d = _ttbs_step_d(n, batch_size, device, step=shard_step)
 
     def extract_global(key, state):
         del key   # membership is deterministic
-        items, mask, size = distributed.buffer_extract_global(state)
+        items, mask, size = distributed.buffer_extract_global(state, axis)
         return SampleView(items=items, mask=mask, size=size)
 
     def size_global(key, state):
         del key
-        return distributed.psum(state.count)
+        return distributed.psum(state.count, axis)
 
     fields = _thread_schedule(sched, device,
                               init=lambda proto: simple.init(proto, cap), step_d=step_d,
@@ -340,15 +362,17 @@ def _make_dttbs(*, n: int, lam: float | None = None, batch_size: float,
         pt, qt = (torch.full((), v, dtype=torch.float32, device=device) for v in (p, q))
 
         def step(key, state, batch_items, bcount):
-            return distributed.dttbs_shard_step(key, state, batch_items, bcount, p=pt, q=qt)
+            return shard_step(key, state, batch_items, bcount, p=pt, q=qt)
 
         fields["step"] = step
-    return Sampler(scheme="dttbs", hyper=hyper, device=device, distributed=True, **fields)
+    return Sampler(scheme="dttbs", hyper=hyper, device=device, distributed=True, axis=axis,
+                   **fields)
 
 
 @register("drtbs")
 def _make_drtbs(*, n: int, lam: float | None = None, cap_s: int,
-                decay: DecaySchedule | None = None, device: torch.device) -> Sampler:
+                decay: DecaySchedule | None = None, axis=None,
+                device: torch.device) -> Sampler:
     """D-R-TBS (paper Sec. 5.2-5.3): co-partitioned reservoir, distributed
     decisions. ``n`` is the GLOBAL bound, ``cap_s`` the per-shard capacity.
 
@@ -360,10 +384,11 @@ def _make_drtbs(*, n: int, lam: float | None = None, cap_s: int,
     sched = _resolve_schedule(lam, decay)
 
     def step_d(key, state, batch_items, bcount, d):
-        return distributed.drtbs_shard_step(key, state, batch_items, bcount, n=n, decay=d)
+        return distributed.drtbs_shard_step(key, state, batch_items, bcount, n=n, decay=d,
+                                            axis=axis)
 
     def extract(key, state):
-        mask, size, take = distributed.drtbs_realize_shard(key, state)
+        mask, size, take = distributed.drtbs_realize_shard(key, state, axis)
         nl = state.nfull.dim()
         items = pytree.tree_map(lambda a, p: torch.cat([a, p.unsqueeze(nl)], dim=nl),
                                 state.items, state.partial_item)
@@ -371,17 +396,19 @@ def _make_drtbs(*, n: int, lam: float | None = None, cap_s: int,
                           size=size)
 
     def size(key, state):
-        return distributed.drtbs_realize_shard(key, state)[1]
+        return distributed.drtbs_realize_shard(key, state, axis)[1]
 
     def extract_global(key, state):
-        items, mask, size = distributed.drtbs_extract_global(key, state)
+        items, mask, size = distributed.drtbs_extract_global(key, state, axis)
         return SampleView(items=items, mask=mask, size=size)
+
+    def size_global(key, state):
+        return distributed.drtbs_global_size(key, state, axis)
 
     return Sampler(
         scheme="drtbs", hyper={"n": n, **_decay_hyper(sched, lam), "cap_s": cap_s},
-        device=device, distributed=True,
+        device=device, distributed=True, axis=axis,
         **_thread_schedule(sched, device,
                            init=lambda proto: distributed.init_shard(proto, cap_s),
                            step_d=step_d, extract=extract, size=size,
-                           extract_global=extract_global,
-                           size_global=distributed.drtbs_global_size))
+                           extract_global=extract_global, size_global=size_global))

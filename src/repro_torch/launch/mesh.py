@@ -2,10 +2,11 @@
 of the dry run (the JAX package's ``launch/mesh.py``).
 
 JAX lays the reservoir shards over devices along the ``data`` mesh axis.
-The port keeps the S shards as a leading dimension of one device's state
-(:mod:`repro_torch.core.distributed`), so its data mesh is only the shard
-count and the device: the sharded builders keep JAX's ``(sampler, model,
-mesh, ...)`` signature and read both from it.
+The port's data mesh (:func:`make_data_mesh`) lays them along a shard axis
+(:mod:`repro_torch.core.distributed`): a leading dimension of one device's
+state (no group), or one shard a rank of a ``torch.distributed`` process
+group. The sharded builders keep JAX's ``(sampler, model, mesh, ...)``
+signature and read the axis and the device from it.
 
 :func:`make_mesh`, :func:`make_production_mesh` and :func:`make_host_mesh`
 build a :class:`Mesh`: axis names and sizes with no devices behind them,
@@ -24,26 +25,56 @@ import math
 
 import torch
 
+from typing import Any
+
 from repro_torch import _device
-from repro_torch.core.distributed import AXIS
+from repro_torch.core.distributed import AXIS, GroupAxis, StackedAxis
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardMesh:
-    """``num_shards`` reservoir shards along the ``axis`` dimension of one
-    device's state."""
+    """``num_shards`` reservoir shards along the ``axis`` dimension: of one
+    device's state (``group`` None), or one a rank of ``group``.
+    ``shard_axis`` is the :mod:`repro_torch.core.distributed` axis the
+    sharded loops run over."""
 
     num_shards: int
     device: torch.device
     axis: str = AXIS
+    group: Any = None
+
+    def __post_init__(self):
+        ax = StackedAxis(self.num_shards) if self.group is None else GroupAxis(self.group)
+        object.__setattr__(self, "shard_axis", ax)
+
+    @property
+    def local_shards(self) -> int:
+        """The shards this process holds: all of them, or its rank's one."""
+        return self.shard_axis.local
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in ``group`` (0 without one)."""
+        return self.shard_axis.rank
 
 
-def make_data_mesh(shards: int, device=None) -> ShardMesh:
+def make_data_mesh(shards: int | None, device=None, group=None) -> ShardMesh:
     """A 1-D mesh of ``shards`` reservoir shards on ``device`` (``None``:
-    the CUDA card, raising without one)."""
-    if int(shards) < 1:
+    the CUDA card, raising without one). With ``group`` (a
+    ``torch.distributed`` process group, e.g. ``dist.group.WORLD``) the
+    mesh runs over its ranks, one shard each: ``shards`` must be the
+    group's size, or None."""
+    if group is not None:
+        import torch.distributed as dist
+
+        size = dist.get_world_size(group)
+        if shards is not None and int(shards) != size:
+            raise ValueError(f"make_data_mesh: {shards} shards over a group of {size} "
+                             "ranks; one shard a rank")
+        shards = size
+    if shards is None or int(shards) < 1:
         raise ValueError(f"make_data_mesh: shards must be at least 1; got {shards}")
-    return ShardMesh(num_shards=int(shards), device=_device.resolve(device))
+    return ShardMesh(num_shards=int(shards), device=_device.resolve(device), group=group)
 
 
 @dataclasses.dataclass(frozen=True)

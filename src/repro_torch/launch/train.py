@@ -23,10 +23,17 @@ every kernel on the path are deterministic.
 Distributed schemes (``--scheme drtbs|dttbs``, paper Sec. 5): the run goes
 through the sharded loop (:func:`run_sharded`) over ``--shards`` reservoir
 shards (default 8; local schemes ignore it), kept as a leading dimension
-of one card's state. The tick batch is padded to a multiple of the shard
-count; ``--ckpt-dir`` consumes the stream in checkpointed segments through
-:func:`repro_torch.manage.make_sharded_resume_loop` and ``--resume``
-continues them bit for bit.
+of one card's state. Under ``python -m torch.distributed.run
+--nproc-per-node S`` (``WORLD_SIZE`` set) each rank holds one shard
+instead (:mod:`repro_torch.launch.ranks`; ``--shards`` must equal the
+world size; the backend is gloo where the ranks outnumber the cards, which
+NCCL refuses, else NCCL), the port's counterpart of JAX's re-exec over S devices;
+rank 0 prints and writes the checkpoints and telemetry, and every rank's
+state is row ``rank`` of the one-process run's. The tick batch is padded to
+a multiple of the shard count; ``--ckpt-dir`` consumes the stream in
+checkpointed segments through
+:func:`repro_torch.manage.make_sharded_resume_loop` (the gathered snapshot,
+JAX's layout) and ``--resume`` continues them bit for bit.
 
 Decay: ``--decay exp`` (default; rate ``--lam``) or ``--decay poly``
 (power-law, exponent ``--beta``); ``--adaptive`` switches to the
@@ -58,6 +65,9 @@ Examples (on the card):
       --preset smoke --ticks 20 --scheme rtbs --num-keys 4096 --train-keys 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
       --preset smoke --ticks 12 --scheme drtbs --shards 8 --retrain-every 4
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --arch mamba2_370m \\
+      --preset smoke --ticks 12 --scheme drtbs --shards 4
 """
 from __future__ import annotations
 
@@ -74,9 +84,10 @@ from repro_torch import config as C
 from repro_torch import decay as dk
 from repro_torch.bank import make_bank
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
-from repro_torch.core import prng
+from repro_torch.core import distributed, prng
 from repro_torch.core.api import available_schemes, make_sampler
 from repro_torch.data.streams import KeyedStream, TokenDriftStream, mode_schedule
+from repro_torch.launch import ranks
 from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.manage import (
     init_sharded_state, item_proto, make_bank_run_loop, make_sgd_adapter,
@@ -166,7 +177,8 @@ def parse_args(argv=None):
                     choices=["rtbs", "sw", "brs", "btbs", "ttbs", "drtbs", "dttbs"])
     ap.add_argument("--shards", type=int, default=8,
                     help="reservoir shards of the distributed schemes (a leading "
-                         "dimension of one card's state); local schemes ignore it")
+                         "dimension of one card's state, or one a rank under "
+                         "torch.distributed.run); local schemes ignore it")
     ap.add_argument("--num-keys", type=int, default=0,
                     help="multi-tenant mode: maintain one per-key time-biased "
                          "sample for this many entities (repro_torch.bank; "
@@ -248,7 +260,7 @@ def build_model(args, device, cfg=None):
     return cfg, api, adapter
 
 
-def _log_sharded_trace(trace, t0, mode_of, log, telemetry=None):
+def _log_sharded_trace(trace, t0, mode_of, log, telemetry=None, echo=True):
     metric = trace["metric"].cpu().numpy()
     size = trace["size"].cpu().numpy()
     dec = trace["decay"].cpu().numpy() if "decay" in trace else None
@@ -265,8 +277,9 @@ def _log_sharded_trace(trace, t0, mode_of, log, telemetry=None):
             telemetry.emit({"kind": "tick", "t": t, "metric": float(metric[i]),
                             "size": int(size[i]),
                             **({"decay": float(dec[i])} if dec is not None else {})})
-        print(f"[train] tick={t:4d} mode={mode_of(t)} eval={float(metric[i]):7.4f} "
-              f"|S|={int(size[i]):5d}{extra}", flush=True)
+        if echo:
+            print(f"[train] tick={t:4d} mode={mode_of(t)} eval={float(metric[i]):7.4f} "
+                  f"|S|={int(size[i]):5d}{extra}", flush=True)
     if telemetry is not None:
         telemetry.flush()
 
@@ -277,16 +290,18 @@ def _sampler_first(tree: tuple) -> tuple:
     return (tree[1], tree[0]) + tuple(tree[2:])
 
 
-def run_sharded(args, adapter, cfg, sampler, controller, device):
+def run_sharded(args, adapter, cfg, sampler, controller, device, group=None):
     """The Sec. 5 path: every tick's batch co-partitioned over ``--shards``
     shards, then stream -> per-shard sample update -> periodic retrain on
-    the global view -> prequential eval through the sharded loop. Without
+    the global view -> prequential eval through the sharded loop, over one
+    card's stacked shards or, with ``group``, one shard a rank. Without
     ``--ckpt-dir`` the stream is one run of
     :func:`repro_torch.manage.make_sharded_run_loop`; with it, the stream
     is consumed in ``--ckpt-every``-tick segments (rounded up to the retrain
     cadence) through :func:`repro_torch.manage.make_sharded_resume_loop`,
-    the gathered snapshot saved after each, and ``--resume`` restarts bit
-    for bit."""
+    the gathered snapshot saved after each (all-gathered, written by rank
+    0), and ``--resume`` restarts bit for bit (every rank restores its rows
+    of the snapshot)."""
     S, dev = args.shards, device
     # main() rounded batch_per_tick up to a multiple of S: the sampler's
     # rates and the padding-free shard segments both depend on it
@@ -296,22 +311,26 @@ def run_sharded(args, adapter, cfg, sampler, controller, device):
     def mode_of(t):
         return 0 if args.drift == "none" else mode_schedule(args.drift, t)
 
+    mesh = make_data_mesh(S, device=dev, group=group)
+    lead = mesh.rank == 0            # prints, checkpoints, telemetry and profiles
     batches, bcounts = materialize_stream(stream, args.ticks, batch_size=args.batch_per_tick,
                                           mode=mode_of, device=dev)
-    batches, bcounts = shard_stream(batches, bcounts, S, device=dev)
-    mesh = make_data_mesh(S, device=dev)
+    batches, bcounts = shard_stream(batches, bcounts, S, device=dev,
+                                    rank=None if group is None else mesh.rank)
+    form = f"{S} shards" if group is None else f"{S} ranks, one shard each"
     key = prng.key(args.seed)
     log = []
-    telemetry = build_telemetry(args)
+    telemetry = build_telemetry(args) if lead else None
     if not args.ckpt_dir:
         run = make_sharded_run_loop(sampler, adapter, mesh, retrain_every=args.retrain_every,
                                     superbatch=args.superbatch, controller=controller,
                                     telemetry=telemetry)
-        print(f"[train] sharded {args.scheme} loop: {S} shards, {args.ticks} ticks, "
-              "one run", flush=True)
-        with profile_cm(args):
+        if lead:
+            print(f"[train] sharded {args.scheme} loop: {form}, {args.ticks} ticks, "
+                  "one run", flush=True)
+        with profile_cm(args) if lead else contextlib.nullcontext():
             _, _, trace = run(key, batches, bcounts)
-        _log_sharded_trace(trace, 0, mode_of, log)
+        _log_sharded_trace(trace, 0, mode_of, log, echo=lead)
         if telemetry is not None:
             telemetry.close()
         return log
@@ -319,7 +338,7 @@ def run_sharded(args, adapter, cfg, sampler, controller, device):
     seg = -(-args.ckpt_every // args.retrain_every) * args.retrain_every
     resume = make_sharded_resume_loop(sampler, adapter, mesh, retrain_every=args.retrain_every,
                                       superbatch=args.superbatch, controller=controller)
-    state = init_sharded_state(sampler, S, item_proto(batches))
+    state = init_sharded_state(sampler, mesh, item_proto(batches))
     params = adapter.init()
     cstate = controller.init(dev) if controller is not None else None
     start_tick = 0
@@ -331,9 +350,12 @@ def run_sharded(args, adapter, cfg, sampler, controller, device):
             tree = restore_checkpoint(args.ckpt_dir, last, like)
             params, state, cstate, start_tick = convert.train_checkpoint_from_numpy(
                 cfg, _sampler_first(tree), device=dev)
-            print(f"[train] resumed sharded run from step {last} (tick {start_tick})")
-    print(f"[train] sharded {args.scheme} loop: {S} shards, {args.ticks} ticks, "
-          f"{seg}-tick checkpointed segments", flush=True)
+            state = distributed.local_rows(state, mesh.shard_axis)
+            if lead:
+                print(f"[train] resumed sharded run from step {last} (tick {start_tick})")
+    if lead:
+        print(f"[train] sharded {args.scheme} loop: {form}, {args.ticks} ticks, "
+              f"{seg}-tick checkpointed segments", flush=True)
     if telemetry is not None:
         telemetry.open_run({"scheme": args.scheme, "ticks": args.ticks, "segment": seg,
                             "every": telemetry.every, "backend": dev.type, "jax": None,
@@ -348,14 +370,18 @@ def run_sharded(args, adapter, cfg, sampler, controller, device):
         state, params, *aux, trace = resume(key, state, params, *aux, cut(batches, t0, t1),
                                             bcounts[t0:t1], t0)
         cstate = aux[0] if aux else None
-        _log_sharded_trace(trace, t0, mode_of, log, telemetry=telemetry)
+        _log_sharded_trace(trace, t0, mode_of, log, telemetry=telemetry, echo=lead)
         # only retrain-aligned ticks are resume points (the resume loop
         # requires t0 % G == 0, G | retrain_every): a misaligned final
         # segment is not saved, and a later --resume replays it
         if t1 % args.retrain_every == 0:
-            ckpt.save(t1, _sampler_first(
-                convert.train_checkpoint_to_numpy(params, state, cstate, t1)))
+            snap = distributed.gather_tree(state, mesh.shard_axis)
+            if lead:
+                ckpt.save(t1, _sampler_first(
+                    convert.train_checkpoint_to_numpy(params, snap, cstate, t1)))
     ckpt.wait()
+    if group is not None:            # every checkpoint is on disk before any rank returns
+        torch.distributed.barrier(group=group)
     if telemetry is not None:
         telemetry.close()
     return log
@@ -369,8 +395,8 @@ def run_bank(args, adapter, cfg, device):
     :func:`repro_torch.manage.make_bank_run_loop` over a Zipf-keyed token
     stream with per-key drift phases."""
     if args.ckpt_dir or args.resume:
-        raise SystemExit("--num-keys has no checkpoint/resume path yet (ROADMAP bank "
-                         "follow-up (c)); drop --ckpt-dir/--resume for bank runs")
+        raise SystemExit("--num-keys has no checkpoint/resume path yet (ROADMAP A "
+                         "item 3); drop --ckpt-dir/--resume for bank runs")
     K, Q = args.num_keys, min(args.train_keys, args.num_keys)
     stream = KeyedStream(
         base=TokenDriftStream(seed=args.seed, vocab=cfg.vocab_size, seq_len=args.seq_len),
@@ -558,13 +584,23 @@ def main(argv=None, device=None):
         cfg, _, adapter = build_model(args, dev)
         return run_bank(args, adapter, cfg, dev)
     if args.scheme in DISTRIBUTED_SCHEMES:
-        dev = _device.resolve(device)
+        group = None
+        if ranks.launched():         # one shard a rank (torch.distributed.run)
+            import torch.distributed as dist
+
+            dev = ranks.init(device=device)
+            if args.shards != dist.get_world_size():
+                raise SystemExit(f"--shards {args.shards} under a launcher of "
+                                 f"{dist.get_world_size()} ranks: one shard a rank")
+            group = dist.group.WORLD
+        else:
+            dev = _device.resolve(device)
         cfg, _, adapter = build_model(args, dev)
         sched, controller = build_decay(args)
         sampler = build_sampler(args.scheme, n=args.reservoir, lam=args.lam,
                                 batch_per_tick=args.batch_per_tick, shards=args.shards,
                                 decay=sched, device=dev)
-        return run_sharded(args, adapter, cfg, sampler, controller, dev)
+        return run_sharded(args, adapter, cfg, sampler, controller, dev, group)
 
     run = LocalRun(args, device)
     ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None

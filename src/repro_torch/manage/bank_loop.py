@@ -36,12 +36,15 @@ The key-sharded loop (:func:`make_sharded_bank_loop`, JAX's
 ``make_sharded_bank_loop``) splits the KEYS over S shards instead of the
 batch: shard s owns the contiguous key range [s K_s, (s + 1) K_s) with its
 own local bank and model (farm), the stream co-partitioned by key
-ownership (:func:`shard_keyed_stream`). The S banks are one key-sharded
-bank (:func:`repro_torch.bank.shard_bank`) whose state carries a leading
-[S] dimension, so one bank step a tick covers every shard (one B3 launch);
-the tick routes only the tick's valid rows, at most the stream's largest
-tick (read on the host once, before the first tick). Each shard's models
-are evaluated and fit on its own rows and keys.
+ownership (:func:`shard_keyed_stream`). A process's banks are one
+key-sharded bank (:func:`repro_torch.bank.shard_bank`) whose state carries
+a leading shard dimension, all S shards on the stacked mesh or the rank's
+one over a process group, so one bank step a tick covers the process's
+shards (one B3 launch); the tick routes only the tick's valid rows, at
+most the stream's largest tick (read on the host once, before the first
+tick). Each shard's models are evaluated and fit on its own rows and keys:
+the fits stay with their shard, and the shared metric's sum is the only
+traffic between ranks.
 """
 from __future__ import annotations
 
@@ -308,24 +311,24 @@ def _stack_shards(trees: list) -> Any:
     return pytree.tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
-def _shards_metric(model: ModelAdapter) -> Callable:
+def _shards_metric(model: ModelAdapter, axis) -> Callable:
     """The key-sharded loop's shared metric: shard s's model evaluated on
-    shard s's rows, the shards' metrics weighted by their shares of the
-    tick's arrivals ``w_s / sum(w)``, NaN only when the GLOBAL tick is
-    empty. JAX divides the weighted sum by ``sum(w)`` instead
-    (``loop.py:_psum_metric``); taking the shares first keeps one shard's
-    metric exact, so at S = 1 the metric is the local loop's bit for bit
-    (ROADMAP C.19)."""
+    shard s's rows, the shards' metrics (all-gathered over the shard axis)
+    weighted by their shares of the tick's arrivals ``w_s / sum(w)``, NaN
+    only when the GLOBAL tick is empty. JAX divides the weighted sum by
+    ``sum(w)`` instead (``loop.py:_psum_metric``); taking the shares first
+    keeps one shard's metric exact, so at S = 1 the metric is the local
+    loop's bit for bit (ROADMAP C.19)."""
 
     def metric_of(params, batch_s, bcount):
-        S = bcount.shape[-1]
+        L = bcount.shape[-1]
         m_s = torch.stack([model.evaluate(_shard_of(params, s), _shard_of(batch_s, s),
-                                          bcount[s]) for s in range(S)])
-        w_s = bcount.to(torch.float32)
+                                          bcount[s]) for s in range(L)])
+        m_s, w_s = axis.all_gather_many((torch.where(bcount > 0, m_s, 0.0),
+                                         bcount.to(torch.float32)))
         den = w_s.sum()
         share = w_s / torch.clamp(den, min=1.0)
-        return torch.where(den > 0, (torch.where(bcount > 0, m_s, 0.0) * share).sum(),
-                           torch.nan)
+        return torch.where(den > 0, (m_s * share).sum(), torch.nan)
 
     return metric_of
 
@@ -336,21 +339,23 @@ def make_sharded_bank_manage_step(bank: SamplerBank, model: ModelAdapter, mesh, 
                                   _with_obs: bool = False) -> Callable:
     """ONE tick of the key-sharded loop: ``(key, t, state, params, batch,
     bcount) -> (state, params, metrics)``, the tick :func:`make_sharded_bank_loop`
-    runs. ``state`` is the gathered key-sharded bank state (leaves [S, K_s,
-    ...]), ``params`` [S, ...] ([S, Q, ...] per key), ``batch`` a
-    co-partitioned keyed tick (``"key"`` [S * b_s], local ids) and
-    ``bcount`` [S]. ``metrics``: ``"metric"`` [S] (the global metric on
-    every shard; [S, Q] per key, shard-local), ``"size"`` [S, Q],
-    ``"overflow"`` [S]. ``rows`` is the routed batch size (default S *
-    b_s), at least the tick's valid count. Consumes ``state``."""
-    S = mesh.num_shards
-    sbank = shard_bank(bank, S)
+    runs. ``state`` is the process's rows of the gathered key-sharded bank
+    state (leaves [S_local, K_s, ...]), ``params`` [S_local, ...]
+    ([S_local, Q, ...] per key), ``batch`` a co-partitioned keyed tick
+    (``"key"`` [S_local * b_s], local ids) and ``bcount`` [S_local].
+    ``metrics``: ``"metric"`` [S_local] (the global metric on every shard;
+    [S_local, Q] per key, shard-local), ``"size"`` [S_local, Q],
+    ``"overflow"`` [S_local]. ``rows`` is the routed batch size (default
+    S_local * b_s), at least the tick's valid count. Consumes ``state``."""
+    ax = mesh.shard_axis
+    L = ax.local
+    sbank = shard_bank(bank, L)
     tk = _as_train_keys(train_keys, bank.num_keys, bank.device)
     Q = tk.shape[0]
-    gk = (torch.arange(S, device=bank.device).unsqueeze(-1) * bank.num_keys + tk).reshape(-1)
+    gk = (torch.arange(L, device=bank.device).unsqueeze(-1) * bank.num_keys + tk).reshape(-1)
     v_eval = torch.func.vmap(model.evaluate)
     v_fit = torch.func.vmap(model.fit)
-    shared_metric = _shards_metric(model)
+    shared_metric = _shards_metric(model, ax)
 
     def tick(key, t: int, state, params, batch, bcount):
         k_step, k_extract, k_fit = tick_keys(key, t)
@@ -363,25 +368,25 @@ def make_sharded_bank_manage_step(bank: SamplerBank, model: ModelAdapter, mesh, 
             if per_key:
                 windows, counts = _train_windows(bstats["routing"], bstats["payload"],
                                                  bank.bcap, gk)
-                windows = pytree.tree_map(lambda a: a.reshape((S, Q) + tuple(a.shape[1:])),
+                windows = pytree.tree_map(lambda a: a.reshape((L, Q) + tuple(a.shape[1:])),
                                           windows)
-                counts = counts.reshape(S, Q)
+                counts = counts.reshape(L, Q)
                 metric = torch.stack([v_eval(_shard_of(params, s), _shard_of(windows, s),
-                                             counts[s]) for s in range(S)])
+                                             counts[s]) for s in range(L)])
             else:
-                metric = shared_metric(params, distributed.split_batch(payload, S),
-                                       bcount).expand(S)
+                metric = shared_metric(params, distributed.split_batch(payload, L),
+                                       bcount).expand(L)
         if do_fit:
             with _scope("manage.retrain"):
                 view = sbank.extract(k_extract, state, tk)
                 if per_key:
                     ks = prng.key_rows(k_fit, Q, bank.device)
                     params = _stack_shards([v_fit(ks, _shard_of(params, s), _shard_of(view, s))
-                                            for s in range(S)])
+                                            for s in range(L)])
                 else:
                     params = _stack_shards([model.fit(k_fit, _shard_of(params, s),
                                                       pooled_view(_shard_of(view, s)))
-                                            for s in range(S)])
+                                            for s in range(L)])
         with _scope("manage.size"):
             metrics = {"metric": metric, "size": sbank.size(k_extract, state, tk),
                        "overflow": bstats["overflow"]}
@@ -401,27 +406,29 @@ def make_sharded_bank_loop(bank: SamplerBank, model: ModelAdapter, mesh, *,
 
       * ``bank`` is the LOCAL bank of one shard (``num_keys`` = K_s = K /
         S), ``mesh`` the port's :func:`repro_torch.launch.mesh.make_data_mesh`
-        of S shards;
+        of S shards (stacked, or one a rank of its group);
       * ``batches`` / ``bcounts``: the co-partitioned keyed stream of
-        :func:`shard_keyed_stream` (leaves [T, S * b_s, ...], local key
-        ids; [T, S]);
+        :func:`shard_keyed_stream` (leaves [T, S_local * b_s, ...], local
+        key ids; [T, S_local]; a rank's segment with ``rank=``);
       * ``train_keys``: LOCAL ids, the same subset on every shard; every
         shard uses tick t's same keys (:func:`.loop.tick_keys`), and each
         key draws from them with its local id folded in (ROADMAP C.18);
-      * outputs in JAX's gathered form: ``state`` leaves [S, K_s, ...],
-        ``params`` [S, ...] (per key [S, Q, ...]), every ``trace`` leaf
-        [S, T, ...]: ``"metric"`` (shared: the |B_t|-weighted global
+      * outputs in JAX's gathered form, the process's rows of it: ``state``
+        leaves [S_local, K_s, ...], ``params`` [S_local, ...] (per key
+        [S_local, Q, ...]), every ``trace`` leaf [S_local, T, ...]: ``"metric"`` (shared: the |B_t|-weighted global
         metric, the same row on every shard; per key: each shard's keys'
         own), ``"size"`` [S, T, Q], ``"overflow"`` [S, T].
 
     ``bcounts`` is read on the host once, before the first tick, to size
     the routed batch (the largest tick). ``telemetry`` drains shard 0's
-    view (its bank, its key range, its rows), as
+    view (its bank, its key range, its rows; rank 0 over a group), as
     :func:`.loop.make_sharded_run_loop` does; the outputs stay
     bit-identical. ``superbatch`` is accepted for JAX's signature and
     changes nothing."""
     del superbatch
     _check_telemetry(telemetry)
+    if mesh.rank != 0:
+        telemetry = None
     train_keys = list(train_keys)
     stats_fn = None
     if telemetry is not None:
@@ -437,14 +444,14 @@ def make_sharded_bank_loop(bank: SamplerBank, model: ModelAdapter, mesh, *,
                         _shard0(state), carry, m0)
 
     def run(key: prng.Key, batches: Any, bcounts: torch.Tensor):
-        S = _check_mesh(mesh, bcounts)
+        L = _check_mesh(mesh, bcounts)
         rows = max(int(bcounts.sum(-1).max()), 1)   # the one host read
         tick = make_sharded_bank_manage_step(
             bank, model, mesh, retrain_every=retrain_every, train_keys=train_keys,
             per_key=per_key, rows=rows, _with_obs=telemetry is not None)
         params = _stacked(model.init(), len(train_keys)) if per_key else model.init()
-        params = _stacked(params, S)
-        state = shard_bank(bank, S).init(keyed_item_proto(batches))
+        params = _stacked(params, L)
+        state = shard_bank(bank, L).init(keyed_item_proto(batches))
         on_tick = finish = None
         if telemetry is not None:
             on_tick, finish = _telemetry_hook(
@@ -461,7 +468,7 @@ def make_sharded_bank_loop(bank: SamplerBank, model: ModelAdapter, mesh, *,
 
 
 def shard_keyed_stream(batches: Any, bcounts, num_shards: int, num_keys: int, *,
-                       bcap_s: int | None = None, device=None):
+                       bcap_s: int | None = None, device=None, rank: int | None = None):
     """Re-pack a materialized KEYED stream into the key-ownership layout
     :func:`make_sharded_bank_loop` consumes (the JAX package's
     ``shard_keyed_stream``).
@@ -473,7 +480,8 @@ def shard_keyed_stream(batches: Any, bcounts, num_shards: int, num_keys: int, *,
     LOCALIZED to the shard's range. Returns ``(batches, bcounts)`` on
     ``device`` (None: the CUDA card): leaves [T, S * bcap_s, ...]
     zero-padded per segment and [T, S] int64; ``bcap_s`` defaults to the
-    largest per-shard count."""
+    largest per-shard count. With ``rank``, only that shard's segment:
+    leaves [T, bcap_s, ...] and [T, 1]."""
     if num_keys % num_shards:
         raise ValueError(f"num_keys={num_keys} must divide evenly over "
                          f"num_shards={num_shards} contiguous key ranges")
@@ -494,20 +502,22 @@ def shard_keyed_stream(batches: Any, bcounts, num_shards: int, num_keys: int, *,
     bcap_s = max(need, 1) if bcap_s is None else bcap_s
     if need > bcap_s:
         raise ValueError(f"per-shard keyed batch {need} exceeds bcap_s={bcap_s}")
+    if rank is not None and not 0 <= rank < S:
+        raise ValueError(f"rank {rank} is not a shard of {S}")
+    keep = range(S) if rank is None else [rank]
 
     def repack(leaf, localize=False):
         leaf = host(leaf)
-        out = np.zeros((T, S * bcap_s) + leaf.shape[2:], leaf.dtype)
+        out = np.zeros((T, len(keep) * bcap_s) + leaf.shape[2:], leaf.dtype)
         for t in range(T):
-            off = 0
-            for s in range(S):
+            starts = np.concatenate([[0], np.cumsum(counts[t])])
+            for i, s in enumerate(keep):
                 c = int(counts[t, s])
-                seg = leaf[t, sel[t][off:off + c]]
+                seg = leaf[t, sel[t][starts[s]:starts[s] + c]]
                 if localize:
                     seg = seg - leaf.dtype.type(s * ks)
-                out[t, s * bcap_s:s * bcap_s + c] = seg
-                off += c
+                out[t, i * bcap_s:i * bcap_s + c] = seg
         return torch.from_numpy(out).to(dev)
 
     out = {f: repack(v, localize=(f == KEY_FIELD)) for f, v in batches.items()}
-    return out, torch.from_numpy(counts).to(dev)
+    return out, torch.from_numpy(np.ascontiguousarray(counts[:, list(keep)])).to(dev)

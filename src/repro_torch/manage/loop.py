@@ -37,16 +37,19 @@ bit-identical to ``telemetry=None``.
 The sharded loops (paper Sec. 5; :func:`make_sharded_run_loop`,
 :func:`make_sharded_manage_step`, :func:`make_sharded_run_farm`,
 :func:`make_sharded_resume_loop`) run the same tick over a distributed
-sampler (drtbs, dttbs) whose S reservoir shards are a leading dimension of
-its state (:mod:`repro_torch.core.distributed`): tick t's arrivals are
-co-partitioned, batch leaves ``[S * bcap_s, ...]`` with shard s owning rows
-``[s * bcap_s, (s + 1) * bcap_s)`` and ``bcount`` ``[S]``
-(:func:`shard_stream` builds the layout). The metric is the
+sampler (drtbs, dttbs) along the mesh's shard axis
+(:mod:`repro_torch.core.distributed`): the S reservoir shards a leading
+dimension of one process's state, or one a rank of the mesh's process
+group. Tick t's arrivals are co-partitioned: batch leaves ``[S_local *
+bcap_s, ...]`` with the process's shard l owning rows ``[l * bcap_s, (l +
+1) * bcap_s)`` and ``bcount`` ``[S_local]`` (:func:`shard_stream` builds
+the layout, a rank's segment with ``rank=``). The metric is the
 |B_t|-weighted sum of the shards' metrics, NaN only when the global tick
-is empty; retraining fits the global sample (``extract_global``) and the
-logged size is ``size_global``. The state they take and return is the
-gathered snapshot (every leaf ``[S, ...]``), so fused, per-tick and
-resumed runs compose bit for bit.
+is empty; retraining fits the global sample (``extract_global``, the same
+on every rank) and the logged size is ``size_global``. The state they take
+and return is the process's rows of the gathered snapshot (every leaf
+``[S_local, ...]``), so fused, per-tick and resumed runs compose bit for
+bit, and a rank's equals row ``rank`` of the stacked run's.
 """
 from __future__ import annotations
 
@@ -380,11 +383,13 @@ def _check_sharded(sampler: Sampler) -> None:
 
 
 def _check_mesh(mesh, bcounts: torch.Tensor) -> int:
-    S = mesh.num_shards
-    if bcounts.shape[-1] != S:
-        raise ValueError(f"the mesh has {S} shards; the stream's bcounts have "
-                         f"{bcounts.shape[-1]} (shard_stream(..., num_shards={S}))")
-    return S
+    """The process's shard count, checked against the stream's."""
+    L = mesh.local_shards
+    if bcounts.shape[-1] != L:
+        raise ValueError(f"the mesh holds {L} of its {mesh.num_shards} shards here; the "
+                         f"stream's bcounts have {bcounts.shape[-1]} (shard_stream(..., "
+                         f"num_shards={mesh.num_shards}), with rank= over a group)")
+    return L
 
 
 def _effective_superbatch(superbatch: int | None, retrain_every: int) -> int:
@@ -397,18 +402,21 @@ def _effective_superbatch(superbatch: int | None, retrain_every: int) -> int:
     return g
 
 
-def _psum_metric(model: ModelAdapter) -> Callable:
+def _psum_metric(model: ModelAdapter, axis) -> Callable:
     """The sharded loops' prequential metric: the |B_t|-weighted sum of the
-    shards' metrics over the shard dimension, NaN only when the GLOBAL tick
-    is empty. ``model.evaluate`` runs once a shard on its rows."""
+    shards' metrics over the shard axis, NaN only when the GLOBAL tick is
+    empty. ``model.evaluate`` runs once a local shard on its rows; the
+    weighted terms are all-gathered and summed in shard order."""
 
     def metric_of(params, batch_s, bcount):
-        S = bcount.shape[-1]
+        L = bcount.shape[-1]
         m_s = torch.stack([model.evaluate(params, pytree.tree_map(lambda a: a[s], batch_s),
-                                          bcount[s]) for s in range(S)], dim=-1)
+                                          bcount[s]) for s in range(L)], dim=-1)
         w_s = bcount.to(torch.float32)
-        num = distributed.psum(torch.where(bcount > 0, m_s, 0.0) * w_s)
-        den = distributed.psum(w_s)
+        terms = torch.where(bcount > 0, m_s, 0.0) * w_s
+        terms, w_all = axis.all_gather_many((terms, w_s.expand(terms.shape)))
+        num = terms.sum(-1)
+        den = w_all.sum(-1)
         return torch.where(den > 0, num / torch.clamp(den, min=1.0), torch.nan)
 
     return metric_of
@@ -419,33 +427,38 @@ def make_sharded_manage_step(sampler: Sampler, model: ModelAdapter, mesh, *,
     """ONE tick of the sharded loop: ``(key, t, state, params, batch_t,
     bcount_t) -> (state, params, metrics)``, with a controller ``(key, t,
     state, params, cstate, batch_t, bcount_t) -> (state, params, cstate,
-    metrics)``. ``state`` is the gathered snapshot (every leaf ``[S,
-    ...]``) the fused loop returns, ``batch_t`` leaves ``[S * bcap_s,
-    ...]``, ``bcount_t`` ``[S]``. The fused loop runs this tick, so per-tick
-    and fused runs are bit-identical."""
+    metrics)``. ``state`` is the process's rows of the gathered snapshot
+    (every leaf ``[S_local, ...]``) the fused loop returns, ``batch_t``
+    leaves ``[S_local * bcap_s, ...]``, ``bcount_t`` ``[S_local]``. The
+    tick runs over the mesh's shard axis (``sampler.over(mesh.shard_axis)``);
+    the fused loop runs this tick, so per-tick and fused runs are
+    bit-identical."""
     _check_sharded(sampler)
     if controller is not None:
         _check_controllable(sampler)
-    S = mesh.num_shards
-    body = _tick_body(sampler, retrain_every, controller, evaluate=_psum_metric(model),
+    ax = mesh.shard_axis
+    sampler = sampler.over(ax)
+    body = _tick_body(sampler, retrain_every, controller, evaluate=_psum_metric(model, ax),
                       fit=model.fit, extract=sampler.extract_global, size=sampler.size_global)
 
     def sharded(key, t: int, state, params, cstate, batch_items, bcount):
-        return body(key, t, state, params, cstate, distributed.split_batch(batch_items, S),
-                    bcount)
+        return body(key, t, state, params, cstate,
+                    distributed.split_batch(batch_items, ax.local), bcount)
 
     return _carry_form(sharded, controller)
 
 
-def init_sharded_state(sampler: Sampler, num_shards: int, proto: Any) -> Any:
+def init_sharded_state(sampler: Sampler, shards, proto: Any) -> Any:
     """The t = 0 state in the gathered form the sharded loops take:
-    ``sampler.init(proto)`` stacked on a leading [S] dimension."""
-    return _stacked(sampler.init(proto), num_shards)
+    ``sampler.init(proto)`` stacked on a leading shard dimension of
+    ``shards`` rows (a count, or a mesh: the shards this process holds)."""
+    return _stacked(sampler.init(proto), getattr(shards, "local_shards", shards))
 
 
 def _shard0(state: Any) -> Any:
-    """Shard 0's view of a gathered state (the stream JAX's sharded
-    telemetry keeps)."""
+    """The process's first shard's view of a state (shard 0's on the
+    stacked axis and on rank 0: the stream JAX's sharded telemetry
+    keeps)."""
     return pytree.tree_map(lambda a: a[0], state)
 
 
@@ -455,19 +468,24 @@ def make_sharded_run_loop(sampler: Sampler, model: ModelAdapter, mesh, *,
     """The paper's loop over a sharded sampler: ``run(key, batches,
     bcounts) -> (state, params, trace)``.
 
-      * ``batches``: leaves ``[T, S * bcap_s, ...]``, tick t's arrivals
-        co-partitioned (:func:`shard_stream`); ``bcounts`` ``[T, S]`` (empty
-        shards are fine: the schemes sum the global |B_t|);
-      * ``state``: the final gathered snapshot (every leaf ``[S, ...]``);
+      * ``batches``: leaves ``[T, S_local * bcap_s, ...]``, tick t's
+        arrivals co-partitioned (:func:`shard_stream`); ``bcounts`` ``[T,
+        S_local]`` (empty shards are fine: the schemes sum the global
+        |B_t|); ``S_local`` is S on the stacked mesh, 1 on a rank's;
+      * ``state``: the process's rows of the final gathered snapshot (every
+        leaf ``[S_local, ...]``);
       * ``params`` / ``trace``: as :func:`make_run_loop`'s.
 
     ``controller`` threads the closed-loop decay controller, fed the
     summed global metric; ``telemetry`` adds one stats row a tick, shard
-    0's gauges (JAX keeps shard 0's stream), the outputs bit-identical.
-    ``superbatch`` changes nothing (no compiled scan to chunk)."""
+    0's gauges (JAX keeps shard 0's stream; over a group only rank 0
+    writes), the outputs bit-identical. ``superbatch`` changes nothing (no
+    compiled scan to chunk)."""
     del superbatch
     _check_sharded(sampler)
     _check_telemetry(telemetry)
+    if mesh.rank != 0:
+        telemetry = None
     tick = make_sharded_manage_step(sampler, model, mesh, retrain_every=retrain_every,
                                     controller=controller)
     stats_fn = None
@@ -478,9 +496,9 @@ def make_sharded_run_loop(sampler: Sampler, model: ModelAdapter, mesh, *,
             return base(t, batch, bcount[0], _shard0(state), carry, m)
 
     def run(key: prng.Key, batches: Any, bcounts: torch.Tensor):
-        S = _check_mesh(mesh, bcounts)
+        L = _check_mesh(mesh, bcounts)
         carry = () if controller is None else (controller.init(sampler.device),)
-        state = init_sharded_state(sampler, S, item_proto(batches))
+        state = init_sharded_state(sampler, L, item_proto(batches))
         on_tick = finish = None
         if telemetry is not None:
             on_tick, finish = _telemetry_hook(
@@ -512,12 +530,12 @@ def make_sharded_run_farm(sampler: Sampler, model: ModelAdapter, mesh, *,
         _check_controllable(sampler)
 
     def farm(key: prng.Key, trials: int, batches: Any, bcounts: torch.Tensor):
-        S = _check_mesh(mesh, bcounts)
+        L = _check_mesh(mesh, bcounts)
         tick = make_sharded_manage_step(sampler, _per_trial(model, trials), mesh,
                                         retrain_every=retrain_every, controller=controller)
         dev = sampler.device
         carry = () if controller is None else (_stacked(controller.init(dev), trials),)
-        state0 = _stacked(init_sharded_state(sampler, S, item_proto(batches)), trials)
+        state0 = _stacked(init_sharded_state(sampler, L, item_proto(batches)), trials)
         states, params, *_, trace = _drive(
             tick, prng.key_rows(key, trials, dev), state0,
             [model.init() for _ in range(trials)], carry, batches, bcounts)
@@ -560,7 +578,7 @@ def make_sharded_resume_loop(sampler: Sampler, model: ModelAdapter, mesh, *,
 
 
 def shard_stream(batches: Any, bcounts, num_shards: int, *, bcap_s: int | None = None,
-                 device=None):
+                 device=None, rank: int | None = None):
     """Re-pack a :func:`materialize_stream` output into the co-partitioned
     layout the sharded loops consume (the JAX package's ``shard_stream``).
 
@@ -569,7 +587,9 @@ def shard_stream(batches: Any, bcounts, num_shards: int, *, bcap_s: int | None =
     S)``; uneven and empty shards are fine). Returns ``(batches,
     bcounts)`` on ``device`` (None: the CUDA card), leaves ``[T, S *
     bcap_s, ...]`` zero-padded per shard segment and ``[T, S]`` int64;
-    ``bcap_s`` defaults to the largest per-shard count."""
+    ``bcap_s`` defaults to the largest per-shard count. With ``rank``, only
+    that shard's segment: leaves ``[T, bcap_s, ...]`` and ``[T, 1]``, the
+    same ``bcap_s`` on every rank (a rank's run needs every shard's)."""
     dev = _device.resolve(device)
     host = lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)  # noqa: E731
     bcounts = host(bcounts)
@@ -583,16 +603,19 @@ def shard_stream(batches: Any, bcounts, num_shards: int, *, bcap_s: int | None =
     bcap_s = max(need, 1) if bcap_s is None else bcap_s
     if need > bcap_s:
         raise ValueError(f"per-shard batch {need} exceeds bcap_s={bcap_s}")
+    if rank is not None and not 0 <= rank < S:
+        raise ValueError(f"rank {rank} is not a shard of {S}")
+    keep = range(S) if rank is None else [rank]
 
     def repack(leaf):
         leaf = host(leaf)
-        out = np.zeros((T, S * bcap_s) + leaf.shape[2:], leaf.dtype)
+        out = np.zeros((T, len(keep) * bcap_s) + leaf.shape[2:], leaf.dtype)
         for t in range(T):
-            off = 0
-            for s in range(S):
+            starts = np.concatenate([[0], np.cumsum(counts[t])])
+            for i, s in enumerate(keep):
                 c = int(counts[t, s])
-                out[t, s * bcap_s:s * bcap_s + c] = leaf[t, off:off + c]
-                off += c
+                out[t, i * bcap_s:i * bcap_s + c] = leaf[t, starts[s]:starts[s] + c]
         return torch.from_numpy(out).to(dev)
 
-    return pytree.tree_map(repack, batches), torch.from_numpy(counts).to(dev)
+    return (pytree.tree_map(repack, batches),
+            torch.from_numpy(np.ascontiguousarray(counts[:, list(keep)])).to(dev))

@@ -59,6 +59,7 @@ MODULES = [
     "repro_torch.configs.whisper_large_v3", "repro_torch.models.moe",
     "repro_torch.models.hybrid", "repro_torch.models.encdec",
     "repro_torch.sharding", "repro_torch.launch.hw", "repro_torch.launch.dryrun",
+    "repro_torch.launch.ranks", "repro_torch.launch.comm_analysis",
 ]
 
 
@@ -95,7 +96,7 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.decay import decay_profile, exponential
     from repro_torch.bank import make_bank
     from repro_torch.config import get_smoke_config
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import ranks, serve, train
     from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.manage import make_model, materialize_stream
     from repro_torch.models import zoo
@@ -122,6 +123,8 @@ def test_entry_points_raise_without_a_card():
                  lambda: serve.main(["--gen", "1"]),
                  lambda: serve.main(["--arch", "stablelm_12b", "--gen", "1"]),
                  lambda: train.main(["--arch", "mamba2_370m", "--ticks", "1"]),
+                 lambda: ranks.rank_device(),
+                 lambda: ranks.init(rank=0, world_size=1),
                  lambda: convert.kv_caches_from_numpy(api.cfg, **kv),
                  lambda: convert.encdec_caches_from_numpy(api.cfg, kv, ([0.0], [0.0])),
                  lambda: convert.hybrid_caches_from_numpy(
